@@ -1,0 +1,151 @@
+"""Where a steady sampler epoch spends its time on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_profile.py``. It needs one
+CUDA card and ``nvcc``, and imports torch, ``tensorbnn_tpu_torch`` and
+``chip_smoke`` (for its model constructors and ``chunk_runner``). For each
+cell it runs the chunk runner with the kernels that ``sample_posterior``
+picks:
+
+- ``flagship``: 1-10-10-10-1 tanh, fixed sd, 64 chains, (eps, L) =
+  (1e-3, 100), 100 hyper steps per epoch: K1 + K2;
+- ``wide_deep``: 10x256 tanh over 128 rows, learned sd, 64 chains,
+  (eps, L) = (1e-5, 20), 5 hyper steps per epoch (the JAX bench's shape,
+  hyper step 1e-4): K3 + K2.
+
+It reports, per epoch: the wall time over three unprofiled windows (host
+clock after a synchronize), the enqueue time (until the runner returns),
+and under ``torch.profiler`` the device's busy time (the union of kernel
+and copy intervals), each kernel group's time and launches (K1, K2, K3,
+and the torch ops around them), the kernels that take the most time, and
+the idle share, 1 - busy / median wall. One JSON line per cell.
+"""
+
+import json
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+import torch
+
+#: kernel-name substrings of each hand-written kernel
+GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
+          ("K3", ("gemm_kernel", "gaussian_tail_kernel")))
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: kernels listed by name, the most expensive first
+TOP_KERNELS = 8
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "torch"
+
+
+def timed(run, carry, eps, steps, epochs, gen):
+    """(carry, enqueue ms, wall ms) per epoch over one window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = run(carry, eps, steps, epochs, gen)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return carry, 1e3 * (t1 - t0) / epochs, 1e3 * (t2 - t0) / epochs
+
+
+def device_breakdown(run, carry, eps, steps, epochs, gen):
+    """Busy ms, per-group and top per-kernel ms and launches per epoch,
+    from a chrome trace of ``epochs`` profiled epochs."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        carry, _ = run(carry, eps, steps, epochs, gen)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    groups, kernels = {}, {}
+    for e in events:
+        name = e.get("name", "")
+        g = group_of(name) if e["cat"] == "kernel" else "copy"
+        for table, key in ((groups, g), (kernels, name[:100])):
+            ms, n = table.get(key, (0.0, 0))
+            table[key] = (ms + float(e["dur"]) / 1e3, n + 1)
+    group_rows = {g: {"ms": ms / epochs, "launches": n / epochs}
+                  for g, (ms, n) in sorted(groups.items())}
+    top = [[name, ms / epochs, n / epochs] for name, (ms, n) in
+           sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
+    return carry, busy / 1e3 / epochs, group_rows, top
+
+
+def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card):
+    carry, _ = run(carry, eps, steps, warm, gen)
+    enqueue, wall = [], []
+    for _ in range(3):
+        carry, e_ms, w_ms = timed(run, carry, eps, steps, window, gen)
+        enqueue.append(e_ms)
+        wall.append(w_ms)
+    carry, busy, groups, top = device_breakdown(run, carry, eps, steps,
+                                                profiled, gen)
+    if not torch.isfinite(carry.theta).all():
+        raise AssertionError(f"{name}: the chains left the finite range")
+    median = statistics.median(wall)
+    out = {"cell": name, "card": card, "wall_ms_per_epoch": wall,
+           "enqueue_ms_per_epoch": enqueue, "device_busy_ms_per_epoch": busy,
+           "idle_share": 1.0 - busy / median, "groups": groups,
+           "top_kernels": top}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device is available", file=sys.stderr)
+        return 2
+    from chip_smoke import card_line, chunk_runner, flagship_network, \
+        wide_network
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    for name, build, eps, steps, hyper_steps, hyper_eps, sizes in (
+            ("flagship", flagship_network, 1e-3, 100, 100, 1e-3,
+             (10, 50, 20)),
+            ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3))):
+        net, lik = build(dev)
+        params, hypers = net.init_state()
+        flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+        run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps)
+        carry = init_multichain_state(flat.theta, flat.eta, hyper_eps, 64,
+                                      gen, jitter=0.01)
+        cell(name, run, carry, eps, steps, *sizes, gen, card)
+        del run, carry, net
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

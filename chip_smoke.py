@@ -11,14 +11,27 @@ script exits non-zero:
    flagship shapes, from a flagship Network's state: 64 chains with shared
    (eps, L) = (1e-2, 13) and (1e-3, 100), 512 chains with per-chain
    (eps, L) in 4 groups;
-4. K2 (the fused hyper-block trajectory) against its twin at 64 and 512
-   chains, 100 steps;
-5. the sampler through ``Network.train``: a 3-epoch run through the
-   kernels against the same run on the plain path (same seed, same
-   draws), then, with the kernels' launch counts reset, the flagship at
-   64 chains (one adapter) and at 512 chains (4 adapters);
-6. times: each kernel against its twin (CUDA events), and the steady
-   64-chain leapfrog rate at (eps, L) = (1e-3, 100).
+4. K2 (the fused hyper-block trajectory) against its twin at the hyper
+   block of each main path, from the stats of that model's own state: the
+   flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
+   flagship at 64 chains, 30 steps, and ``wide_deep`` (the 10x256 model of
+   benchmarks/run_benchmarks.py) at 64 chains, 5 steps (both coupled);
+5. K3 (the per-step potential) against its twin at ``wide_deep`` (128
+   rows, 64 chains, per-chain learned sd, weights from a Network's init),
+   the flagship (64 chains, fixed sd) and a ragged stack; then one
+   ``wide_deep`` trajectory through K3 against the plain ``torch.func``
+   potential;
+6. the sampler through ``Network.train``: a 3-epoch run through K1 and K2
+   against the same run on the plain path (same seed, same draws), then
+   each main path with the kernels' launch counts set to 0 just before it
+   and read just after: the flagship at 64 chains (one adapter) and at 512
+   chains (4 adapters) on K1 + K2; ``wide_deep`` on K3 + K2 (6 epochs,
+   (eps, L) = (1e-5, 20)), then on the plain path as a witness of its
+   hyper acceptance; the learned-sd flagship on K3 + K2;
+7. times: each kernel against its twin (CUDA events), K3 against the
+   same value and gradient through cuBLAS (the twin) and torch.func, the
+   steady 64-chain leapfrog rates of the flagship at (eps, L) = (1e-3,
+   100) and of ``wide_deep`` at (1e-5, 20).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +52,19 @@ K1_TOL = ((1e-3, 1e-4), (1e-3, 1e-3), (1e-4, 1e-3), (1e-4, 1e-2))
 # K2 over 100 steps, kernel vs twin in float32: (rtol, atol) for q, v,
 # lp0, lp1 (tests/test_torch_cuda.py)
 K2_TOL = ((1e-4, 1e-3),) * 4
+# K3 against its twin: (rtol, atol) for ll and grad, the tolerances of
+# tests/test_fused_mlp.py:33-36
+K3_TOL = ((1e-4, 1e-4), (1e-3, 1e-4))
+# At wide_deep the gradient reaches ~4e5 and each element is a float32 sum
+# of 128 or 256 products of that scale, so an element that cancels to near
+# zero keeps a rounding error of ~1e-7 of the largest ones: the kernel and
+# the twin each differ from a float64 twin by up to ~6e-7 x max |grad| (on
+# an H100 80GB HBM3). There the grad's atol grows by 2e-6 x max |grad|.
+K3_WIDE_ATOL = 2e-6
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
+# tensor cores, and HBM3
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 # the verify recipe's sampler settings (.claude/skills/verify/SKILL.md)
 RECIPE = dict(burnin=200, leapfrog_start=100, leapfrog_min=20,
               leapfrog_max=500, leapfrog_increment=5, averaging_steps=10,
@@ -57,9 +83,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_network(device, seed=0):
+def flagship_network(device, seed=0, learned_sd=False):
     from tensorbnn_tpu_torch import FixedGaussianLikelihood, \
-        GaussianDenseLayer, Network, Tanh
+        GaussianDenseLayer, GaussianLikelihood, Network, Tanh
     x = np.linspace(-2, 2, 11).astype(np.float32)
     y = (np.sin(x * math.pi * 2) * x - np.cos(x * math.pi)).astype(
         np.float32)
@@ -68,15 +94,76 @@ def flagship_network(device, seed=0):
     net.add(GaussianDenseLayer(10, 10)).add(Tanh())
     net.add(GaussianDenseLayer(10, 10)).add(Tanh())
     net.add(GaussianDenseLayer(10, 1))
+    if learned_sd:
+        return net, GaussianLikelihood(sd=0.1)
     return net, FixedGaussianLikelihood(sd=0.1)
 
 
-def compare(name, got, want, tols):
+def wide_network(device, seed=0):
+    """``wide_deep`` of benchmarks/run_benchmarks.py:128-164: 9 x (dense
+    256 -> 256, tanh), dense 256 -> 1, over 128 rows of N(0, 1) data, under
+    a learned-sd Gaussian likelihood (sd 0.1)."""
+    from tensorbnn_tpu_torch import GaussianDenseLayer, GaussianLikelihood, \
+        Network, Tanh
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(128, 256)).astype(np.float32)
+    y = rng.normal(size=(128, 1)).astype(np.float32)
+    net = Network(torch.float32, 256, x, y, x, y, seed=seed, device=device)
+    for _ in range(9):
+        net.add(GaussianDenseLayer(256, 256)).add(Tanh())
+    net.add(GaussianDenseLayer(256, 1))
+    return net, GaussianLikelihood(sd=0.1)
+
+
+def chunk_runner(net, lik, flat, hyper_steps, hyper_eps):
+    """The chunk runner of ``(net, lik)`` with the kernels that
+    ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
+    hyper block), ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``:
+    the steady rates here and the profile of chip_profile.py."""
+    from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+
+    h = flat.eta.numel()
+    x, y = net.train_x, net.train_y
+    traj = fused_mlp.try_build_fused_trajectory(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+    vg = None if traj else fused_mlp.try_build_fused_main_vg(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+    hyper = fused_hyper.try_build_fused_hyper_trajectory(
+        net.model, lik, flat.unravel_eta, h, hyper_steps)
+    assert (traj or vg) and hyper, "a kernel declined its model"
+    return make_multichain_chunk_runner(
+        net.model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+        adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
+        hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
+        batched_main_vg=vg, batched_hyper_traj=hyper)
+
+
+def dual_averaging_steps(accepts, eps0, burnin):
+    """The hyper step after each epoch under the JAX package's dual
+    averaging (tensorbnn_tpu/sampler/gibbs.py:274-280, mu from
+    parallel/chains.py:144: target 0.95, gamma 0.4, t0 10, kappa 0.75, mu =
+    log(100 eps0), frozen from 80% of burn-in), in float64 on the host, for
+    per-epoch acceptances that every chain shares."""
+    mu = math.log(100.0 * eps0)
+    h = log_bar = 0.0
+    step, steps = eps0, []
+    for m, acc in enumerate(accepts, 1):
+        h = (1.0 - 1.0 / (m + 10.0)) * h + (0.95 - acc) / (m + 10.0)
+        log_eps = mu - h * math.sqrt(m) / 0.4
+        log_bar = (1.0 - m ** -0.75) * log_bar + m ** -0.75 * log_eps
+        if m < 0.8 * burnin:
+            step = math.exp(log_bar)
+        steps.append(step)
+    return steps
+
+
+def compare(name, got, want, tols, labels=("q", "v", "lp0", "lp1")):
     """Max abs error of the kernel's outputs against the twin's; raises
     unless every output is within its (rtol, atol)."""
     worst = 0.0
-    for label, g, w, (rtol, atol) in zip(("q", "v", "lp0", "lp1"), got,
-                                         want, tols):
+    for label, g, w, (rtol, atol) in zip(labels, got, want, tols):
         if not torch.isclose(g, w, rtol=rtol, atol=atol,
                              equal_nan=True).all():
             bad = (g - w).abs().max().item()
@@ -88,6 +175,43 @@ def compare(name, got, want, tols):
             worst = max(worst, (g - w)[both].abs().max().item())
     print(f"{name}: max abs err {worst:.3e}")
     return worst
+
+
+def bound(flops, nbytes):
+    """(ms, what sets it): the least time for ``flops`` float32 operations
+    and ``nbytes`` moved, at the card's published peaks."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def product_flops(ops, n):
+    """Float32 operations of one likelihood value and gradient per chain:
+    the multiply-adds of the forward products, the weight gradients and
+    the input gradients (none for the first layer), 2 FLOP each, plus the
+    bias adds and sums (activations and the tail, under 1%, are left
+    out)."""
+    dense = [(op[1], op[2]) for op in ops if op[0] == "dense"]
+    fwd = sum(2 * n * a * b + n * b for a, b in dense)
+    return 2 * fwd + sum(2 * n * a * b for a, b in dense[1:])
+
+
+def torch_func_potential(model, unravel_theta, x, y):
+    """``f(thetas (C, D), sd (C,)) -> (ll, grad)``: the Gaussian
+    likelihood's gradient and value through ``torch.func`` (cuBLAS batched
+    products under vmap, autograd's backward), timed beside K3; the port
+    never calls it on the card path."""
+    from torch.func import grad_and_value, vmap
+
+    from tensorbnn_tpu_torch.distributions import gaussian_logprob
+
+    def loglik(theta, sd):
+        preds = model.apply(unravel_theta(theta), x)
+        return gaussian_logprob(torch.ones_like(preds) * sd, preds,
+                                y.reshape(preds.shape))
+
+    vg = vmap(grad_and_value(loglik))
+    return lambda thetas, sd: vg(thetas, sd)[::-1]
 
 
 def cuda_ms(fn, reps=10):
@@ -118,10 +242,11 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from tensorbnn_tpu_torch.ops import _build, fused_hyper, fused_mlp
-    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
-        make_multichain_chunk_runner
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.hmc import leapfrog_batched
     from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
-    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
+        make_potentials
 
     phase("2 build")
     t0 = time.perf_counter()
@@ -137,9 +262,7 @@ def main() -> int:
     program = fused_mlp.build_trajectory_program(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, h,
         n_rows=x.shape[0])
-    hyper_program = fused_hyper.build_hyper_program(
-        net.model, lik, flat.unravel_eta, h, 100)
-    assert program is not None and hyper_program is not None
+    assert program is not None
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def k1_inputs(c):
@@ -174,26 +297,123 @@ def main() -> int:
         k1_shapes[label] = (program, args, eps_c, l_c)
 
     phase("4 K2 against its twin")
-    stats_fn, _ = make_stats_hyper(net.model, lik, x, y, flat.unravel_theta,
-                                   flat.unravel_eta, h)
+    wnet, wlik = wide_network(dev)
+    wparams, whypers = wnet.init_state()
+    wflat = flatten_state(wparams, whypers, wlik.init_hypers(device=dev))
+    wd, wh = wflat.theta.numel(), wflat.eta.numel()
+    wx, wy = wnet.train_x, wnet.train_y
+    c_w = 64
+    # chains spread around the Network's init; per-chain learned sd
+    w_thetas = wflat.theta + 0.01 * torch.randn((c_w, wd), generator=gen,
+                                                device=dev)
+    w_etas = wflat.eta.expand(c_w, wh).clone()
+    w_etas[:, -1] *= 1.0 + 0.05 * torch.randn(c_w, generator=gen,
+                                              device=dev)
+    lnet0, llik0 = flagship_network(dev, learned_sd=True)
+    lparams, lhypers = lnet0.init_state()
+    lflat = flatten_state(lparams, lhypers, llik0.init_hypers(device=dev))
+    l_thetas = lflat.theta + 0.1 * torch.randn((64, lflat.theta.numel()),
+                                               generator=gen, device=dev)
+    l_etas = lflat.eta + 0.05 * torch.randn((64, lflat.eta.numel()),
+                                            generator=gen, device=dev)
+    # each main path's hyper block, with the stats of its own model's state
+    # and its own step count; eps is the step its run starts from
+    k2_cases = [(f"K2 C={c} n_steps=100", net, lik, flat, 100, 1e-3, False,
+                 flat.theta + 0.1 * torch.randn((c, d), generator=gen,
+                                                device=dev),
+                 flat.eta + 0.05 * torch.randn((c, h), generator=gen,
+                                               device=dev))
+                for c in (64, 512)]
+    k2_cases += [
+        ("K2 coupled learned-sd flagship C=64 H=17 n_steps=30", lnet0,
+         llik0, lflat, 30, 1e-2, True, l_thetas, l_etas),
+        ("K2 coupled wide_deep C=64 H=41 n_steps=5", wnet, wlik, wflat, 5,
+         1e-4, True, w_thetas, w_etas)]
     k2_err = 0.0
     k2_shapes = {}
-    for c in (64, 512):
-        thetas = flat.theta + 0.1 * torch.randn((c, d), generator=gen,
-                                                device=dev)
-        etas = flat.eta + 0.05 * torch.randn((c, h), generator=gen,
-                                             device=dev)
+    for label, knet, klik, kflat, n_steps, eps, coupled, thetas, etas in \
+            k2_cases:
+        c, kh = etas.shape
+        prog = fused_hyper.build_hyper_program(knet.model, klik,
+                                               kflat.unravel_eta, kh, n_steps)
+        assert prog is not None and prog.coupled == coupled, label
+        stats_fn, _ = make_stats_hyper(knet.model, klik, knet.train_x,
+                                       knet.train_y, kflat.unravel_theta,
+                                       kflat.unravel_eta, kh)
         args = (etas, stats_fn(thetas),
-                torch.randn((c, h), generator=gen, device=dev),
-                torch.full((c,), 1e-3, device=dev))
-        got = fused_hyper.fused_hyper_trajectory(hyper_program, *args)
-        want = fused_hyper.hyper_trajectory_plain(hyper_program, *args)
+                torch.randn((c, kh), generator=gen, device=dev),
+                torch.full((c,), eps, device=dev))
+        got = fused_hyper.fused_hyper_trajectory(prog, *args)
+        want = fused_hyper.hyper_trajectory_plain(prog, *args)
         torch.cuda.synchronize()
-        label = f"K2 C={c} n_steps=100"
         k2_err = max(k2_err, compare(label, got, want, K2_TOL))
-        k2_shapes[label] = (hyper_program, args)
+        k2_shapes[label] = (prog, args)
 
-    phase("5 the sampler through Network.train")
+    phase("5 K3 against its twin")
+    wide_ops = (("dense", 256, 256), ("tanh", 256)) * 9 + (("dense", 256,
+                                                             1),)
+    ragged_ops = (("dense", 3, 37), ("relu", 37), ("dense", 37, 70),
+                  ("elu", 70), ("dense", 70, 1))
+    _, _, d_rag = fused_mlp._program_dims(ragged_ops)
+    k3_inputs = {
+        "K3 wide_deep C=64 N=128": (
+            wide_ops, w_thetas, w_etas[:, -1] ** 2, wx, wy),
+        "K3 flagship C=64 N=11": (
+            program.ops, 0.3 * torch.randn((64, d), generator=gen,
+                                           device=dev),
+            torch.full((64,), 0.1, device=dev), x, y),
+        "K3 ragged 3-37-70-1 C=5 N=13": (
+            ragged_ops, 0.3 * torch.randn((5, d_rag), generator=gen,
+                                          device=dev),
+            0.1 + 0.2 * torch.rand(5, generator=gen, device=dev),
+            torch.randn((13, 3), generator=gen, device=dev),
+            torch.randn((13, 1), generator=gen, device=dev)),
+    }
+    k3_err = 0.0
+    k3_shapes = {}
+    for label, (ops, thetas, sd_c, xs, ys) in k3_inputs.items():
+        vg = fused_mlp.make_fused_potential_vg(ops, xs.shape[0])
+        got = vg(thetas, sd_c, xs, ys)
+        want = fused_mlp.potential_plain(ops, thetas, sd_c, xs, ys)
+        torch.cuda.synchronize()
+        tols = K3_TOL
+        if label.startswith("K3 wide_deep"):
+            scale = want[1].abs().max().item()
+            tols = (K3_TOL[0], (K3_TOL[1][0],
+                                K3_TOL[1][1] + K3_WIDE_ATOL * scale))
+            print(f"{label}: grad atol {tols[1][1]:.3e} "
+                  f"(max |grad| {scale:.3e})")
+        k3_err = max(k3_err, compare(label, got, want, tols,
+                                     labels=("ll", "grad")))
+        k3_shapes[label] = (vg, ops, thetas, sd_c, xs, ys)
+
+    # one wide_deep trajectory through K3 (plus the priors outside it)
+    # against the plain torch.func potential, from the same start and
+    # momenta
+    wide_vg = fused_mlp.try_build_fused_main_vg(
+        wnet.model, wlik, wflat.unravel_theta, wflat.unravel_eta, wx, wy,
+        eta_dim=wh)
+    assert wide_vg is not None
+    assert fused_mlp.try_build_fused_trajectory(
+        wnet.model, wlik, wflat.unravel_theta, wflat.unravel_eta, wx, wy,
+        wh) is None
+    pots = make_potentials(wnet.model, wlik, wx, wy, wflat.unravel_theta,
+                           wflat.unravel_eta)
+    w_mom = torch.randn((c_w, wd), generator=gen, device=dev)
+    trajs = []
+    for vg_fn in (lambda q: wide_vg(q, w_etas, wx, wy),
+                  lambda q: pots.main_vg(q, w_etas)):
+        start = vg_fn(w_thetas)
+        q, v, lp1, _ = leapfrog_batched(vg_fn, w_thetas, w_mom, 1e-5, 20,
+                                        start=start)
+        trajs.append((q, v, start[0], lp1))
+    torch.cuda.synchronize()
+    k3_err = max(k3_err, compare(
+        "K3 wide_deep trajectory (eps, L)=(1e-05, 20) vs torch.func",
+        trajs[0], trajs[1], K1_TOL))
+    del trajs, pots
+
+    phase("6 the sampler through Network.train")
     # (a) three epochs through the kernels against the same three epochs
     # on the plain path: the same seed gives both the same draws
     short = {}
@@ -215,9 +435,23 @@ def main() -> int:
     print("3 epochs: kernels agree with the plain path (rtol 1e-3, "
           "atol 1e-4)")
 
-    # (b) the main path; launches counted from here
-    fused_mlp.fused_trajectory.LAUNCHES = 0
-    fused_hyper.fused_hyper_trajectory.LAUNCHES = 0
+    counted = {"K1": fused_mlp.fused_trajectory,
+               "K2": fused_hyper.fused_hyper_trajectory,
+               "K3": fused_mlp.fused_potential}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.LAUNCHES = 0
+
+    def read_counts(path):
+        torch.cuda.synchronize()
+        got = {name: fn.LAUNCHES for name, fn in counted.items()}
+        print(f"launches during the {path} path: {got}")
+        return got
+
+    # (b) the flagship on K1 + K2; launches counted from here
+    reset_counts()
     runs = {}
     for n_chains, n_adapters, epochs in ((64, 1, 800), (512, 4, 300)):
         net5, lik5 = flagship_network(dev)
@@ -227,12 +461,10 @@ def main() -> int:
                          n_adapters=n_adapters, verbose=False)
         torch.cuda.synchronize()
         runs[n_chains] = (net5, res)
-    launches = {"K1": fused_mlp.fused_trajectory.LAUNCHES,
-                "K2": fused_hyper.fused_hyper_trajectory.LAUNCHES}
-    print(f"launches during the main path: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+    launches = read_counts("flagship (K1 + K2)")
+    if min(launches["K1"], launches["K2"]) < 1 or launches["K3"]:
+        raise AssertionError(f"the flagship path did not run on K1 + K2 "
+                             f"alone: {launches}")
     for n_chains, (net5, res) in runs.items():
         post = slice(RECIPE["burnin"], None)
         main_acc = float(res.main_accept[post].mean())
@@ -242,7 +474,7 @@ def main() -> int:
               f"{res.wall_time:.2f} s, {steps / res.wall_time:,.0f} main "
               f"leapfrog steps/sec; post-burn-in main acceptance "
               f"{main_acc:.4f}, hyper acceptance {hyper_acc:.4f}")
-        assert res.fused_main and res.fused_hyper
+        assert res.main_path == "K1" and res.fused_hyper
         assert res.theta_samples.shape[1:] == (n_chains, d)
         assert np.isfinite(res.theta_samples).all()
         assert np.isfinite(res.eta_samples).all()
@@ -258,34 +490,125 @@ def main() -> int:
     print(f"64 chains: posterior predictive RMSE {rmse:.4f} over "
           f"{thetas.shape[0]} networks")
     assert rmse < 0.3, rmse
+    del runs, net64, res64, thetas, preds
 
-    phase("6 times")
+    # (c) wide_deep on K3 + K2: 64 chains, (eps, L) = (1e-5, 20) held
+    # (no adapter change within 6 epochs at averaging_steps 10), hyper
+    # step 1e-4 and chain jitter 0.01 as the JAX bench runs it
+    wide_mcmc = dict(burnin=3, step_size_start=1e-5, step_size_min=1e-6,
+                     step_size_max=1e-4, leapfrog_start=20, leapfrog_min=20,
+                     leapfrog_max=20, hyper_leapfrog=5, hyper_step_size=1e-4,
+                     averaging_steps=10)
+    wnet6, wlik6 = wide_network(dev)
+    wnet6.setup_mcmc(**wide_mcmc)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wres = wnet6.train(6, 1, wlik6, n_chains=64, chain_jitter=0.01,
+                       verbose=False)
+    wide_launches = read_counts("wide_deep (K3 + K2)")
+    want_k3 = int(sum(int(l) + 1 for l in wres.leapfrog))
+    print(f"wide_deep: {wres.n_epochs} epochs in {wres.wall_time:.2f} s; "
+          f"main acceptance {np.round(wres.main_accept, 4).tolist()}; "
+          f"hyper acceptance {np.round(wres.hyper_accept, 4).tolist()}; "
+          f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    assert wres.main_path == "K3" and wres.fused_hyper, wres.main_path
+    assert (wres.leapfrog == 20).all(), wres.leapfrog
+    if (wide_launches["K3"] != want_k3 or wide_launches["K1"]
+            or wide_launches["K2"] < 1):
+        raise AssertionError(f"wide_deep: expected {want_k3} K3 launches "
+                             f"(epochs x (L + 1)), none of K1 and some of "
+                             f"K2; got {wide_launches}")
+    assert wres.theta_samples.shape == (3, 64, wd)
+    assert np.isfinite(wres.theta_samples).all()
+    assert np.isfinite(wres.eta_samples).all()
+    assert ((wres.main_accept >= 0) & (wres.main_accept <= 1)).all()
+    # the witness of wide_deep's hyper acceptance: the plain path (no
+    # kernel; tests/test_torch_sampler.py holds it against the JAX epoch)
+    # from the same seed gives the same per-epoch acceptance and final
+    # hyper step, and the JAX package's dual averaging replayed on the host
+    # from those acceptances lands on that step
+    pnet, plik = wide_network(dev)
+    pnet.setup_mcmc(**wide_mcmc)
+    pres = pnet.train(6, 1, plik, n_chains=64, chain_jitter=0.01,
+                      use_fused=False, verbose=False)
+    assert pres.main_path == "plain" and not pres.fused_hyper
+    replay = dual_averaging_steps(wres.hyper_accept, 1e-4, 3)
+    print(f"wide_deep hyper step after the run: {wres.final_hyper_step:.6e} "
+          f"on K3 + K2, {pres.final_hyper_step:.6e} on the plain path "
+          f"(hyper acceptance {np.round(pres.hyper_accept, 4).tolist()}); "
+          f"the dual-averaging replay gives "
+          f"{[f'{s:.6e}' for s in replay]}")
+    np.testing.assert_allclose(pres.hyper_accept, wres.hyper_accept,
+                               atol=0.05)
+    assert math.isclose(pres.final_hyper_step, wres.final_hyper_step,
+                        rel_tol=1e-3), (pres.final_hyper_step,
+                                        wres.final_hyper_step)
+    # the replay holds where each epoch's acceptance is all or nothing
+    if (np.minimum(wres.hyper_accept, 1.0 - wres.hyper_accept) < 1e-6).all():
+        assert math.isclose(replay[-1], wres.final_hyper_step,
+                            rel_tol=1e-4), (replay, wres.final_hyper_step)
+    del wres, pres, pnet
+
+    # (d) the learned-sd flagship on K3 + K2 (coupled)
+    lnet, llik = flagship_network(dev, learned_sd=True)
+    lnet.setup_mcmc(burnin=100, leapfrog_start=50, leapfrog_min=20,
+                    leapfrog_max=100, leapfrog_increment=5,
+                    averaging_steps=10, random_steps=5, hyper_leapfrog=30)
+    reset_counts()
+    lres = lnet.train(150, 5, llik, n_chains=64, verbose=False)
+    learned_launches = read_counts("learned-sd flagship (K3 + K2)")
+    l_acc = float(lres.main_accept[100:].mean())
+    print(f"learned-sd flagship: {lres.n_epochs} epochs in "
+          f"{lres.wall_time:.2f} s; post-burn-in main acceptance "
+          f"{l_acc:.4f}, hyper acceptance "
+          f"{float(lres.hyper_accept[100:].mean()):.4f}")
+    assert lres.main_path == "K3" and lres.fused_hyper, lres.main_path
+    if (min(learned_launches["K3"], learned_launches["K2"]) < 1
+            or learned_launches["K1"]):
+        raise AssertionError(f"the learned-sd flagship did not run on "
+                             f"K3 + K2 alone: {learned_launches}")
+    assert np.isfinite(lres.theta_samples).all()
+    assert np.isfinite(lres.eta_samples).all()
+    assert 0.0 < l_acc < 1.0, l_acc
+
+    phase("7 times")
     times = {}
     for label, (prog, args, eps_c, l_c) in k1_shapes.items():
         ms = cuda_ms(lambda: fused_mlp.fused_trajectory(prog, *args, eps_c,
                                                         l_c))
         plain = cuda_ms(lambda: fused_mlp.trajectory_plain(prog, *args,
                                                            eps_c, l_c))
-        times[label] = (ms, plain)
+        times[label] = (ms, plain, None)
     for label, (prog, args) in k2_shapes.items():
         ms = cuda_ms(lambda: fused_hyper.fused_hyper_trajectory(prog, *args))
         plain = cuda_ms(lambda: fused_hyper.hyper_trajectory_plain(prog,
                                                                    *args))
-        times[label] = (ms, plain)
-    for label, (ms, plain) in times.items():
+        times[label] = (ms, plain, None)
+    # K3's twin is the cuBLAS path (baddbmm/bmm, float32, TF32 off): its
+    # time is both plain_ms and library_ms. The same value and gradient
+    # through torch.func (cuBLAS under vmap, autograd's backward) is
+    # reported beside it as torch_func_ms
+    for label, model, unravel in (
+            ("K3 wide_deep C=64 N=128", wnet.model, wflat.unravel_theta),
+            ("K3 flagship C=64 N=11", net.model, flat.unravel_theta)):
+        vg, ops, thetas, sd_c, xs, ys = k3_shapes[label]
+        func_vg = torch_func_potential(model, unravel, xs, ys)
+        func_ll, _ = func_vg(thetas, sd_c)
+        compare(f"{label} torch.func", (func_ll,),
+                (vg(thetas, sd_c, xs, ys)[0],), (K3_TOL[0],), labels=("ll",))
+        ms = cuda_ms(lambda: vg(thetas, sd_c, xs, ys))
+        plain = cuda_ms(lambda: fused_mlp.potential_plain(ops, thetas, sd_c,
+                                                          xs, ys))
+        func_ms = cuda_ms(lambda: func_vg(thetas, sd_c))
+        times[label] = (ms, plain, func_ms)
+    for label, (ms, plain, func_ms) in times.items():
         print(f"{label}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-              f"({plain / ms:.1f}x)")
+              f"({plain / ms:.1f}x)"
+              + ("" if func_ms is None else f", torch.func {func_ms:.4f} ms"))
 
     # steady main-chain leapfrog rate at 64 chains, (eps, L) = (1e-3, 100),
     # hyper_leapfrog 100 (the bench's shape), kernels on
-    run = make_multichain_chunk_runner(
-        net.model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
-        adjust_hypers=True, hyper_leapfrog=100, burnin=100.0,
-        hyper_step_size_init=1e-3, eta_dim=h,
-        batched_main_traj=fused_mlp.try_build_fused_trajectory(
-            net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h),
-        batched_hyper_traj=fused_hyper.try_build_fused_hyper_trajectory(
-            net.model, lik, flat.unravel_eta, h, 100))
+    run = chunk_runner(net, lik, flat, 100, 1e-3)
     carry = init_multichain_state(flat.theta, flat.eta, 1e-3, 64, gen,
                                   jitter=0.01)
     carry, _ = run(carry, 1e-3, 100, 10, gen)
@@ -302,19 +625,57 @@ def main() -> int:
           f"steps/sec (64 chains, L=100, {n_epochs} epochs in {dt:.3f} s, "
           f"{card})")
 
-    k1_ms, k1_plain = times["K1 C=64 (eps, L)=(0.001, 100)"]
-    k2_ms, k2_plain = times["K2 C=64 n_steps=100"]
+    # steady wide_deep epochs on K3 + K2: 64 chains, (eps, L) = (1e-5, 20),
+    # hyper_leapfrog 5 (the bench's shape)
+    wide_run = chunk_runner(wnet, wlik, wflat, 5, 1e-4)
+    wcarry = init_multichain_state(wflat.theta, wflat.eta, 1e-4, c_w, gen,
+                                   jitter=0.01)
+    wcarry, _ = wide_run(wcarry, 1e-5, 20, 1, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wcarry, wtrace = wide_run(wcarry, 1e-5, 20, 5, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert torch.isfinite(wtrace.theta).all()
+    print(f"wide_deep steady: {1e3 * dt / 5:.3f} ms per epoch, "
+          f"{5 * 20 * c_w / dt:,.0f} main leapfrog steps/sec (64 chains, "
+          f"L=20, 5 epochs in {dt:.3f} s, {card})")
+
+    k1_ms, k1_plain, _ = times["K1 C=64 (eps, L)=(0.001, 100)"]
+    k2_ms, k2_plain, _ = times["K2 C=64 n_steps=100"]
+    k3_ms, k3_plain, k3_func = times["K3 wide_deep C=64 N=128"]
+    hyper_program = k2_shapes["K2 C=64 n_steps=100"][0]
+    # bounds from this run's shapes: K1 at C = 64, L = 100 (products,
+    # priors and leapfrog updates: 7 FLOP per row and evaluation); K2 at
+    # C = 64, 100 steps (~60 FLOP per prior block and 4 per hyper per step);
+    # K3 at wide_deep
+    k1_bound = bound(64 * 101 * (product_flops(program.ops, 11) + 7 * d),
+                     4 * (4 * 64 * d + 64 * h + 11 * 2 + 4 * 64))
+    n_blocks = len(hyper_program.blocks)
+    k2_bound = bound(64 * 101 * (60 * n_blocks + 4 * h),
+                     4 * (4 * 64 * h + 64 * hyper_program.n_stats + 3 * 64))
+    k3_bound = bound(c_w * product_flops(wide_ops, 128),
+                     4 * (2 * c_w * wd + 2 * c_w + 128 * (256 + 1)))
     kernels = [
         {"name": "K1 fused_trajectory", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
          "replaces": "tensorbnn_tpu/ops/fused_mlp.py:425",
          "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 fused_hyper", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_hyper.cu",
          "replaces": "tensorbnn_tpu/ops/fused_hyper.py:108",
          "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "K3 fused_potential", "route": "cuda",
+         "source": "tensorbnn_tpu_torch/csrc/fused_potential.cu",
+         "replaces": "tensorbnn_tpu/ops/fused_mlp.py:157",
+         "launches": wide_launches["K3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": k3_plain,
+         "torch_func_ms": k3_func},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

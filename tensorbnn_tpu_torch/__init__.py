@@ -6,9 +6,12 @@ Module names mirror it. This package imports torch and numpy only, never
 jax. It carries the sampler's main path: dense Bayesian MLPs sampled by
 two-block Gibbs-within-HMC through ``Network(...).add(...).setup_mcmc(...)
 .train(...)``, with the main block's whole leapfrog trajectory in one CUDA
-kernel (K1, ``ops/fused_mlp.py``) and the hyper block's in another (K2,
+kernel (K1, ``ops/fused_mlp.py``) or, for models K1 declines, each
+leapfrog step's likelihood value and gradient in another (K3, same
+module), and the hyper block's trajectory in a third (K2,
 ``ops/fused_hyper.py``). The kernels are built from ``csrc/`` with
-``nvcc`` on first use.
+``nvcc`` on first use; ``Network`` runs on the CUDA card unless given
+another device.
 """
 
 from tensorbnn_tpu_torch import distributions

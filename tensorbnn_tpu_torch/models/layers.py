@@ -110,8 +110,8 @@ class CauchyDenseLayer(LayerSpec):
     """Dense layer with Cauchy priors (gamma = scale ** 2); hyperpriors
     N(0, 0.2) on the locations and N(sqrt(0.5), 0.5) on the squared
     scales. Uses the reference's sign-flipped Cauchy "log prob" unless
-    ``proper=True``. Outside both fused kernels' scope: it runs on the
-    plain path."""
+    ``proper=True``. Outside K1's and K2's scope: its main block runs on
+    K3, its hyper block on the plain path."""
 
     in_dim: int
     out_dim: int

@@ -4,7 +4,8 @@ Counterpart of ``tensorbnn_tpu/network.py``: assembles data, layers and
 the sampler configuration, then delegates to
 :func:`tensorbnn_tpu_torch.sampler.driver.sample_posterior`. The reference's
 camelCase names (``setupMCMC``, ``stepSizeStart``, ...) are accepted.
-Everything lives on ``device``, which the caller names explicitly.
+Everything lives on ``device``: the CUDA card unless the caller names
+another device (the tests pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -64,9 +65,13 @@ class Network:
     """Holds data, model layers and sampler config; runs the sampler."""
 
     def __init__(self, dtype, input_dims: int, train_x, train_y,
-                 validate_x, validate_y, seed: int = 0, device="cpu"):
+                 validate_x, validate_y, seed: int = 0, device="cuda"):
         self.dtype = _torch_dtype(dtype)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Network: device {device!r} needs a CUDA card, and torch "
+                f"sees none here; pass device='cpu' to run on the CPU")
         self.input_dims = input_dims
         arrays = {}
         for name, arr in (("train_x", train_x), ("train_y", train_y),

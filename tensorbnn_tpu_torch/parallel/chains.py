@@ -48,6 +48,7 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  burnin: float,
                                  hyper_step_size_init: float,
                                  eta_dim: Optional[int] = None,
+                                 batched_main_vg=None,
                                  batched_main_traj=None,
                                  batched_hyper_traj=None):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator)
@@ -61,7 +62,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     epoch_fn = make_epoch_fn(
         model, likelihood, x, y, unravel_theta, unravel_eta,
         adjust_hypers=adjust_hypers, hyper_leapfrog=hyper_leapfrog,
-        burnin=burnin, mu=mu, batched_main_traj=batched_main_traj,
+        burnin=burnin, mu=mu, batched_main_vg=batched_main_vg,
+        batched_main_traj=batched_main_traj,
         batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,

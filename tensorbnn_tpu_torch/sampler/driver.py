@@ -10,10 +10,17 @@ groups, each with its own adapter and its own ``(eps, L)``, repeated per
 chain. Samples stay on the device until the run ends.
 
 Kernel choice: with ``use_fused`` "auto" (or True) the driver builds K1
-(ops/fused_mlp.py) and K2 (ops/fused_hyper.py) whenever the model is in
-their scope, on any device; out-of-scope models take the plain
-``hmc_step_batched`` path. The JAX package's TPU-measured profitability
-gate is not carried over.
+(ops/fused_mlp.py) for the main block whenever the model is in its scope,
+else K3 (the per-step potential, same module) under ``hmc_step_batched``,
+and K2 (ops/fused_hyper.py) for the hyper block, on any device; models
+outside all of them take the plain ``hmc_step_batched`` path. The JAX
+package's TPU-measured profitability gate is not carried over.
+
+Memory policy (as the JAX driver's): with ``keep_samples="auto"`` the
+recorded samples stay in memory while their projected size is under
+2 GiB; above it the run raises before any epoch, since streaming to disk
+(``folder_name``) is not carried yet. ``keep_samples=True`` buffers
+whatever the size.
 
 Options of the JAX driver that this port does not carry yet raise
 ``NotImplementedError`` naming them (see ``NOT_CARRIED``).
@@ -160,9 +167,11 @@ class RunResult:
     eta_samples: np.ndarray = None
     #: per-epoch main leapfrog count, mean over chains, shape (epochs,)
     leapfrog: np.ndarray = None
-    #: which blocks ran through the fused kernels (K1 main, K2 hyper)
+    #: which blocks ran through the fused kernels (K1 or K3 main, K2 hyper)
     fused_main: bool = False
     fused_hyper: bool = False
+    #: what ran the main block: "K1", "K3" or "plain"
+    main_path: str = "plain"
 
     @property
     def theta_pooled(self) -> np.ndarray:
@@ -213,21 +222,41 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     flat = flatten_state(params, hypers, lik_hypers)
     eta_dim = flat.eta.numel()
 
-    main_traj = hyper_traj = None
+    # memory policy: refuse a run whose samples would not fit in memory
+    # before it spends any time (JAX driver.py:786-800)
+    n_expected = max(0, epochs // sampling_step
+                     - config.burnin // sampling_step)
+    projected = n_expected * n_chains * (flat.theta.numel() + eta_dim) * 4
+    if options.get("keep_samples", "auto") == "auto" and \
+            projected >= (2 << 30):
+        raise ValueError(
+            f"keep_samples='auto' with a ~{projected / 1e9:.1f}GB projected "
+            f"posterior ({n_expected} recorded epochs x {n_chains} chains) "
+            f"and no folder_name would not fit in memory; pass "
+            f"keep_samples=True to buffer it anyway, or record fewer "
+            f"epochs (sampling_step)")
+
+    main_traj = main_vg = hyper_traj = None
     if use_fused:
         from tensorbnn_tpu_torch.ops.fused_hyper import \
             try_build_fused_hyper_trajectory
         from tensorbnn_tpu_torch.ops.fused_mlp import \
-            try_build_fused_trajectory
+            try_build_fused_main_vg, try_build_fused_trajectory
         main_traj = try_build_fused_trajectory(
             model, likelihood, flat.unravel_theta, flat.unravel_eta,
             x_train, y_train, eta_dim=eta_dim)
+        if main_traj is None:
+            main_vg = try_build_fused_main_vg(
+                model, likelihood, flat.unravel_theta, flat.unravel_eta,
+                x_train, y_train, eta_dim=eta_dim)
         if adjust_hypers:
             hyper_traj = try_build_fused_hyper_trajectory(
                 model, likelihood, flat.unravel_eta, eta_dim,
                 config.hyper_leapfrog)
+    main_path = "K1" if main_traj else "K3" if main_vg else "plain"
     if verbose:
-        print(f"main block: {'fused K1' if main_traj else 'plain'}; "
+        print(f"main block: "
+              f"{'plain' if main_path == 'plain' else 'fused ' + main_path}; "
               f"hyper block: {'fused K2' if hyper_traj else 'plain'} "
               f"(device {device})")
 
@@ -236,7 +265,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         flat.unravel_eta, adjust_hypers=adjust_hypers,
         hyper_leapfrog=config.hyper_leapfrog, burnin=float(config.burnin),
         hyper_step_size_init=config.hyper_step_size, eta_dim=eta_dim,
-        batched_main_traj=main_traj, batched_hyper_traj=hyper_traj)
+        batched_main_vg=main_vg, batched_main_traj=main_traj,
+        batched_hyper_traj=hyper_traj)
     carry = init_multichain_state(flat.theta, flat.eta,
                                   config.hyper_step_size, n_chains,
                                   generator, jitter=chain_jitter)
@@ -324,5 +354,6 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         wall_time=time.time() - t_start,
         theta_samples=theta_stack,
         eta_samples=eta_stack,
-        fused_main=main_traj is not None,
-        fused_hyper=hyper_traj is not None)
+        fused_main=main_path != "plain",
+        fused_hyper=hyper_traj is not None,
+        main_path=main_path)

@@ -8,9 +8,10 @@ weights, and a per-chain dual-averaging update of the hyper step size
 (target 0.95, gamma 0.4, t0 10, kappa 0.75, frozen from 80% of burn-in).
 
 The main block runs through K1 (``batched_main_traj``) when the driver
-built it, else through the plain ``hmc_step_batched``; the hyper block
-runs through K2 (``batched_hyper_traj``) on the sufficient-statistics
-potential when it applies. Randomness comes from one ``torch.Generator``
+built it, else through ``hmc_step_batched`` on K3's value and gradient
+(``batched_main_vg``) or on the plain ``torch.func`` potential; the hyper
+block runs through K2 (``batched_hyper_traj``) on the
+sufficient-statistics potential when it applies. Randomness comes from one ``torch.Generator``
 per run; an epoch can instead be handed its draws (``EpochDraws``), which
 is how the tests feed it the JAX package's own draws.
 """
@@ -71,6 +72,7 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   hyper_leapfrog: int,
                   burnin: float,
                   mu: float,
+                  batched_main_vg: Optional[Callable] = None,
                   batched_main_traj: Optional[Callable] = None,
                   batched_hyper_traj: Optional[Callable] = None,
                   eta_dim: Optional[int] = None) -> Callable:
@@ -83,9 +85,10 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     made once per chunk by the runner so that an epoch never copies from
     the host (the plain path keeps the host array for its loop bound).
     ``mu`` is the dual-averaging anchor ``log(100 * initial hyper step
-    size)``. ``batched_main_traj`` is K1's ``traj(thetas, etas, momenta, x,
-    y, eps, L)``; ``batched_hyper_traj`` K2's ``traj(etas, stats, momenta,
-    eps)``.
+    size)``. ``batched_main_vg`` is K3's ``f(thetas, etas, x, y) -> ((C,),
+    (C, D))``; ``batched_main_traj`` K1's ``traj(thetas, etas, momenta, x,
+    y, eps, L)``, which takes precedence; ``batched_hyper_traj`` K2's
+    ``traj(etas, stats, momenta, eps)``.
     """
     potentials = make_potentials(model, likelihood, x, y, unravel_theta,
                                  unravel_eta)
@@ -117,10 +120,12 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                 0.5 * (v_new * v_new).sum(-1), log_u)
             theta = torch.where(accepted[:, None], q_new, theta0)
         else:
-            main = hmc_step_batched(
-                generator, theta0,
-                lambda ths: potentials.main_vg(ths, eta),
-                step_size, leapfrog, momenta=momenta, log_u=log_u)
+            if batched_main_vg is not None:
+                main_vg = lambda ths: batched_main_vg(ths, eta, x, y)  # noqa: E731
+            else:
+                main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
+            main = hmc_step_batched(generator, theta0, main_vg, step_size,
+                                    leapfrog, momenta=momenta, log_u=log_u)
             theta, main_accept = main.position, main.accept_prob
 
         # SJD scaled by L^(-1/2) (reference paramAdapter.py:219-222)

@@ -38,12 +38,14 @@ def _per_chain_steps(n_steps, device):
 
 
 def leapfrog_batched(vg_fn: Callable, positions: torch.Tensor,
-                     momenta: torch.Tensor, step_size, n_steps) -> tuple:
+                     momenta: torch.Tensor, step_size, n_steps,
+                     start: Optional[tuple] = None) -> tuple:
     """Half-kick / full-drift leapfrog on ``(C, D)`` blocks; ``n_steps + 1``
-    value-and-grad evaluations. ``step_size`` is a float, a scalar tensor
-    or a ``(C, 1)`` column. Returns ``(q, v, log_prob, grad)`` at the
-    endpoint."""
-    lp, g = vg_fn(positions)
+    value-and-grad evaluations, the first of them ``start`` when the caller
+    has ``vg_fn(positions)`` already. ``step_size`` is a float, a scalar
+    tensor or a ``(C, 1)`` column. Returns ``(q, v, log_prob, grad)`` at
+    the endpoint."""
+    lp, g = vg_fn(positions) if start is None else start
     v = momenta + 0.5 * step_size * g
     q = positions
     cap, n_vec = _per_chain_steps(n_steps, positions.device)
@@ -93,9 +95,13 @@ def hmc_step_batched(generator: Optional[torch.Generator],
                               dtype=positions.dtype, device=positions.device)
     if log_u is None:
         log_u = draw_log_u(positions.shape[0], positions, generator)
-    lp0, _ = vg_fn(positions)
+    # one evaluation at the start serves both the MH test and the first
+    # half kick (the JAX package's jit merges the two; eager torch would
+    # run both)
+    lp0, g0 = vg_fn(positions)
     q_new, v_new, lp1, _ = leapfrog_batched(vg_fn, positions, momenta,
-                                            step_size, n_leapfrog)
+                                            step_size, n_leapfrog,
+                                            start=(lp0, g0))
     accept_prob, accepted = metropolis(
         lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
         0.5 * (v_new * v_new).sum(-1), log_u)

@@ -1,4 +1,5 @@
-"""K1 and K2 on an NVIDIA card against their plain twins on the same card.
+"""K1, K2 and K3 on an NVIDIA card against their plain twins on the same
+card.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -99,3 +100,32 @@ def test_k2_kernel_matches_twin(device, coupled):
     assert fused_hyper.fused_hyper_trajectory.LAUNCHES == before + 1
     for g, w in zip(got, want):
         _close(g, w, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flagship", "ragged"])
+def test_k3_kernel_matches_twin(device, shape):
+    if shape == "flagship":
+        ops = (("dense", 1, 10), ("tanh", 10), ("dense", 10, 10),
+               ("tanh", 10), ("dense", 10, 10), ("tanh", 10),
+               ("dense", 10, 1))
+        c, n = 64, 11
+    else:   # ragged edges in every tile dimension, relu and elu epilogues
+        ops = (("dense", 3, 37), ("relu", 37), ("dense", 37, 70),
+               ("elu", 70), ("dense", 70, 1))
+        c, n = 5, 13
+    d0, dk, d = fused_mlp._program_dims(ops)
+    rng = np.random.default_rng(2)
+    thetas, x, y, sd = (
+        torch.tensor(a, dtype=torch.float32, device=device) for a in (
+            0.3 * rng.normal(size=(c, d)), rng.normal(size=(n, d0)),
+            rng.normal(size=(n, dk)), 0.1 + 0.2 * rng.random(c)))
+    vg = fused_mlp.make_fused_potential_vg(ops, n)
+    before = fused_mlp.fused_potential.LAUNCHES
+    ll, grad = vg(thetas, sd, x, y)
+    want_ll, want_grad = fused_mlp.potential_plain(ops, thetas, sd, x, y)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_potential.LAUNCHES == before + 1
+    # tolerances of tests/test_fused_mlp.py:33-36
+    _close(ll, want_ll, 1e-4, 1e-4)
+    _close(grad, want_grad, 1e-3, 1e-4)

@@ -1,9 +1,10 @@
-"""K1 and K2 of the torch port against the JAX package's Pallas kernels.
+"""K1, K2 and K3 of the torch port against the JAX package's Pallas
+kernels.
 
 On the CPU the port's kernel wrappers run their plain twins; those are
 held here against the Pallas kernels in interpret mode on the same inputs,
-with the tolerances of tests/test_fused_trajectory.py and
-tests/test_fused_hyper.py. The CUDA kernels themselves are held against
+with the tolerances of tests/test_fused_trajectory.py,
+tests/test_fused_hyper.py and tests/test_fused_mlp.py. The CUDA kernels themselves are held against
 the twins on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
@@ -16,6 +17,7 @@ import torch
 import tensorbnn_tpu as J
 import tensorbnn_tpu_torch as T
 from tensorbnn_tpu.models.sequential import Sequential as JSequential
+from tensorbnn_tpu.ops import fused_mlp as j_fused
 from tensorbnn_tpu.ops.fused_hyper import \
     try_build_fused_hyper_trajectory as j_hyper_build
 from tensorbnn_tpu.ops.fused_mlp import try_build_fused_trajectory as \
@@ -141,9 +143,10 @@ def test_k2_twin_matches_pallas(lik):
 
 
 def test_scope_cauchy_model_takes_the_plain_path():
-    """A Cauchy-prior model is outside both of the port's kernels and the
-    JAX package's hyper kernel (its K1 covers Cauchy priors; the port's K1
-    does not yet)."""
+    """A Cauchy-prior model is outside the port's K1 and K2 and the JAX
+    package's hyper kernel (the JAX K1 covers Cauchy priors; the port's K1
+    does not yet): its main block takes K3 under the plain HMC step, its
+    hyper block the plain path."""
     pair = _pair([(1, 6), (6, 1)], dense="CauchyDenseLayer")
     j_model, j_lik, t_model, t_lik = pair
     x, y, j_flat, t_flat, _, _, _ = _setup(pair, 2)
@@ -155,6 +158,9 @@ def test_scope_cauchy_model_takes_the_plain_path():
         t_model, t_lik, t_flat.unravel_eta, h, 5) is None
     assert j_hyper_build(j_model, j_lik, j_flat.unravel_eta, h, 5,
                          interpret=True) is None
+    assert fused_mlp.try_build_fused_main_vg(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
+        torch.tensor(x), torch.tensor(y), eta_dim=h) is not None
     # a learned-sd likelihood is outside the port's K1, inside its K2
     pair = _pair([(1, 6), (6, 1)], lik=("GaussianLikelihood", 0.2))
     _, _, t_model, t_lik = pair
@@ -170,7 +176,8 @@ def test_scope_cauchy_model_takes_the_plain_path():
 
 def test_k1_shared_memory_gate():
     """A wide stack (10x256 over 128 rows) does not fit one block's
-    shared memory: K1 declines it and the driver takes the plain path."""
+    shared memory: K1 declines it, and the driver takes K3 instead
+    (test_torch_sampler.py::test_driver_takes_k3_where_k1_declines)."""
     t_model = TSequential([T.GaussianDenseLayer(1, 256), T.Tanh()]
                           + [T.GaussianDenseLayer(256, 256), T.Tanh()] * 9
                           + [T.GaussianDenseLayer(256, 1)])
@@ -188,3 +195,89 @@ def test_k1_shared_memory_gate():
         f_model, f_lik, f_flat.unravel_theta, f_flat.unravel_eta,
         f_flat.eta.numel(), n_rows=11)
     assert flagship is not None and flagship.smem_bytes < 8192
+
+
+def _ops(dims, acts):
+    ops = []
+    for i, act in enumerate(acts):
+        ops.append(("dense", dims[i], dims[i + 1]))
+        if act != "none":
+            ops.append((act, dims[i + 1]))
+    return tuple(ops)
+
+
+@pytest.mark.parametrize("dims,acts,sd,staged", [
+    ((1, 10, 10, 10, 1), ("tanh", "tanh", "tanh", "none"), 0.1, False),
+    ((3, 8, 2), ("relu", "none"), 0.1, False),
+    ((2, 6, 5, 3), ("elu", "sigmoid", "exp"), 0.3, False),
+    ((1, 6, 1), ("tanh", "none"), "per_chain", False),
+    ((3, 7, 2), ("tanh", "none"), 0.1, True),
+])
+def test_k3_twin_matches_pallas(dims, acts, sd, staged, monkeypatch):
+    """K3's twin against the Pallas potential kernel; ``staged`` forces
+    the kernel's scratch-staged loop over input rows, as
+    tests/test_fused_mlp.py:137 does."""
+    if staged:
+        monkeypatch.setattr(j_fused, "UNROLL_TEMP_BYTES", 0)
+    rng = np.random.default_rng(3)
+    n, c = 11, 4
+    ops = _ops(dims, acts)
+    d = sum(fused_mlp._op_rows(op) for op in ops)
+    x = rng.normal(size=(n, dims[0])).astype(np.float32)
+    y = rng.normal(size=(n, dims[-1])).astype(np.float32)
+    thetas = (0.5 * rng.normal(size=(c, d))).astype(np.float32)
+    if sd == "per_chain":
+        sd_j = np.asarray([0.05, 0.1, 0.2, 0.4], np.float32)
+        sd_t = torch.tensor(sd_j)
+    else:
+        sd_j, sd_t = np.float32(sd), float(sd)
+
+    j_vg = j_fused.make_fused_potential_vg(ops, n, lik="gaussian",
+                                           block_c=c, interpret=True)
+    t_vg = fused_mlp.make_fused_potential_vg(ops, n)
+    jl, jg = j_vg(jnp.asarray(thetas), jnp.asarray(sd_j), x, y)
+    launches = fused_mlp.fused_potential.LAUNCHES
+    tl, tg = t_vg(torch.tensor(thetas), sd_t, torch.tensor(x),
+                  torch.tensor(y))
+    # CPU tensors take the twin: no kernel launch is counted
+    assert fused_mlp.fused_potential.LAUNCHES == launches
+    # tolerances of tests/test_fused_mlp.py:33-36
+    _close(tl, jl, rtol=1e-4, atol=1e-4)
+    _close(tg, jg, rtol=1e-3, atol=1e-4)
+
+
+def test_k3_scope_needs_each_activation_after_a_dense_layer():
+    """K3 fuses an activation into the epilogue of the dense layer before
+    it, so two activations in a row are outside its scope."""
+    assert fused_mlp.make_fused_potential_vg(
+        (("dense", 2, 3), ("tanh", 3), ("dense", 3, 1)), 5) is not None
+    assert fused_mlp.make_fused_potential_vg(
+        (("dense", 2, 3), ("tanh", 3), ("relu", 3), ("dense", 3, 1)),
+        5) is None
+
+
+@pytest.mark.parametrize("dense", ["GaussianDenseLayer", "CauchyDenseLayer"])
+@pytest.mark.parametrize("lik", [("FixedGaussianLikelihood", 0.1),
+                                 ("GaussianLikelihood", 0.2)])
+def test_k3_main_vg_matches_jax(dense, lik):
+    """``batched_main_vg`` (K3's likelihood plus the priors added outside
+    it) against the JAX package's ``try_build_fused_main_vg``."""
+    c = 4
+    pair = _pair([(2, 8), (8, 8), (8, 1)], lik=lik, dense=dense)
+    j_model, j_lik, t_model, t_lik = pair
+    x, y, j_flat, t_flat, thetas, etas, _ = _setup(pair, c, n=9,
+                                                   eta_noise=0.05)
+    h = t_flat.eta.numel()
+    j_vg = j_fused.try_build_fused_main_vg(
+        j_model, j_lik, j_flat.unravel_theta, j_flat.unravel_eta, x, y,
+        eta_dim=h, block_c=c, interpret=True)
+    t_vg = fused_mlp.try_build_fused_main_vg(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
+        torch.tensor(x), torch.tensor(y), eta_dim=h)
+    assert j_vg is not None and t_vg is not None
+    jv, jg = j_vg(jnp.asarray(thetas), jnp.asarray(etas), x, y)
+    tv, tg = t_vg(torch.tensor(thetas), torch.tensor(etas), torch.tensor(x),
+                  torch.tensor(y))
+    # tolerances of tests/test_fused_mlp.py:33-36
+    _close(tv, jv, rtol=1e-4, atol=1e-4)
+    _close(tg, jg, rtol=1e-3, atol=1e-4)
