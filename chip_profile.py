@@ -10,7 +10,13 @@ picks:
   (1e-3, 100), 100 hyper steps per epoch: K1 + K2;
 - ``wide_deep``: 10x256 tanh over 128 rows, learned sd, 64 chains,
   (eps, L) = (1e-5, 20), 5 hyper steps per epoch (the JAX bench's shape,
-  hyper step 1e-4): K3 + K2.
+  hyper step 1e-4): K3 + K2;
+- ``tempered``: the flagship's tempered quality block, 512 chains x 4
+  rungs at beta_min 0.5 (2,048 replicas), per-chain (eps, L) = (2e-3, 50)
+  (``ess_run``'s start), 30 hyper steps from 1e-3: tempered K1 + K2, then
+  each epoch's swap glue. For that glue (the data log-likelihood of every
+  replica and the even/odd swap, plain torch) the cell also reports its
+  own enqueue ms, device ms and launches per epoch, timed alone.
 
 It reports, per epoch: the wall time over three unprofiled windows (host
 clock after a synchronize), the enqueue time (until the runner returns),
@@ -58,20 +64,13 @@ def timed(run, carry, eps, steps, epochs, gen):
 def device_breakdown(run, carry, eps, steps, epochs, gen):
     """Busy ms, per-group and top per-kernel ms and launches per epoch,
     from a chrome trace of ``epochs`` profiled epochs."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        carry, _ = run(carry, eps, steps, epochs, gen)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
-        trace_path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace_path)
-        with open(trace_path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") in DEVICE_CATS and "dur" in e]
-    if not events:
-        raise RuntimeError("the profiler recorded no device activity")
+    state = [carry]
+
+    def chunk():
+        state[0], _ = run(state[0], eps, steps, epochs, gen)
+
+    events = profiled_events(chunk, 1)
+    carry = state[0]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in events)
     busy, (lo, hi) = 0.0, spans[0]
@@ -96,7 +95,46 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
     return carry, busy / 1e3 / epochs, group_rows, top
 
 
-def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card):
+def profiled_events(fn, reps):
+    """Device events (kernels and copies) of ``reps`` calls of ``fn``,
+    from a chrome trace of ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    return events
+
+
+def glue_breakdown(glue, reps=50):
+    """Enqueue ms, wall ms, device ms and launches per call of ``glue``."""
+    glue()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        glue()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    events = profiled_events(glue, reps)
+    return {"enqueue_ms": 1e3 * (t1 - t0) / reps,
+            "wall_ms": 1e3 * (t2 - t0) / reps,
+            "device_ms": sum(float(e["dur"]) for e in events) / 1e3 / reps,
+            "launches": len(events) / reps}
+
+
+def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
+         glue=None):
     carry, _ = run(carry, eps, steps, warm, gen)
     enqueue, wall = [], []
     for _ in range(3):
@@ -112,6 +150,8 @@ def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card):
            "enqueue_ms_per_epoch": enqueue, "device_busy_ms_per_epoch": busy,
            "idle_share": 1.0 - busy / median, "groups": groups,
            "top_kernels": top}
+    if glue is not None:
+        out["swap_glue_per_epoch"] = glue_breakdown(glue(carry))
     print(json.dumps(out), flush=True)
     return out
 
@@ -120,10 +160,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device is available", file=sys.stderr)
         return 2
+    import numpy as np
+
     from chip_smoke import card_line, chunk_runner, flagship_network, \
         wide_network
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
-    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
+        make_potentials
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder, \
+        make_swap_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -131,17 +176,43 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    for name, build, eps, steps, hyper_steps, hyper_eps, sizes in (
+    n_rungs, n_cold = 4, 512
+    ladder = make_ladder(n_rungs, 0.5)
+    tempering_beta = (n_rungs, np.repeat(ladder, n_cold))
+    fleet = n_rungs * n_cold
+    for name, build, eps, steps, hyper_steps, hyper_eps, sizes, temper in (
             ("flagship", flagship_network, 1e-3, 100, 100, 1e-3,
-             (10, 50, 20)),
-            ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3))):
+             (10, 50, 20), False),
+            ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
+             False),
+            ("tempered 512 x 4", flagship_network,
+             np.full(fleet, 2e-3, np.float32), np.full(fleet, 50), 30, 1e-3,
+             (10, 50, 20), True)):
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
-        run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps)
-        carry = init_multichain_state(flat.theta, flat.eta, hyper_eps, 64,
-                                      gen, jitter=0.01)
-        cell(name, run, carry, eps, steps, *sizes, gen, card)
+        run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
+                           tempering_beta if temper else None)
+        chains = fleet if temper else 64
+        carry = init_multichain_state(flat.theta, flat.eta, hyper_eps,
+                                      chains, gen, jitter=0.01)
+        glue = None
+        if temper:
+            pots = make_potentials(net.model, lik, net.train_x, net.train_y,
+                                   flat.unravel_theta, flat.unravel_eta)
+            swap = make_swap_fn(torch.tensor(ladder, device=dev), n_rungs)
+
+            def glue(state):
+                # one epoch's swap glue at the fleet's steady state, as the
+                # epoch runs it (sampler/gibbs.py)
+                def step():
+                    ll = pots.loglik(state.theta, state.eta)
+                    log_u = torch.log(torch.rand(fleet, generator=gen,
+                                                 device=dev))
+                    parity = state.epoch[0].to(torch.int64)
+                    return swap(state.theta, state.eta, ll, parity, log_u)
+                return step
+        cell(name, run, carry, eps, steps, *sizes, gen, card, glue)
         del run, carry, net
         torch.cuda.empty_cache()
     return 0

@@ -10,7 +10,9 @@ script exits non-zero:
 3. K1 (the fused main-block trajectory) against its plain twin at the
    flagship shapes, from a flagship Network's state: 64 chains with shared
    (eps, L) = (1e-2, 13) and (1e-3, 100), 512 chains with per-chain
-   (eps, L) in 4 groups;
+   (eps, L) in 4 groups; K1's tempered program (per-chain betas, parallel
+   tempering) at 256 replicas (64 x 4 rungs, beta_min 0.1) and 2,048
+   (512 x 4, beta_min 0.5), per-rung (eps, L);
 4. K2 (the fused hyper-block trajectory) against its twin at the hyper
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
@@ -21,13 +23,18 @@ script exits non-zero:
    the flagship (64 chains, fixed sd) and a ragged stack; then one
    ``wide_deep`` trajectory through K3 against the plain ``torch.func``
    potential;
-6. the sampler through ``Network.train``: a 3-epoch run through K1 and K2
-   against the same run on the plain path (same seed, same draws), then
-   each main path with the kernels' launch counts set to 0 just before it
-   and read just after: the flagship at 64 chains (one adapter) and at 512
-   chains (4 adapters) on K1 + K2; ``wide_deep`` on K3 + K2 (6 epochs,
-   (eps, L) = (1e-5, 20)), then on the plain path as a witness of its
-   hyper acceptance; the learned-sd flagship on K3 + K2;
+6. the sampler through ``Network.train``: 3-epoch runs through K1 and K2,
+   untempered and tempered (4 rungs), against the same runs on the plain
+   path (same seed, same draws), then each main path with the kernels'
+   launch counts set to 0 just before it and read just after: the flagship
+   at 64 chains (one adapter, the verify recipe) and the 512-chain, G = 4
+   quality block (the JAX bench's ``ess_run`` settings, 1,300 epochs) on
+   K1 + K2; the tempered quality block (512 chains x 4 rungs at beta_min
+   0.5, ``ess_run``'s settings) on tempered K1 + K2, with its swap rate
+   per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps, L) = (1e-5, 20)),
+   then on the plain path as a witness of its hyper acceptance; the
+   learned-sd flagship on K3 + K2. Both quality blocks report ESS (the
+   predictive mean at x = 0.5 and the worst parameter) per second;
 7. times: each kernel against its twin (CUDA events), K3 against the
    same value and gradient through cuBLAS (the twin) and torch.func, the
    steady 64-chain leapfrog rates of the flagship at (eps, L) = (1e-3,
@@ -69,6 +76,21 @@ HBM_BYTES_PER_S = 3.35e12
 RECIPE = dict(burnin=200, leapfrog_start=100, leapfrog_min=20,
               leapfrog_max=500, leapfrog_increment=5, averaging_steps=10,
               random_steps=5, hyper_leapfrog=30)
+# the quality blocks' settings: ess_run in benchmarks/run_benchmarks.py
+# (Network seed 11, chain jitter 0.05, 1,300 epochs, sampling step 2)
+ESS_RUN = dict(step_size_start=2e-3, step_size_min=5e-4, step_size_max=2e-2,
+               step_size_options=40, leapfrog_start=50, leapfrog_min=20,
+               leapfrog_max=200, leapfrog_increment=5, hyper_step_size=1e-3,
+               hyper_leapfrog=30, burnin=300, averaging_steps=10,
+               random_steps=5)
+ESS_EPOCHS = 1300
+# the JAX package's swap rates per rung for the tempered block (K = 4 at
+# beta_min 0.5; BENCH_r05.json, at 64 and 512 chains), a statistic of the
+# sampler and not of the chip, and how far the port may be from them
+SWAP_RUNG_REF = (0.34, 0.68, 0.68, 0.34)
+SWAP_RUNG_TOL = 0.06
+# per-rung (eps, L) of the kernel comparisons at per-chain (eps, L)
+K1_GROUPS = ((1e-3, 100), (2e-3, 50), (5e-3, 25), (1e-2, 13))
 
 
 def phase(name):
@@ -115,20 +137,24 @@ def wide_network(device, seed=0):
     return net, GaussianLikelihood(sd=0.1)
 
 
-def chunk_runner(net, lik, flat, hyper_steps, hyper_eps):
+def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
-    hyper block), ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``:
-    the steady rates here and the profile of chip_profile.py."""
+    hyper block), ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``,
+    tempered by ``tempering_beta = (K, per-chain betas)`` when given (K1's
+    tempered program, never K3): the steady rates here and the profile of
+    chip_profile.py."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
 
     h = flat.eta.numel()
     x, y = net.train_x, net.train_y
+    tempered = tempering_beta is not None
     traj = fused_mlp.try_build_fused_trajectory(
-        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
-    vg = None if traj else fused_mlp.try_build_fused_main_vg(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+        tempered=tempered)
+    vg = None if traj or tempered else fused_mlp.try_build_fused_main_vg(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         net.model, lik, flat.unravel_eta, h, hyper_steps)
@@ -137,7 +163,50 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps):
         net.model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
         hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
-        batched_main_vg=vg, batched_hyper_traj=hyper)
+        batched_main_vg=vg, batched_hyper_traj=hyper,
+        tempering_beta=tempering_beta)
+
+
+def rung_groups(c, n_rungs=4):
+    """Per-chain ``(eps (C,), L (C,))`` of ``K1_GROUPS``, one group per
+    rung of a rung-major fleet of ``c`` replicas."""
+    groups = np.repeat(np.asarray(K1_GROUPS[:n_rungs]), c // n_rungs, axis=0)
+    return groups[:, 0].astype(np.float32), groups[:, 1].astype(np.int32)
+
+
+def quality(label, net, res, wall, burnin):
+    """The quality figures of ``ess_run``: total ESS of the predictive mean
+    at x = 0.5 (``effective_sample_size_batch`` over chains), the worst
+    parameter's pooled ESS, both per second of ``wall``, and the
+    post-burn-in main and hyper acceptance (and the swap rate per rung of
+    a tempered run). Prints them as one JSON line."""
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+    from tensorbnn_tpu_torch.utils.autocorr import \
+        effective_sample_size_batch
+
+    params, hypers = net.init_state()
+    unravel = flatten_state(params, hypers, {}).unravel_theta
+    s, c, d = res.theta_samples.shape
+    xq = torch.tensor([[0.5]], device=net.device)
+    thetas = torch.tensor(res.theta_samples.reshape(s * c, d),
+                          device=net.device)
+    series = torch.func.vmap(
+        lambda th: net.model.apply(unravel(th), xq)[0, 0])(thetas)
+    total = effective_sample_size_batch(series.reshape(s, c).cpu().numpy().T)
+    param_ess = res.multichain_ess(max_params=256)
+    out = {"block": label, "n_chains": c, "epochs": res.n_epochs,
+           "wall_seconds": wall, "total_ess": total,
+           "ess_per_sec": total / wall, "min_param_ess": float(param_ess),
+           "median_param_ess": param_ess.median,
+           "min_param_ess_per_sec": float(param_ess) / wall,
+           "main_accept": float(res.main_accept[burnin:].mean()),
+           "hyper_accept": float(res.hyper_accept[burnin:].mean()),
+           "final_step_size": res.final_step_size,
+           "final_leapfrog": res.final_leapfrog}
+    if res.swap_accept_rung is not None:
+        out["swap_accept_rung"] = res.swap_accept_rung.mean(axis=0).tolist()
+    print(json.dumps({"quality": out}), flush=True)
+    return out
 
 
 def dual_averaging_steps(accepts, eps0, burnin):
@@ -247,6 +316,7 @@ def main() -> int:
     from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
     from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
         make_potentials
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder
 
     phase("2 build")
     t0 = time.perf_counter()
@@ -265,25 +335,23 @@ def main() -> int:
     assert program is not None
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def k1_inputs(c):
+    def k1_inputs(c, g=gen):
         # weights drawn as tests/test_fused_trajectory.py:53 draws them
         # (0.3 N(0, 1)); prior and likelihood are the Network's. From the
         # Network's He-init start, (eps, L) = (1e-2, 13) already leaves
         # the leapfrog's stable range and any two float32 orders of
         # summation drift apart there
-        thetas = 0.3 * torch.randn((c, d), generator=gen, device=dev)
+        thetas = 0.3 * torch.randn((c, d), generator=g, device=dev)
         etas = flat.eta.expand(c, h).contiguous()
-        mom = torch.randn((c, d), generator=gen, device=dev)
+        mom = torch.randn((c, d), generator=g, device=dev)
         return thetas, etas, mom, x, y
 
     phase("3 K1 against its twin")
     k1_err = 0.0
-    groups = np.repeat([[1e-3, 100], [2e-3, 50], [5e-3, 25], [1e-2, 13]],
-                       128, axis=0)
+    g_eps, g_l = rung_groups(512)
     cases = [(64, 1e-2, 13), (64, 1e-3, 100),
-             (512, torch.tensor(groups[:, 0], dtype=torch.float32,
-                                device=dev),
-              torch.tensor(groups[:, 1], dtype=torch.int32, device=dev))]
+             (512, torch.tensor(g_eps, device=dev),
+              torch.tensor(g_l, device=dev))]
     k1_shapes = {}
     for c, eps, steps in cases:
         args = k1_inputs(c)
@@ -295,6 +363,33 @@ def main() -> int:
                                  else "per-chain (eps, L) in 4 groups"))
         k1_err = max(k1_err, compare(label, got, want, K1_TOL))
         k1_shapes[label] = (program, args, eps_c, l_c)
+
+    # K1 variant (c): the tempered program on rung-major fleets of 4 rungs,
+    # per-chain betas from the ladder and per-rung (eps, L)
+    t_program = fused_mlp.build_trajectory_program(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, h,
+        n_rows=x.shape[0], tempered=True)
+    assert t_program is not None and t_program.tempered
+    k1t_err = 0.0
+    k1t_shapes = {}
+    # its own generator, so the later phases draw what they drew before
+    t_gen = torch.Generator(device=dev).manual_seed(3)
+    for n_cold, beta_min in ((64, 0.1), (512, 0.5)):
+        c = 4 * n_cold
+        args = k1_inputs(c, t_gen)
+        g_eps, g_l = rung_groups(c)
+        eps_c, l_c = (torch.tensor(g_eps, device=dev),
+                      torch.tensor(g_l, device=dev))
+        betas = torch.tensor(np.repeat(make_ladder(4, beta_min), n_cold),
+                             device=dev)
+        got = fused_mlp.fused_trajectory(t_program, *args, eps_c, l_c, betas)
+        want = fused_mlp.trajectory_plain(t_program, *args, eps_c, l_c,
+                                          betas)
+        torch.cuda.synchronize()
+        label = (f"K1 tempered C={c} ({n_cold} x 4 rungs, beta_min "
+                 f"{beta_min}) per-rung (eps, L)")
+        k1t_err = max(k1t_err, compare(label, got, want, K1_TOL))
+        k1t_shapes[c] = (args, eps_c, l_c, betas)
 
     phase("4 K2 against its twin")
     wnet, wlik = wide_network(dev)
@@ -337,7 +432,7 @@ def main() -> int:
         prog = fused_hyper.build_hyper_program(knet.model, klik,
                                                kflat.unravel_eta, kh, n_steps)
         assert prog is not None and prog.coupled == coupled, label
-        stats_fn, _ = make_stats_hyper(knet.model, klik, knet.train_x,
+        stats_fn, _, _ = make_stats_hyper(knet.model, klik, knet.train_x,
                                        knet.train_y, kflat.unravel_theta,
                                        kflat.unravel_eta, kh)
         args = (etas, stats_fn(thetas),
@@ -434,6 +529,30 @@ def main() -> int:
                                rtol=1e-3, atol=1e-4)
     print("3 epochs: kernels agree with the plain path (rtol 1e-3, "
           "atol 1e-4)")
+    # the same for a tempered fleet (8 chains x 4 rungs at beta_min 0.5):
+    # tempered K1 + K2 against the plain tempered blocks, swaps included
+    short_t = {}
+    for use_fused in (True, False):
+        n3, lik3 = flagship_network(dev, seed=7)
+        n3.setup_mcmc(burnin=0, leapfrog_start=13, leapfrog_min=13,
+                      leapfrog_max=13, step_size_start=2e-3,
+                      hyper_leapfrog=30, averaging_steps=10)
+        short_t[use_fused] = n3.train(
+            3, 1, lik3, n_chains=8, chain_jitter=0.1, use_fused=use_fused,
+            tempering=4, tempering_beta_min=0.5, verbose=False)
+    assert short_t[True].main_path == "K1" and short_t[True].fused_hyper
+    assert short_t[False].main_path == "plain"
+    np.testing.assert_allclose(short_t[True].theta_samples,
+                               short_t[False].theta_samples,
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(short_t[True].eta_samples,
+                               short_t[False].eta_samples,
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(short_t[True].swap_accept_rung,
+                                  short_t[False].swap_accept_rung)
+    print(f"3 tempered epochs: kernels agree with the plain path (rtol "
+          f"1e-3, atol 1e-4), swap rates per rung "
+          f"{short_t[True].swap_accept_rung.tolist()} on both")
 
     counted = {"K1": fused_mlp.fused_trajectory,
                "K2": fused_hyper.fused_hyper_trajectory,
@@ -450,25 +569,31 @@ def main() -> int:
         print(f"launches during the {path} path: {got}")
         return got
 
-    # (b) the flagship on K1 + K2; launches counted from here
+    # (b) the flagship on K1 + K2: 64 chains at the verify recipe, and the
+    # 512-chain, G = 4 quality block at ess_run's settings; launches
+    # counted from here
     reset_counts()
     runs = {}
-    for n_chains, n_adapters, epochs in ((64, 1, 800), (512, 4, 300)):
-        net5, lik5 = flagship_network(dev)
-        net5.setup_mcmc(**RECIPE)
+    for n_chains, n_adapters, epochs, step, mcmc, seed, jitter in (
+            (64, 1, 800, 10, RECIPE, 0, 0.0),
+            (512, 4, ESS_EPOCHS, 2, ESS_RUN, 11, 0.05)):
+        net5, lik5 = flagship_network(dev, seed=seed)
+        net5.setup_mcmc(**mcmc)
         torch.cuda.synchronize()
-        res = net5.train(epochs, 10, lik5, n_chains=n_chains,
-                         n_adapters=n_adapters, verbose=False)
+        t0 = time.perf_counter()
+        res = net5.train(epochs, step, lik5, n_chains=n_chains,
+                         n_adapters=n_adapters, chain_jitter=jitter,
+                         verbose=False)
         torch.cuda.synchronize()
-        runs[n_chains] = (net5, res)
+        runs[n_chains] = (net5, res, time.perf_counter() - t0,
+                          mcmc["burnin"])
     launches = read_counts("flagship (K1 + K2)")
     if min(launches["K1"], launches["K2"]) < 1 or launches["K3"]:
         raise AssertionError(f"the flagship path did not run on K1 + K2 "
                              f"alone: {launches}")
-    for n_chains, (net5, res) in runs.items():
-        post = slice(RECIPE["burnin"], None)
-        main_acc = float(res.main_accept[post].mean())
-        hyper_acc = float(res.hyper_accept[post].mean())
+    for n_chains, (net5, res, _, burnin) in runs.items():
+        main_acc = float(res.main_accept[burnin:].mean())
+        hyper_acc = float(res.hyper_accept[burnin:].mean())
         steps = float(res.leapfrog.sum()) * n_chains
         print(f"{n_chains} chains: {res.n_epochs} epochs in "
               f"{res.wall_time:.2f} s, {steps / res.wall_time:,.0f} main "
@@ -480,7 +605,46 @@ def main() -> int:
         assert np.isfinite(res.eta_samples).all()
         assert 0.0 < main_acc < 1.0, main_acc
         assert abs(hyper_acc - 0.95) < 0.15, hyper_acc
-    net64, res64 = runs[64]
+    net512, res512, wall512, _ = runs[512]
+    quality("512 chains, G = 4", net512, res512, wall512, ESS_RUN["burnin"])
+    del net512, res512
+
+    # (c) the tempered quality block: 512 cold chains x 4 rungs at beta_min
+    # 0.5 (2,048 replicas, one adapter per rung) on tempered K1 + K2
+    tnet, tlik = flagship_network(dev, seed=11)
+    tnet.setup_mcmc(**ESS_RUN)
+    reset_counts()
+    t0 = time.perf_counter()
+    tres = tnet.train(ESS_EPOCHS, 2, tlik, n_chains=512, tempering=4,
+                      tempering_beta_min=0.5, chain_jitter=0.05,
+                      verbose=False)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    tempered_launches = read_counts("tempered quality block (K1 tempered "
+                                    "+ K2)")
+    if (tempered_launches["K1"] != ESS_EPOCHS or tempered_launches["K3"]
+            or tempered_launches["K2"] < 1):
+        raise AssertionError(f"the tempered block did not run on tempered "
+                             f"K1 (one launch per epoch) + K2 alone: "
+                             f"{tempered_launches}")
+    assert tres.main_path == "K1" and tres.fused_hyper, tres.main_path
+    n_samples = (ESS_EPOCHS - ESS_RUN["burnin"]) // 2
+    assert tres.theta_samples.shape == (n_samples, 512, d), \
+        tres.theta_samples.shape
+    assert np.isfinite(tres.theta_samples).all()
+    assert np.isfinite(tres.eta_samples).all()
+    tq = quality("tempered K = 4 at beta_min 0.5, 512 cold chains", tnet,
+                 tres, twall, ESS_RUN["burnin"])
+    swap_err = np.abs(np.asarray(tq["swap_accept_rung"])
+                      - np.asarray(SWAP_RUNG_REF))
+    if (swap_err > SWAP_RUNG_TOL).any():
+        raise AssertionError(f"swap rates per rung {tq['swap_accept_rung']} "
+                             f"are not within {SWAP_RUNG_TOL} of the JAX "
+                             f"package's {SWAP_RUNG_REF}")
+    assert abs(tq["hyper_accept"] - 0.95) < 0.15, tq["hyper_accept"]
+    assert 0.0 < tq["main_accept"] < 1.0, tq["main_accept"]
+    del tnet, tres
+    net64, res64, _, _ = runs[64]
     # posterior predictive mean at the training points (reference check
     # of the verify recipe: near the 0.1 noise floor)
     thetas = torch.tensor(res64.theta_pooled, device=dev)
@@ -579,6 +743,12 @@ def main() -> int:
         plain = cuda_ms(lambda: fused_mlp.trajectory_plain(prog, *args,
                                                            eps_c, l_c))
         times[label] = (ms, plain, None)
+    for c, (args, eps_c, l_c, betas) in k1t_shapes.items():
+        ms = cuda_ms(lambda: fused_mlp.fused_trajectory(t_program, *args,
+                                                        eps_c, l_c, betas))
+        plain = cuda_ms(lambda: fused_mlp.trajectory_plain(
+            t_program, *args, eps_c, l_c, betas))
+        times[f"K1 tempered C={c} per-rung (eps, L)"] = (ms, plain, None)
     for label, (prog, args) in k2_shapes.items():
         ms = cuda_ms(lambda: fused_hyper.fused_hyper_trajectory(prog, *args))
         plain = cuda_ms(lambda: fused_hyper.hyper_trajectory_plain(prog,
@@ -656,6 +826,13 @@ def main() -> int:
                      4 * (4 * 64 * h + 64 * hyper_program.n_stats + 3 * 64))
     k3_bound = bound(c_w * product_flops(wide_ops, 128),
                      4 * (2 * c_w * wd + 2 * c_w + 128 * (256 + 1)))
+    # tempered K1 at C = 2,048 with per-rung L: each chain's own L + 1
+    # evaluations (the beta products add 2 FLOP per row and evaluation);
+    # inputs theta, mom, eta, x, y, eps, L, beta, outputs q, v, lp0, lp1
+    k1t_ms, k1t_plain, _ = times["K1 tempered C=2048 per-rung (eps, L)"]
+    t_evals = float((k1t_shapes[2048][2].to(torch.float64) + 1).sum())
+    k1t_bound = bound(t_evals * (product_flops(program.ops, 11) + 7 * d),
+                      4 * (4 * 2048 * d + 2048 * h + 11 * 2 + 5 * 2048))
     kernels = [
         {"name": "K1 fused_trajectory", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
@@ -676,6 +853,12 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": k3_plain,
          "torch_func_ms": k3_func},
+        {"name": "K1 fused_trajectory (tempered)", "route": "cuda",
+         "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
+         "replaces": "tensorbnn_tpu/ops/fused_mlp.py:451",
+         "launches": tempered_launches["K1"], "max_abs_err": k1t_err,
+         "ms": k1t_ms, "plain_ms": k1t_plain, "bound_ms": k1t_bound[0],
+         "bound_by": k1t_bound[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,6 +27,15 @@
 // 0 < i < L full kick then drift; i = L half kick, no drift. lp0 is the value
 // at i = 0, lp1 the value at the last evaluation (the end point).
 //
+// Tempered variant (parallel tempering's power posterior, the Pallas kernel's
+// tempered=True program, :451-456 and :525-530): a per-chain inverse
+// temperature beta[c] scales the likelihood and nothing else. Block c reads
+// beta[c] once; beta is folded into the residual's gradient (so the backward
+// pass carries it and the prior's gradient stays unscaled) and into the value
+// as beta * (quad_ll + const_ll) + prior. lp0 and lp1 are then the tempered
+// log posteriors that the caller's MH test needs. A null beta is the
+// untempered kernel (beta = 1, bit for bit the same arithmetic).
+//
 // Scope of this kernel: dense layers with tanh / relu / sigmoid / exp / elu
 // activations, Gaussian priors (sd = scale^2, clipped to [1e-8, 1e8]) and a
 // fixed-sd Gaussian likelihood. The wrapper (ops/fused_mlp.py) checks scope,
@@ -51,6 +60,7 @@ struct Program {
   float prior_loc[kMaxPrior];
   float prior_iv[kMaxPrior];   // 1 / sd^2 of each prior block
   float const_term;            // every normalizer of the log posterior
+  float const_ll;              // the likelihood's part of const_term
   int n_ops, n_prior, plane_total, max_d;
   float red[33];
 };
@@ -93,11 +103,12 @@ __device__ __forceinline__ float act_backward(int kind, float in, float out) {
   }
 }
 
-// Log posterior at q; writes its gradient into g. planes[0 .. N*d0) holds x.
+// Log posterior (likelihood tempered by beta) at q; writes its gradient into
+// g. planes[0 .. N*d0) holds x.
 __device__ float value_and_grad(Program& p, const float* q, float* g,
                                 float* planes, float* ga, float* gb,
                                 const float* __restrict__ y, int N,
-                                float inv_sd2) {
+                                float inv_sd2, float beta) {
   const int tid = threadIdx.x, nt = blockDim.x;
 
   // forward: every op's output plane stays for the backward pass
@@ -121,16 +132,17 @@ __device__ float value_and_grad(Program& p, const float* q, float* g,
     __syncthreads();
   }
 
-  // fixed-sd Gaussian likelihood: value terms and d ll / d pred
+  // fixed-sd Gaussian likelihood: value terms and beta * d ll / d pred
   const int dk = p.ops[3 * (p.n_ops - 1) + 2];
   const float* pred = planes + p.plane_off[p.n_ops];
+  const float lik_scale = inv_sd2 * beta;
   float quad = 0.f;
   for (int idx = tid; idx < N * dk; idx += nt) {
     const float r = y[idx] - pred[idx];
     quad = fmaf(r, r, quad);
-    ga[idx] = r * inv_sd2;
+    ga[idx] = r * lik_scale;
   }
-  quad *= inv_sd2;
+  quad *= lik_scale;
   __syncthreads();
 
   // backward
@@ -182,14 +194,17 @@ __device__ float value_and_grad(Program& p, const float* q, float* g,
     }
     prior_quad = fmaf(part, iv, prior_quad);
   }
-  return block_sum(-0.5f * (quad + prior_quad), p.red) + p.const_term;
+  // beta * const_ll + the prior normalizers, as const_term + (beta - 1) *
+  // const_ll: exactly const_term when beta = 1
+  return block_sum(-0.5f * (quad + prior_quad), p.red) + p.const_term +
+         (beta - 1.f) * p.const_ll;
 }
 
 __global__ void trajectory_kernel(const float* __restrict__ theta, const float* __restrict__ mom,
                                   const float* __restrict__ eta, const float* __restrict__ x,
                                   const float* __restrict__ y, const float* __restrict__ eps_c,
-                                  const int* __restrict__ steps_c, const int* __restrict__ ops,
-                                  int n_ops, const int* __restrict__ prior, int n_prior, int D,
+                                  const int* __restrict__ steps_c, const float* __restrict__ beta_c,
+                                  const int* __restrict__ ops, int n_ops, const int* __restrict__ prior, int n_prior, int D,
                                   int H, int N, float sd, float* __restrict__ q_out,
                                   float* __restrict__ v_out, float* __restrict__ lp0_out,
                                   float* __restrict__ lp1_out) {
@@ -218,6 +233,7 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
     // normalizers: one per prior block (scalar-sigma gaussian_logprob) and
     // the likelihood's k = N * dk events
     float cst = -0.5f * (float)(N * dim) * (2.f * logf(sd) + kLog2Pi);
+    p.const_ll = cst;
     int start = 0;
     for (int b = 0; b < n_prior; ++b) {
       const int rows = prior[4 * b + 1];
@@ -250,10 +266,11 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
 
   const float eps = eps_c[c];
   const int L = steps_c[c];
+  const float beta = beta_c != nullptr ? beta_c[c] : 1.f;
   const float inv_sd2 = 1.f / (sd * sd);
   float lp0 = 0.f, lp = 0.f;
   for (int i = 0; i <= L; ++i) {
-    lp = value_and_grad(p, q, g, planes, ga, gb, y, N, inv_sd2);
+    lp = value_and_grad(p, q, g, planes, ga, gb, y, N, inv_sd2, beta);
     if (i == 0) lp0 = lp;
     const float kick = (i == 0 || i == L) ? 0.5f * eps : eps;
     const bool drift = i < L;
@@ -277,9 +294,10 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
 
 }  // namespace
 
+// beta: per-chain inverse temperatures (C,), or null for an untempered run.
 extern "C" int tbnn_fused_trajectory(const float* theta, const float* mom, const float* eta,
                                      const float* x, const float* y, const float* eps,
-                                     const int* steps, const int* ops, int n_ops,
+                                     const int* steps, const float* beta, const int* ops, int n_ops,
                                      const int* prior, int n_prior, int C, int D, int H, int N,
                                      float sd, int threads, int smem_bytes, float* q_out,
                                      float* v_out, float* lp0_out, float* lp1_out, void* stream) {
@@ -292,8 +310,8 @@ extern "C" int tbnn_fused_trajectory(const float* theta, const float* mom, const
     if (e != cudaSuccess) return (int)e;
   }
   trajectory_kernel<<<C, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      theta, mom, eta, x, y, eps, steps, ops, n_ops, prior, n_prior, D, H, N, sd, q_out, v_out,
-      lp0_out, lp1_out);
+      theta, mom, eta, x, y, eps, steps, beta, ops, n_ops, prior, n_prior, D, H, N, sd, q_out,
+      v_out, lp0_out, lp1_out);
   return (int)cudaGetLastError();
 }
 

@@ -134,9 +134,18 @@ class Network:
               adjust_hypers: bool = True, display_skip: int = 0,
               verbose: bool = True, n_chains: int = 1, n_adapters: int = 1,
               chain_jitter: float = 0.0, use_fused="auto",
+              tempering: int = 1, tempering_beta_min: float = 0.1,
               **kwargs) -> RunResult:
         """Runs the sampler; options the port does not carry raise
-        NotImplementedError naming them."""
+        NotImplementedError naming them.
+
+        ``tempering=K`` (K > 1) runs parallel tempering: ``K * n_chains``
+        replicas on a geometric ladder of inverse temperatures from 1 down
+        to ``tempering_beta_min``, one GP-UCB adapter per rung, an even/odd
+        replica swap after every epoch; the result records the
+        ``n_chains`` cold chains and the swap rates (``swap_accept``,
+        ``swap_accept_rung``).
+        """
         options = {_REF_TRAIN_KWARGS.get(k, k): v for k, v in kwargs.items()}
         options.pop("scaleExp", None)
         adjust_hypers = options.pop("adjust_hypers", adjust_hypers)
@@ -154,7 +163,8 @@ class Network:
             adjust_hypers=adjust_hypers, display_skip=display_skip,
             n_chains=n_chains, n_adapters=n_adapters,
             chain_jitter=chain_jitter, use_fused=use_fused,
-            verbose=verbose, **options)
+            verbose=verbose, tempering=tempering,
+            tempering_beta_min=tempering_beta_min, **options)
         return self.results
 
 

@@ -12,9 +12,12 @@ posterior at its start and end. The MH accept stays with the caller
 kernel ``csrc/fused_trajectory.cu``, or raises; on CPU tensors it runs
 ``trajectory_plain``, the same trajectory in batched torch ops. ``eps`` and
 ``L`` are shared (a float and an int) or per chain (``(C,)`` tensors on the
-chains' device); every chain runs exactly its own ``L``. Scope: dense layers
-with Gaussian priors and tanh / relu / sigmoid / exp / elu activations
-under a fixed-sd Gaussian likelihood, within one block's shared memory.
+chains' device); every chain runs exactly its own ``L``. Built with
+``tempered=True`` (parallel tempering), ``traj`` takes a trailing ``betas
+(C,)`` of per-chain inverse temperatures and integrates the power posterior
+``prior + beta * loglik``. Scope: dense layers with Gaussian priors and tanh
+/ relu / sigmoid / exp / elu activations under a fixed-sd Gaussian
+likelihood, within one block's shared memory.
 
 K3, ``try_build_fused_main_vg``, returns ``batched_main_vg(thetas (C, D),
 etas (C, H), x, y) -> (lp (C,), grad (C, D))``: one log-posterior value and
@@ -28,8 +31,8 @@ last eta coordinate). The driver builds K3 where K1 declines a model: a
 learned sd, Cauchy priors, or planes too wide for shared memory.
 
 Not ported: the Bernoulli and categorical tails, the leakyrelu / prelu /
-sqprelu activations, K1's tempered and U-turn-recording variants, and K3's
-data-axis ``psum``. Deliberate divergences: the TPU's VMEM gates
+sqprelu activations, K1's U-turn-recording variant, and K3's data-axis
+``psum``. Deliberate divergences: the TPU's VMEM gates
 (``kernel_vmem_bytes``, ``trajectory_vmem_bytes``), its chain blocks
 (``choose_block_c``) and the TPU-measured ``fused_profitable`` gate do not
 apply on the H100. K3 keeps its planes in device memory and so has no size
@@ -136,13 +139,15 @@ def verify_theta_layout(unravel_theta, ops) -> bool:
 class TrajectoryProgram:
     """Everything K1 needs besides the state: the op program, the prior
     blocks ``(start_row, rows, loc_eta_idx, scale_eta_idx)`` covering the
-    flat state in row order, and the likelihood's fixed sd."""
+    flat state in row order, the likelihood's fixed sd, and whether the
+    likelihood is tempered by per-chain betas."""
 
     ops: tuple
     prior_blocks: tuple
     sd: float
     n_rows: int
     eta_dim: int
+    tempered: bool = False
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -198,10 +203,12 @@ def gaussian_prior_blocks(model, unravel_eta, eta_dim: int
 
 
 def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
-                             eta_dim: int,
-                             n_rows: int) -> Optional[TrajectoryProgram]:
+                             eta_dim: int, n_rows: int,
+                             tempered: bool = False
+                             ) -> Optional[TrajectoryProgram]:
     """The K1 program for ``(model, likelihood)``, or None when out of
-    scope (see the module docstring) or over the shared-memory budget."""
+    scope (see the module docstring) or over the shared-memory budget;
+    ``tempered`` builds the power-posterior program."""
     from tensorbnn_tpu_torch.likelihoods import FixedGaussianLikelihood
     from tensorbnn_tpu_torch.models.layers import GaussianDenseLayer
 
@@ -212,7 +219,7 @@ def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
         return None
     blocks = gaussian_prior_blocks(model, unravel_eta, eta_dim)
     program = TrajectoryProgram(ops, blocks, float(likelihood.sd),
-                                int(n_rows), int(eta_dim))
+                                int(n_rows), int(eta_dim), bool(tempered))
     if (len(ops) > MAX_OPS or len(blocks) > MAX_PRIOR_BLOCKS
             or sum(b[1] for b in blocks) != program.dims[2]
             or program.smem_bytes > SMEM_BUDGET_BYTES):
@@ -222,15 +229,16 @@ def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
 
 def try_build_fused_trajectory(model, likelihood, unravel_theta,
                                unravel_eta, x, y, eta_dim: int,
-                               n_rows: Optional[int] = None
+                               n_rows: Optional[int] = None,
+                               tempered: bool = False
                                ) -> Optional[Callable]:
-    """``traj(thetas, etas, momenta, x, y, eps, L)`` for an in-scope model,
-    else None (the caller then takes the plain ``hmc_step_batched``
-    path)."""
+    """``traj(thetas, etas, momenta, x, y, eps, L)`` (with a trailing
+    ``betas`` when ``tempered``) for an in-scope model, else None (the
+    caller then takes the plain ``hmc_step_batched`` path)."""
     del y
     n = int(n_rows if n_rows is not None else x.shape[0])
     program = build_trajectory_program(model, likelihood, unravel_theta,
-                                       unravel_eta, eta_dim, n)
+                                       unravel_eta, eta_dim, n, tempered)
     if program is None:
         return None
     return functools.partial(fused_trajectory, program)
@@ -253,16 +261,23 @@ def per_chain(eps, n_leapfrog, c: int, device):
 
 
 def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
-                     y, eps, n_leapfrog):
+                     y, eps, n_leapfrog, betas=None):
     """K1's wrapper: CUDA tensors launch the kernel, CPU tensors run
-    ``trajectory_plain``. Counts its kernel launches in ``LAUNCHES``."""
+    ``trajectory_plain``. A tempered program needs ``betas (C,)`` (an
+    untempered one ignores them, as the JAX package's does). Counts its
+    kernel launches in ``LAUNCHES``."""
+    if program.tempered and betas is None:
+        raise TypeError("tempered trajectory kernel requires betas")
     c = thetas.shape[0]
     d0, dk, d_total = program.dims
     n = program.n_rows
     eps_c, l_c = per_chain(eps, n_leapfrog, c, thetas.device)
+    beta_c = (torch.as_tensor(betas, dtype=torch.float32,
+                              device=thetas.device)
+              if program.tempered else None)
     if thetas.device.type == "cpu":
         return trajectory_plain(program, thetas, etas, momenta, x, y, eps_c,
-                                l_c)
+                                l_c, beta_c)
     x = x.reshape(n, d0)
     y = y.reshape(n, dk)
     if thetas.device.type != "cuda":
@@ -272,7 +287,9 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
                "y": y, "eps": eps_c, "L": l_c}
     shapes = {"thetas": (c, d_total), "etas": (c, program.eta_dim),
               "momenta": (c, d_total), "x": (n, d0), "y": (n, dk),
-              "eps": (c,), "L": (c,)}
+              "eps": (c,), "L": (c,), "betas": (c,)}
+    if beta_c is not None:
+        tensors["betas"] = beta_c
     for name, t in tensors.items():
         dtype = torch.int32 if name == "L" else torch.float32
         if t.device != thetas.device or t.dtype != dtype:
@@ -283,6 +300,7 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
                              f"{tuple(t.shape)}, expected {shapes[name]}")
     thetas, etas, momenta, x, y, eps_c, l_c = (
         t.contiguous() for t in (thetas, etas, momenta, x, y, eps_c, l_c))
+    beta_ptr = None if beta_c is None else beta_c.contiguous()
     ops_t, prior_t = program.tables(thetas.device)
     q = torch.empty_like(thetas)
     v = torch.empty_like(thetas)
@@ -292,6 +310,7 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
     rc = lib.tbnn_fused_trajectory(
         thetas.data_ptr(), momenta.data_ptr(), etas.data_ptr(),
         x.data_ptr(), y.data_ptr(), eps_c.data_ptr(), l_c.data_ptr(),
+        None if beta_ptr is None else beta_ptr.data_ptr(),
         ops_t.data_ptr(), len(program.ops), prior_t.data_ptr(),
         len(program.prior_blocks), c, d_total, program.eta_dim, n,
         program.sd, THREADS, program.smem_bytes, q.data_ptr(), v.data_ptr(),
@@ -559,21 +578,25 @@ def add_gaussian_priors(prior_blocks, q, etas, value, grad):
     return value, grad
 
 
-def program_value_and_grad(program: TrajectoryProgram, q, etas, x, y):
+def program_value_and_grad(program: TrajectoryProgram, q, etas, x, y,
+                           betas=None):
     """Log posterior ``(C,)`` and its gradient ``(C, D)`` at ``q (C, D)``,
-    as K1 computes them: the fixed-sd likelihood plus closed-form Gaussian
-    priors."""
+    as K1 computes them: the fixed-sd likelihood (times ``betas (C,)``
+    when given, the power posterior) plus closed-form Gaussian priors."""
     sd_c = torch.full((q.shape[0],), program.sd, dtype=q.dtype,
                       device=q.device)
     value, grad = potential_plain(program.ops, q, sd_c, x, y)
+    if betas is not None:
+        value, grad = betas * value, betas[:, None] * grad
     return add_gaussian_priors(program.prior_blocks, q, etas, value, grad)
 
 
 def trajectory_plain(program: TrajectoryProgram, thetas, etas, momenta, x,
-                     y, eps_c, l_c):
+                     y, eps_c, l_c, betas=None):
     """The K1 trajectory in batched torch ops: the kernel's schedule run as
     one wave front to ``max(L)``, with chains past their own ``L`` frozen
-    (their value is re-taken at the unchanged end point)."""
+    (their value is re-taken at the unchanged end point). ``betas (C,)``
+    tempers the likelihood."""
     d0, dk, _ = program.dims
     x = x.reshape(program.n_rows, d0)
     y = y.reshape(program.n_rows, dk)
@@ -581,7 +604,7 @@ def trajectory_plain(program: TrajectoryProgram, thetas, etas, momenta, x,
     l_c = l_c.to(torch.int64)
     lp0 = lp = None
     for i in range(int(l_c.max()) + 1):
-        lp, g = program_value_and_grad(program, q, etas, x, y)
+        lp, g = program_value_and_grad(program, q, etas, x, y, betas)
         if i == 0:
             lp0 = lp
         kick = torch.where(i < l_c, eps_c, 0.0)

@@ -50,9 +50,13 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  eta_dim: Optional[int] = None,
                                  batched_main_vg=None,
                                  batched_main_traj=None,
-                                 batched_hyper_traj=None):
+                                 batched_hyper_traj=None,
+                                 tempering_beta=None):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator)
-    -> (carry, trace)``, the trace's fields stacked ``(n_epochs, C, ...)``.
+    -> (carry, trace)``, the trace's fields stacked ``(n_epochs, C, ...)``
+    (``swap_accept`` None unless ``tempering_beta``, which the epoch takes
+    as ``(n_rungs, per-chain betas)``; each epoch's swap parity comes from
+    the carry's epoch counter on the device).
 
     ``step_size`` is a float or a ``(C,)`` array; ``leapfrog`` an int or a
     ``(C,)`` integer array (per-chain-group adaptation). Both are moved to
@@ -64,7 +68,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
         adjust_hypers=adjust_hypers, hyper_leapfrog=hyper_leapfrog,
         burnin=burnin, mu=mu, batched_main_vg=batched_main_vg,
         batched_main_traj=batched_main_traj,
-        batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim)
+        batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim,
+        tempering_beta=tempering_beta)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator):
@@ -83,6 +88,7 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
             carry, trace = epoch_fn(carry, step_size, leapfrog, generator,
                                     leapfrog_dev=leapfrog_dev)
             traces.append(trace)
-        return carry, EpochTrace(*(torch.stack(f) for f in zip(*traces)))
+        return carry, EpochTrace(*(None if f[0] is None else torch.stack(f)
+                                   for f in zip(*traces)))
 
     return run_chunk

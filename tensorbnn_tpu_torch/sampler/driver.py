@@ -9,12 +9,20 @@ chunk's ``(eps, L)``. With ``n_adapters = G`` the chains split into G
 groups, each with its own adapter and its own ``(eps, L)``, repeated per
 chain. Samples stay on the device until the run ends.
 
+Parallel tempering (``tempering=K``) widens the fleet rung-major to ``K *
+n_chains`` replicas (sampler/tempering.py), with one GP-UCB adapter per
+rung; samples, SJD and acceptance cover the cold chains only, and the
+per-epoch swap rates come back beside them.
+
 Kernel choice: with ``use_fused`` "auto" (or True) the driver builds K1
 (ops/fused_mlp.py) for the main block whenever the model is in its scope,
 else K3 (the per-step potential, same module) under ``hmc_step_batched``,
 and K2 (ops/fused_hyper.py) for the hyper block, on any device; models
-outside all of them take the plain ``hmc_step_batched`` path. The JAX
-package's TPU-measured profitability gate is not carried over.
+outside all of them take the plain ``hmc_step_batched`` path. A tempered
+run builds K1's tempered program and never K3, which bakes the untempered
+posterior (so a tempered model outside K1 takes the plain main block), and
+no K2 when the likelihood couples into the hypers. The JAX package's
+TPU-measured profitability gate is not carried over.
 
 Memory policy (as the JAX driver's): with ``keep_samples="auto"`` the
 recorded samples stay in memory while their projected size is under
@@ -42,6 +50,7 @@ from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
 from tensorbnn_tpu_torch.sampler.adapter import ParamAdapter
 from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
     host_unraveler
+from tensorbnn_tpu_torch.sampler.tempering import make_ladder
 
 #: JAX-driver options this port does not carry, with the values that mean
 #: "off" (any other value raises NotImplementedError)
@@ -54,7 +63,6 @@ NOT_CARRIED = {
     "compensated": (False,),
     "numerics": ("default",),
     "trajectory": ("adapter",),
-    "tempering": (1,),
     "data_chunk": (None,),
     "state_layout": ("auto", "flat"),
     "max_dispatch_seconds": (None,),
@@ -66,7 +74,7 @@ NOT_CARRIED = {
 #: JAX-driver options that only qualify a not-carried option; accepted and
 #: unused
 INERT = ("networks_per_file", "precondition_clip", "precondition_windows",
-         "uturn_probe", "tempering_beta_min", "x_validate", "y_validate")
+         "uturn_probe", "x_validate", "y_validate")
 
 
 def _is(value, off) -> bool:
@@ -172,6 +180,11 @@ class RunResult:
     fused_hyper: bool = False
     #: what ran the main block: "K1", "K3" or "plain"
     main_path: str = "plain"
+    #: per-epoch replica-swap rate (fleet mean; None unless tempering > 1)
+    swap_accept: np.ndarray = None
+    #: per-epoch per-rung swap rate, shape (epochs, K): rung r's rate
+    #: counts exchanges with either neighbour (None unless tempering > 1)
+    swap_accept_rung: np.ndarray = None
 
     @property
     def theta_pooled(self) -> np.ndarray:
@@ -183,6 +196,23 @@ class RunResult:
     def eta_pooled(self) -> np.ndarray:
         s, c, h = self.eta_samples.shape
         return np.transpose(self.eta_samples, (1, 0, 2)).reshape(-1, h)
+
+    def split_rhat(self) -> np.ndarray:
+        """Per-parameter split R-hat over the raw (S, C, D) stack."""
+        from tensorbnn_tpu_torch.utils.diagnostics import split_rhat
+        return split_rhat(self.theta_samples)
+
+    def multichain_ess(self, max_params: int = 256):
+        """Pooled cross-chain ESS of the parameter traces: a ``PooledEss``,
+        the worst coordinate's ESS with the breakdown attached."""
+        from tensorbnn_tpu_torch.utils.diagnostics import multichain_ess
+        return multichain_ess(self.theta_samples, max_params=max_params)
+
+    def summary(self, max_params: int = 256):
+        """Per-parameter convergence table (mean, sd, pooled ESS, split
+        R-hat) over the raw parameter traces, printable."""
+        from tensorbnn_tpu_torch.utils.diagnostics import summary
+        return summary(self.theta_samples, max_params=max_params)
 
 
 def sample_posterior(model: Sequential, likelihood: Likelihood,
@@ -199,6 +229,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      chain_jitter: float = 0.0,
                      use_fused="auto",
                      verbose: bool = True,
+                     tempering: int = 1,
+                     tempering_beta_min: float = 0.1,
                      **options) -> RunResult:
     """Runs the two-block adaptive HMC sampler on the device of
     ``x_train`` (``params``, ``hypers`` and ``generator`` live there too).
@@ -207,13 +239,44 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     ``config.burnin``. ``n_adapters`` splits the chains into that many
     equal groups with their own GP-UCB adapter (seeds ``adapter_seed +
     g``). ``use_fused``: "auto"/True build the fused kernels for in-scope
-    models, False forces the plain path.
+    models, False forces the plain path. ``tempering`` > 1 runs parallel
+    tempering over that many rungs, the hottest at ``tempering_beta_min``
+    (one adapter per rung, seeds ``adapter_seed + r``).
     """
     t_start = time.time()
-    check_options(options)
     if n_adapters < 1 or n_chains % n_adapters:
         raise ValueError(f"n_adapters ({n_adapters}) must be >= 1 and "
                          f"divide n_chains ({n_chains})")
+    # tempering's own errors come first, with the JAX driver's messages
+    # (tensorbnn_tpu/sampler/driver.py:495-531), for options the port does
+    # not carry as well
+    if tempering < 1:
+        raise ValueError(f"tempering must be >= 1, got {tempering}")
+    tempering_beta = None
+    fleet_chains = n_chains
+    if tempering > 1:
+        if options.get("trajectory", "adapter") == "uturn":
+            raise ValueError(
+                "tempering is incompatible with trajectory='uturn' (the "
+                "shared U-turn schedule would mix feedback across "
+                "temperatures; each rung needs its own trajectory tuning, "
+                "which the per-rung GP adapters provide)")
+        if n_adapters != 1:
+            raise ValueError(
+                "tempering assigns one adapter group per rung; it is "
+                "incompatible with an explicit n_adapters > 1")
+        precondition = options.get("precondition", False)
+        if precondition is not False and precondition is not None:
+            raise ValueError(
+                "tempering is incompatible with precondition: the "
+                "cross-chain spread mixes temperatures, and the diagonal "
+                "metric was measured to hurt multimodal targets")
+        if options.get("state_layout") == "tree":
+            raise ValueError("tempering requires the flat state layout")
+        ladder = make_ladder(tempering, tempering_beta_min)
+        fleet_chains = n_chains * tempering
+        tempering_beta = (tempering, np.repeat(ladder, n_chains))
+    check_options(options)
     if use_fused not in ("auto", True, False):
         raise ValueError(f"use_fused must be 'auto', True or False, got "
                          f"{use_fused!r}")
@@ -236,6 +299,7 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             f"keep_samples=True to buffer it anyway, or record fewer "
             f"epochs (sampling_step)")
 
+    tempered = tempering_beta is not None
     main_traj = main_vg = hyper_traj = None
     if use_fused:
         from tensorbnn_tpu_torch.ops.fused_hyper import \
@@ -244,19 +308,23 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             try_build_fused_main_vg, try_build_fused_trajectory
         main_traj = try_build_fused_trajectory(
             model, likelihood, flat.unravel_theta, flat.unravel_eta,
-            x_train, y_train, eta_dim=eta_dim)
-        if main_traj is None:
+            x_train, y_train, eta_dim=eta_dim, tempered=tempered)
+        if main_traj is None and not tempered:
             main_vg = try_build_fused_main_vg(
                 model, likelihood, flat.unravel_theta, flat.unravel_eta,
                 x_train, y_train, eta_dim=eta_dim)
-        if adjust_hypers:
+        # beta scales a coupled likelihood's term of the hyper potential,
+        # which K2 does not take: such tempered runs use the plain block
+        if adjust_hypers and not (tempered
+                                  and likelihood.main_probs_in_hypers):
             hyper_traj = try_build_fused_hyper_trajectory(
                 model, likelihood, flat.unravel_eta, eta_dim,
                 config.hyper_leapfrog)
     main_path = "K1" if main_traj else "K3" if main_vg else "plain"
     if verbose:
         print(f"main block: "
-              f"{'plain' if main_path == 'plain' else 'fused ' + main_path}; "
+              f"{'plain' if main_path == 'plain' else 'fused ' + main_path}"
+              f"{f' (tempered, {tempering} rungs)' if tempered else ''}; "
               f"hyper block: {'fused K2' if hyper_traj else 'plain'} "
               f"(device {device})")
 
@@ -266,25 +334,28 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         hyper_leapfrog=config.hyper_leapfrog, burnin=float(config.burnin),
         hyper_step_size_init=config.hyper_step_size, eta_dim=eta_dim,
         batched_main_vg=main_vg, batched_main_traj=main_traj,
-        batched_hyper_traj=hyper_traj)
+        batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta)
     carry = init_multichain_state(flat.theta, flat.eta,
-                                  config.hyper_step_size, n_chains,
+                                  config.hyper_step_size, fleet_chains,
                                   generator, jitter=chain_jitter)
 
-    grp_chains = n_chains // n_adapters
+    # adapter groups: the n_adapters groups, or one per tempering rung
+    n_grp = tempering if tempered else n_adapters
+    grp_chains = fleet_chains // n_grp
     adapters = [config.make_adapter(
-        seed=config.adapter_seed + g if n_adapters > 1 else None)
-        for g in range(n_adapters)]
-    step_sizes = np.full(n_adapters, config.step_size_start, np.float64)
-    leapfrogs = np.full(n_adapters, config.leapfrog_start, np.int64)
+        seed=config.adapter_seed + g if n_grp > 1 else None)
+        for g in range(n_grp)]
+    step_sizes = np.full(n_grp, config.step_size_start, np.float64)
+    leapfrogs = np.full(n_grp, config.leapfrog_start, np.int64)
 
     theta_rows, eta_rows = [], []
     sjds, main_accepts, hyper_accepts, leaps = [], [], [], []
+    swap_accepts, swap_rung_accepts = [], []
     iter_ = 0
     while iter_ < epochs:
         chunk = min(min(a.epochs_until_next_change() for a in adapters),
                     epochs - iter_)
-        if n_adapters == 1:
+        if n_grp == 1:
             eps_arg, leap_arg = float(step_sizes[0]), int(leapfrogs[0])
         else:
             eps_arg = np.repeat(step_sizes, grp_chains).astype(np.float32)
@@ -296,15 +367,24 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                 if iter_ + j + 1 > config.burnin
                 and (iter_ + j + 1) % sampling_step == 0]
         if rows:
-            theta_rows.append(trace.theta[rows])
-            eta_rows.append(trace.eta[rows])
+            # the cold chains only: hot replicas sample flattened targets
+            theta_rows.append(trace.theta[rows, :n_chains])
+            eta_rows.append(trace.eta[rows, :n_chains])
         # one device-to-host transfer of the chunk's diagnostics
-        sjd, m_acc, h_acc = torch.stack(
-            [trace.sjd, trace.main_accept, trace.hyper_accept]).cpu().numpy()
-        sjd_grp = sjd.reshape(chunk, n_adapters, grp_chains).mean(axis=2)
-        sjds.append(sjd.mean(axis=1))
-        main_accepts.append(m_acc.mean(axis=1))
-        hyper_accepts.append(h_acc.mean(axis=1))
+        fields = [trace.sjd, trace.main_accept, trace.hyper_accept]
+        if tempered:
+            fields.append(trace.swap_accept)
+        sjd, m_acc, h_acc, *swap = torch.stack(fields).cpu().numpy()
+        # each group's (each rung's) mean SJD feeds its adapter; the
+        # recorded diagnostics cover the cold chains
+        sjd_grp = sjd.reshape(chunk, n_grp, grp_chains).mean(axis=2)
+        sjds.append(sjd[:, :n_chains].mean(axis=1))
+        main_accepts.append(m_acc[:, :n_chains].mean(axis=1))
+        hyper_accepts.append(h_acc[:, :n_chains].mean(axis=1))
+        if swap:
+            swap_accepts.append(swap[0].mean(axis=1))
+            swap_rung_accepts.append(
+                swap[0].reshape(chunk, tempering, n_chains).mean(axis=2))
 
         for j in range(chunk):
             iter_ += 1
@@ -317,8 +397,10 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             if display_skip and iter_ % display_skip == 0 and verbose:
                 print(f"iter {iter_}: step size {step_sizes.tolist()}, "
                       f"leapfrog {leapfrogs.tolist()}, main acceptance "
-                      f"{m_acc[j].mean():.4f}, hyper acceptance "
-                      f"{h_acc[j].mean():.4f}")
+                      f"{m_acc[j, :n_chains].mean():.4f}, hyper acceptance "
+                      f"{h_acc[j, :n_chains].mean():.4f}"
+                      + (f", swap rate {swap[0][j].mean():.4f}" if swap
+                         else ""))
 
     if theta_rows:
         theta_stack = torch.cat(theta_rows).cpu().numpy()   # (S, C, D)
@@ -345,6 +427,10 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      else np.zeros(0)),
         hyper_accept=(np.concatenate(hyper_accepts) if hyper_accepts
                       else np.zeros(0)),
+        swap_accept=(np.concatenate(swap_accepts) if swap_accepts
+                     else None),
+        swap_accept_rung=(np.concatenate(swap_rung_accepts)
+                          if swap_rung_accepts else None),
         leapfrog=np.concatenate(leaps) if leaps else np.zeros(0),
         final_step_size=float(np.mean(step_sizes)),
         final_leapfrog=int(round(float(np.mean(leapfrogs)))),

@@ -1,19 +1,23 @@
 """Two-block Gibbs-within-HMC epoch step over a chain-batched state.
 
 Counterpart of ``make_epoch_fn`` in ``tensorbnn_tpu/sampler/gibbs.py``
-(flat layout, untempered). One epoch is a main HMC block over the weights
-given the hypers, the squared jumping distance scaled by ``L ** -0.5`` for
-the GP-UCB adapter, a hyper HMC block over the hypers given the new
-weights, and a per-chain dual-averaging update of the hyper step size
-(target 0.95, gamma 0.4, t0 10, kappa 0.75, frozen from 80% of burn-in).
+(flat layout). One epoch is a main HMC block over the weights given the
+hypers, the squared jumping distance scaled by ``L ** -0.5`` for the GP-UCB
+adapter, a hyper HMC block over the hypers given the new weights, and a
+per-chain dual-averaging update of the hyper step size (target 0.95, gamma
+0.4, t0 10, kappa 0.75, frozen from 80% of burn-in). Under parallel
+tempering (``tempering_beta``) both blocks target the power posterior and
+the epoch ends with a replica swap (sampler/tempering.py).
 
 The main block runs through K1 (``batched_main_traj``) when the driver
 built it, else through ``hmc_step_batched`` on K3's value and gradient
 (``batched_main_vg``) or on the plain ``torch.func`` potential; the hyper
 block runs through K2 (``batched_hyper_traj``) on the
-sufficient-statistics potential when it applies. Randomness comes from one ``torch.Generator``
-per run; an epoch can instead be handed its draws (``EpochDraws``), which
-is how the tests feed it the JAX package's own draws.
+sufficient-statistics potential when it applies. Randomness comes from one
+``torch.Generator`` per run, drawn in this order: main momenta, main MH
+coins, hyper momenta, hyper MH coins and, only under tempering, the swap
+coins. An epoch can instead be handed its draws (``EpochDraws``), which is
+how the tests feed it the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.sampler.hmc import draw_log_u, hmc_step_batched, \
     metropolis
 from tensorbnn_tpu_torch.sampler.potential import make_potentials
+from tensorbnn_tpu_torch.sampler.tempering import make_swap_fn
 
 # Dual-averaging constants (reference network.py:241-248)
 DA_TARGET = 0.95
@@ -56,6 +61,9 @@ class EpochTrace(NamedTuple):
     sjd: torch.Tensor          # (C,)
     main_accept: torch.Tensor  # (C,)
     hyper_accept: torch.Tensor  # (C,)
+    #: replica-swap indicator (1.0 where a chain exchanged state); None
+    #: when tempering is off
+    swap_accept: Optional[torch.Tensor] = None  # (C,)
 
 
 class EpochDraws(NamedTuple):
@@ -64,6 +72,7 @@ class EpochDraws(NamedTuple):
     main_log_u: torch.Tensor     # (C,)
     hyper_momenta: torch.Tensor  # (C, H)
     hyper_log_u: torch.Tensor    # (C,)
+    swap_log_u: Optional[torch.Tensor] = None  # (C,), tempered runs only
 
 
 def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
@@ -75,7 +84,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   batched_main_vg: Optional[Callable] = None,
                   batched_main_traj: Optional[Callable] = None,
                   batched_hyper_traj: Optional[Callable] = None,
-                  eta_dim: Optional[int] = None) -> Callable:
+                  eta_dim: Optional[int] = None,
+                  tempering_beta=None) -> Callable:
     """Builds ``epoch_fn(carry, step_size, leapfrog, generator, draws=None,
     leapfrog_dev=None) -> (carry, trace)``.
 
@@ -89,6 +99,17 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     (C, D))``; ``batched_main_traj`` K1's ``traj(thetas, etas, momenta, x,
     y, eps, L)``, which takes precedence; ``batched_hyper_traj`` K2's
     ``traj(etas, stats, momenta, eps)``.
+
+    ``tempering_beta``: ``(n_rungs, betas)`` with the per-chain inverse
+    temperatures ``betas (C,)`` rung-major, for parallel tempering. Both
+    blocks then target ``prior + beta * loglik``: the main block through
+    K1 built with ``tempered=True`` (it gets the betas as a trailing
+    argument) or ``Potentials.main_vg_t``, never through K3, which bakes
+    the untempered posterior; the hyper block through K2 when the
+    likelihood is uncoupled (beta does not enter there), else through the
+    tempered stats potential or ``Potentials.hyper_vg_t``. After the SJD
+    and the hyper block, ``ll = loglik(theta, eta)`` feeds the even/odd
+    replica swap, its parity from the epoch counter.
     """
     potentials = make_potentials(model, likelihood, x, y, unravel_theta,
                                  unravel_eta)
@@ -97,6 +118,15 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
         from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
         stats_pair = make_stats_hyper(model, likelihood, x, y,
                                       unravel_theta, unravel_eta, eta_dim)
+    tempered = tempering_beta is not None
+    tempered_coupled = tempered and likelihood.main_probs_in_hypers
+    if tempered:
+        n_rungs, beta_full = tempering_beta
+        beta_np = np.asarray(beta_full, np.float32)
+        beta_c = torch.as_tensor(beta_np, dtype=x.dtype, device=x.device)
+        swap_fn = make_swap_fn(
+            torch.as_tensor(beta_np.reshape(n_rungs, -1)[:, 0],
+                            dtype=x.dtype, device=x.device), n_rungs)
 
     def epoch_fn(carry: ChainState, step_size, leapfrog, generator,
                  draws: Optional[EpochDraws] = None, leapfrog_dev=None):
@@ -114,13 +144,16 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             theta0.shape[0], theta0, generator)
         if batched_main_traj is not None:
             q_new, v_new, lp0, lp1 = batched_main_traj(
-                theta0, eta, momenta, x, y, step_size, steps)
+                theta0, eta, momenta, x, y, step_size, steps,
+                *((beta_c,) if tempered else ()))
             main_accept, accepted = metropolis(
                 lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
                 0.5 * (v_new * v_new).sum(-1), log_u)
             theta = torch.where(accepted[:, None], q_new, theta0)
         else:
-            if batched_main_vg is not None:
+            if tempered:
+                main_vg = lambda ths: potentials.main_vg_t(ths, eta, beta_c)  # noqa: E731
+            elif batched_main_vg is not None:
                 main_vg = lambda ths: batched_main_vg(ths, eta, x, y)  # noqa: E731
             else:
                 main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
@@ -145,7 +178,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             h_log_u = draws.hyper_log_u if draws is not None else \
                 draw_log_u(eta.shape[0], eta, generator)
             stats = stats_pair[0](theta) if stats_pair is not None else None
-            if batched_hyper_traj is not None and stats is not None:
+            if (batched_hyper_traj is not None and stats is not None
+                    and not tempered_coupled):
                 hq, hv, hlp0, hlp1 = batched_hyper_traj(eta, stats, h_mom,
                                                         hyper_step)
                 hyper_accept, h_acc = metropolis(
@@ -153,8 +187,12 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                     0.5 * (hv * hv).sum(-1), h_log_u)
                 eta = torch.where(h_acc[:, None], hq, eta)
             else:
-                if stats is not None:
+                if stats is not None and tempered_coupled:
+                    hyper_vg = lambda es: stats_pair[2](es, stats, beta_c)  # noqa: E731
+                elif stats is not None:
                     hyper_vg = lambda es: stats_pair[1](es, stats)  # noqa: E731
+                elif tempered:
+                    hyper_vg = lambda es: potentials.hyper_vg_t(es, theta, beta_c)  # noqa: E731
                 else:
                     hyper_vg = lambda es: potentials.hyper_vg(es, theta)  # noqa: E731
                 hyper = hmc_step_batched(
@@ -172,10 +210,20 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             hyper_step = torch.where(m < burnin * 0.8,
                                      torch.exp(log_eps_bar), hyper_step)
 
+        swapped = None
+        if tempered:
+            # -- replica swap; the SJD above saw the HMC move alone -------
+            ll = potentials.loglik(theta, eta)
+            s_log_u = draws.swap_log_u if draws is not None else \
+                draw_log_u(theta.shape[0], theta, generator)
+            # parity from the device-side epoch counter: no host sync
+            parity = carry.epoch[0].to(torch.int64)
+            theta, eta, swapped = swap_fn(theta, eta, ll, parity, s_log_u)
+
         new_carry = ChainState(theta=theta, eta=eta, hyper_step=hyper_step,
                                log_eps_bar=log_eps_bar, h=h,
                                epoch=carry.epoch + 1.0)
         return new_carry, EpochTrace(theta, eta, sjd, main_accept,
-                                     hyper_accept)
+                                     hyper_accept, swapped)
 
     return epoch_fn

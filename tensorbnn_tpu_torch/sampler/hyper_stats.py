@@ -70,12 +70,17 @@ def probe_stats_layout(model, likelihood, unravel_eta, eta_dim: int):
 
 def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
                      eta_dim: int) -> Optional[Tuple[Callable, Callable]]:
-    """Builds ``(stats_fn, hyper_vg)`` or None when out of scope.
+    """Builds ``(stats_fn, hyper_vg, hyper_vg_t)`` or None when out of
+    scope.
 
     * ``stats_fn(thetas (C, D)) -> stats (C, S)``, once per epoch after the
       main block;
     * ``hyper_vg(etas (C, H), stats (C, S)) -> ((C,), (C, H))``, value and
-      grad of the hyper potential, equal to ``Potentials.hyper_vg``.
+      grad of the hyper potential, equal to ``Potentials.hyper_vg``;
+    * ``hyper_vg_t(etas, stats, betas (C,))``, the tempered variant (the
+      power posterior: beta scales only the coupled likelihood term, so for
+      an uncoupled likelihood it equals ``hyper_vg`` for any beta), equal to
+      ``Potentials.hyper_vg_t``.
     """
     layout = probe_stats_layout(model, likelihood, unravel_eta, eta_dim)
     if layout is None:
@@ -97,7 +102,7 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
                      torch.full_like(cols[0], float(n_events))]
         return torch.stack(cols, dim=1)
 
-    def hyper_logp(eta, stats):
+    def hyper_logp(eta, stats, beta):
         lp = 0.0
         for j, (_, idx, k_w, k_b) in enumerate(dense_layers):
             w_loc, w_scale = eta[idx["w_loc"]], eta[idx["w_scale"]]
@@ -119,14 +124,19 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
         if coupled:
             sd = (eta[sd_idx] ** 2).clamp(1e-8, 1e8)
             r, k = stats[-2], stats[-1]
-            lp = lp - 0.5 * (2.0 * k * torch.log(sd) + r / (sd * sd)
-                             + k * LOG_2PI)
+            lp = lp + beta * (-0.5 * (2.0 * k * torch.log(sd)
+                                      + r / (sd * sd) + k * LOG_2PI))
         return lp
 
-    vg = vmap(grad_and_value(hyper_logp))
+    vg = vmap(grad_and_value(lambda e, s: hyper_logp(e, s, 1.0)))
+    vg_t = vmap(grad_and_value(hyper_logp))
 
     def hyper_vg(etas, stats):
         g, v = vg(etas, stats)
         return v, g
 
-    return stats_fn, hyper_vg
+    def hyper_vg_t(etas, stats, betas):
+        g, v = vg_t(etas, stats, betas)
+        return v, g
+
+    return stats_fn, hyper_vg, hyper_vg_t

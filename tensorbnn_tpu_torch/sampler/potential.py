@@ -10,8 +10,10 @@ two packages as plain arrays.
 
 ``make_potentials`` returns single-chain targets plus value-and-grad
 oracles batched over chains (``torch.func.vmap`` of
-``torch.func.grad_and_value``). The data-parallel ``axis_name``, chunked
-likelihood and tempered variants of the JAX package are not ported yet.
+``torch.func.grad_and_value``), and the tempered variants that parallel
+tempering runs (the power posterior ``prior + beta * loglik``, priors
+untempered). The data-parallel ``axis_name`` and the chunked likelihood of
+the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -110,6 +112,13 @@ class Potentials(NamedTuple):
     main_vg: Callable
     #: hyper_vg(etas (C, H), thetas (C, D)) -> ((C,), (C, H))
     hyper_vg: Callable
+    #: main_vg_t(thetas, etas, betas (C,)): prior + beta * loglik
+    main_vg_t: Callable
+    #: hyper_vg_t(etas, thetas, betas (C,)): beta scales only the coupled
+    #: likelihood term
+    hyper_vg_t: Callable
+    #: loglik(thetas (C, D), etas (C, H)) -> (C,), the data log-likelihood
+    loglik: Callable
 
 
 def _batched_value_and_grad(fn: Callable) -> Callable:
@@ -146,5 +155,39 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
             value = value + loglik(params, lik_hypers)
         return value
 
+    # -- tempered variants (power posterior: prior + beta * loglik) --------
+    # the likelihood and the priors are differentiated apart, as the JAX
+    # package does, and beta scales only the likelihood's part
+    def loglik_main(theta, eta):
+        _, lik_hypers = unravel_eta(eta)
+        return loglik(unravel_theta(theta), lik_hypers)
+
+    def prior_main(theta, eta):
+        hypers, _ = unravel_eta(eta)
+        return model.log_prior(hypers, unravel_theta(theta))
+
+    def hyper_rep(eta, theta):
+        hypers, _ = unravel_eta(eta)
+        return model.log_hyper_prior(hypers, unravel_theta(theta))
+
+    lik_vg = _batched_value_and_grad(loglik_main)
+    prior_vg = _batched_value_and_grad(prior_main)
+    hyper_rep_vg = _batched_value_and_grad(hyper_rep)
+    hyper_lik_vg = _batched_value_and_grad(
+        lambda eta, theta: loglik_main(theta, eta))
+
+    def main_vg_t(thetas, etas, betas):
+        lv, lg = lik_vg(thetas, etas)
+        rv, rg = prior_vg(thetas, etas)
+        return rv + betas * lv, rg + betas[:, None] * lg
+
+    def hyper_vg_t(etas, thetas, betas):
+        rv, rg = hyper_rep_vg(etas, thetas)
+        if likelihood.main_probs_in_hypers:
+            lv, lg = hyper_lik_vg(etas, thetas)
+            rv, rg = rv + betas * lv, rg + betas[:, None] * lg
+        return rv, rg
+
     return Potentials(main, hyper, _batched_value_and_grad(main),
-                      _batched_value_and_grad(hyper))
+                      _batched_value_and_grad(hyper), main_vg_t, hyper_vg_t,
+                      vmap(loglik_main))

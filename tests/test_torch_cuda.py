@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on an NVIDIA card against their plain twins on the same
-card.
+"""K1 (untempered and tempered), K2 and K3 on an NVIDIA card against their
+plain twins on the same card.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -72,6 +72,38 @@ def test_k1_kernel_matches_twin(device, per_chain):
     torch.cuda.synchronize()
     assert fused_mlp.fused_trajectory.LAUNCHES == before + 1
     # tolerances of tests/test_fused_trajectory.py:72-79 (q, v, lp0, lp1)
+    for g, w, (rtol, atol) in zip(got, want, [(1e-3, 1e-4), (1e-3, 1e-3),
+                                              (1e-4, 1e-3), (1e-4, 1e-2)]):
+        _close(g, w, rtol, atol)
+
+
+@pytest.mark.cuda
+def test_k1_tempered_kernel_matches_twin(device):
+    """K1 variant (c): per-chain betas on a rung-major fleet of 4 rungs of
+    16 chains with per-rung (eps, L)."""
+    lik = FixedGaussianLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    c, n = 64, 11
+    program = fused_mlp.build_trajectory_program(
+        model, lik, flat.unravel_theta, flat.unravel_eta, flat.eta.numel(),
+        n_rows=n, tempered=True)
+    rng = np.random.default_rng(3)
+    args = [torch.tensor(a, dtype=torch.float32, device=device) for a in (
+        0.3 * rng.normal(size=(c, flat.theta.numel())),
+        np.tile(flat.eta.numpy(), (c, 1)),
+        rng.normal(size=(c, flat.theta.numel())),
+        np.linspace(-2, 2, n)[:, None], rng.normal(size=n))]
+    eps = torch.tensor(np.repeat([1e-3, 2e-3, 5e-3, 1e-2], c // 4),
+                       dtype=torch.float32, device=device)
+    steps = torch.tensor(np.repeat([40, 20, 9, 13], c // 4),
+                         dtype=torch.int32, device=device)
+    betas = torch.tensor(np.repeat([1.0, 0.3, 0.06, 0.01], c // 4),
+                         dtype=torch.float32, device=device)
+    before = fused_mlp.fused_trajectory.LAUNCHES
+    got = fused_mlp.fused_trajectory(program, *args, eps, steps, betas)
+    want = fused_mlp.trajectory_plain(program, *args, eps, steps, betas)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_trajectory.LAUNCHES == before + 1
     for g, w, (rtol, atol) in zip(got, want, [(1e-3, 1e-4), (1e-3, 1e-3),
                                               (1e-4, 1e-3), (1e-4, 1e-2)]):
         _close(g, w, rtol, atol)

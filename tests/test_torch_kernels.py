@@ -111,6 +111,57 @@ def test_k1_twin_matches_pallas(mode, act):
     _close(tlp1, jlp1, rtol=1e-4, atol=1e-2)
 
 
+@pytest.mark.parametrize("mode", ["shared", "per_chain"])
+def test_k1_tempered_twin_matches_pallas(mode):
+    """K1 variant (c): the twin with per-chain betas against the Pallas
+    kernel's tempered program (interpret mode), as
+    tests/test_fused_trajectory.py:363-415 runs it, at the flagship, with
+    shared and per-chain (eps, L) and that test's tolerances (:396-403)."""
+    c = 4
+    pair = _pair([(1, 10), (10, 10), (10, 10), (10, 1)])
+    j_model, j_lik, t_model, t_lik = pair
+    x, y, j_flat, t_flat, thetas, etas, rng = _setup(pair, c)
+    betas = np.asarray([1.0, 0.3, 0.06, 0.01], np.float32)
+    if mode == "shared":
+        eps, steps = np.float32(1e-2), np.int32(13)
+        t_eps, t_l = float(eps), int(steps)
+    else:
+        eps = np.asarray([5e-3, 1e-2, 2e-2, 8e-3], np.float32)
+        steps = np.asarray([3, 11, 7, 5], np.int32)
+        t_eps, t_l = torch.tensor(eps), torch.tensor(steps)
+    momenta = rng.normal(size=thetas.shape).astype(np.float32)
+
+    j_traj = j_traj_build(j_model, j_lik, j_flat.unravel_theta,
+                          j_flat.unravel_eta, x, y,
+                          eta_dim=j_flat.eta.size, block_c=c,
+                          interpret=True, tempered=True)
+    t_traj = fused_mlp.try_build_fused_trajectory(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
+        torch.tensor(x), torch.tensor(y), eta_dim=t_flat.eta.numel(),
+        tempered=True)
+    assert j_traj is not None and t_traj is not None
+    assert t_traj.args[0].tempered
+    jq, jv, jlp0, jlp1 = j_traj(jnp.asarray(thetas), jnp.asarray(etas),
+                                jnp.asarray(momenta), x, y, jnp.asarray(eps),
+                                jnp.asarray(steps), jnp.asarray(betas))
+    args = (torch.tensor(thetas), torch.tensor(etas), torch.tensor(momenta),
+            torch.tensor(x), torch.tensor(y), t_eps, t_l)
+    tq, tv, tlp0, tlp1 = t_traj(*args, torch.tensor(betas))
+    _close(tlp0, jlp0, rtol=1e-4, atol=1e-3)
+    _close(tq, jq, rtol=1e-3, atol=1e-4)
+    _close(tv, jv, rtol=1e-3, atol=1e-3)
+    _close(tlp1, jlp1, rtol=1e-4, atol=1e-2)
+    # a tempered program needs its betas (JAX fused_mlp.py:660-662)
+    with pytest.raises(TypeError, match="betas"):
+        t_traj(*args)
+    # at beta = 1 the tempered twin is the untempered one
+    plain = fused_mlp.try_build_fused_trajectory(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
+        torch.tensor(x), torch.tensor(y), eta_dim=t_flat.eta.numel())
+    for got, want in zip(t_traj(*args, torch.ones(c)), plain(*args)):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
 @pytest.mark.parametrize("lik", [("FixedGaussianLikelihood", 0.1),
                                  ("GaussianLikelihood", 0.2)])
 def test_k2_twin_matches_pallas(lik):

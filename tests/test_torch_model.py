@@ -173,9 +173,9 @@ def test_stats_potential_matches_jax(lik):
                                   flat.eta.size)
     t_flat = t_flatten(*convert.from_jax(params, hypers,
                                          j_lik.init_hypers()))
-    t_stats_fn, t_vg = t_stats(t_model, t_lik, torch.tensor(x),
-                               torch.tensor(y), t_flat.unravel_theta,
-                               t_flat.unravel_eta, t_flat.eta.numel())
+    t_stats_fn, t_vg, _ = t_stats(t_model, t_lik, torch.tensor(x),
+                                  torch.tensor(y), t_flat.unravel_theta,
+                                  t_flat.unravel_eta, t_flat.eta.numel())
     js = j_stats_fn(jax.vmap(flat.unravel_theta)(thetas))
     ts = t_stats_fn(torch.tensor(thetas))
     _close(ts, js, rtol=1e-5, atol=1e-3)
@@ -188,7 +188,10 @@ def test_stats_potential_matches_jax(lik):
 def test_import_loads_no_jax():
     code = ("import sys, tensorbnn_tpu_torch, tensorbnn_tpu_torch.network, "
             "tensorbnn_tpu_torch.convert, tensorbnn_tpu_torch.ops.fused_mlp, "
-            "tensorbnn_tpu_torch.ops.fused_hyper; "
+            "tensorbnn_tpu_torch.ops.fused_hyper, "
+            "tensorbnn_tpu_torch.sampler.tempering, "
+            "tensorbnn_tpu_torch.utils.autocorr, "
+            "tensorbnn_tpu_torch.utils.diagnostics; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tensorbnn_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
