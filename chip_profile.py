@@ -16,7 +16,11 @@ picks:
   (``ess_run``'s start), 30 hyper steps from 1e-3: tempered K1 + K2, then
   each epoch's swap glue. For that glue (the data log-likelihood of every
   replica and the even/odd swap, plain torch) the cell also reports its
-  own enqueue ms, device ms and launches per epoch, timed alone.
+  own enqueue ms, device ms and launches per epoch, timed alone;
+- ``uturn 512``: the flagship's U-turn quality block, 512 chains at the
+  shared (eps, L) = (3e-3, 200) its sampling epochs run (L at the
+  ``leapfrog_max`` it settles on), 30 hyper steps from 1e-3: K1's
+  U-turn-recording program + K2.
 
 It reports, per epoch: the wall time over three unprofiled windows (host
 clock after a synchronize), the enqueue time (until the runner returns),
@@ -180,20 +184,23 @@ def main() -> int:
     ladder = make_ladder(n_rungs, 0.5)
     tempering_beta = (n_rungs, np.repeat(ladder, n_cold))
     fleet = n_rungs * n_cold
-    for name, build, eps, steps, hyper_steps, hyper_eps, sizes, temper in (
+    for name, build, eps, steps, hyper_steps, hyper_eps, sizes, temper, \
+            chains, uturn in (
             ("flagship", flagship_network, 1e-3, 100, 100, 1e-3,
-             (10, 50, 20), False),
+             (10, 50, 20), False, 64, False),
             ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
-             False),
+             False, 64, False),
             ("tempered 512 x 4", flagship_network,
              np.full(fleet, 2e-3, np.float32), np.full(fleet, 50), 30, 1e-3,
-             (10, 50, 20), True)):
+             (10, 50, 20), True, fleet, False),
+            ("uturn 512", flagship_network, 3e-3, 200, 30, 1e-3,
+             (10, 50, 20), False, 512, True)):
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
         run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
-                           tempering_beta if temper else None)
-        chains = fleet if temper else 64
+                           tempering_beta if temper else None,
+                           record_uturn=uturn)
         carry = init_multichain_state(flat.theta, flat.eta, hyper_eps,
                                       chains, gen, jitter=0.01)
         glue = None

@@ -12,7 +12,10 @@ script exits non-zero:
    (eps, L) = (1e-2, 13) and (1e-3, 100), 512 chains with per-chain
    (eps, L) in 4 groups; K1's tempered program (per-chain betas, parallel
    tempering) at 256 replicas (64 x 4 rungs, beta_min 0.1) and 2,048
-   (512 x 4, beta_min 0.5), per-rung (eps, L);
+   (512 x 4, beta_min 0.5), per-rung (eps, L); K1's U-turn-recording
+   program at 64 chains, (eps, L) = (1e-3, 100), and 512 chains with
+   per-chain (eps, L), its U-turn steps equal to the twin's but at
+   near-zero projections;
 4. K2 (the fused hyper-block trajectory) against its twin at the hyper
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
@@ -33,12 +36,17 @@ script exits non-zero:
    0.5, ``ess_run``'s settings) on tempered K1 + K2, with its swap rate
    per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps, L) = (1e-5, 20)),
    then on the plain path as a witness of its hyper acceptance; the
-   learned-sd flagship on K3 + K2. Both quality blocks report ESS (the
-   predictive mean at x = 0.5 and the worst parameter) per second;
+   learned-sd flagship on K3 + K2; the U-turn quality block
+   (``trajectory="uturn"``, 512 chains at ``ess_run``'s settings) under
+   the "alternate" and then the "always" probe on K1's U-turn-recording
+   program + K2, held to the JAX package's seed-deterministic statistics;
+   ``wide_deep`` in U-turn mode on K3 + K2. The quality blocks report ESS
+   (the predictive mean at x = 0.5 and the worst parameter) per second;
 7. times: each kernel against its twin (CUDA events), K3 against the
-   same value and gradient through cuBLAS (the twin) and torch.func, the
-   steady 64-chain leapfrog rates of the flagship at (eps, L) = (1e-3,
-   100) and of ``wide_deep`` at (1e-5, 20).
+   same value and gradient through cuBLAS (the twin) and torch.func, K1's
+   U-turn-recording program against the non-recording one on the same
+   inputs, the steady 64-chain leapfrog rates of the flagship at (eps, L)
+   = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +99,29 @@ SWAP_RUNG_REF = (0.34, 0.68, 0.68, 0.34)
 SWAP_RUNG_TOL = 0.06
 # per-rung (eps, L) of the kernel comparisons at per-chain (eps, L)
 K1_GROUPS = ((1e-3, 100), (2e-3, 50), (5e-3, 25), (1e-2, 13))
+# the JAX package's seed-deterministic statistics of the U-turn quality
+# block (benchmarks/captures/r4_ess_uturn_probe2.json, PERF_NOTES.md:372-
+# 419): statistics of the sampler, not of the chip, and how far the port's
+# may be from them (total and min-param ESS as fractions)
+UTURN_REF = {
+    "alternate": dict(total_ess=189384, min_param_ess=14871,
+                      main_accept=0.7930, final_leapfrog=200),
+    "always": dict(total_ess=189257, min_param_ess=15200,
+                   main_accept=0.8006, final_leapfrog=200)}
+UTURN_ACCEPT_TOL = 0.05
+UTURN_TOTAL_ESS_TOL = 0.30
+UTURN_MIN_ESS_TOL = 0.50
+# a kernel's recorded U-turn step may differ from the twin's only where the
+# twin's projection at the first step either records is this close to 0,
+# relative to ||q - q0|| ||v||: there two float32 orders of summation may
+# give it either sign
+UTURN_NEAR_ZERO = 1e-5
+# K1's U-turn comparisons draw each chain's prior sd (its scale hyper
+# squared) from this range: the tight prior makes a stable oscillator whose
+# half period (pi sd) falls on both sides of eps L, so some chains turn and
+# some are censored (from the flagship's own prior, the trajectories that
+# turn within 200 steps are those that diverge, where float32 orders drift)
+UTURN_PRIOR_SD = (0.02, 0.06)
 
 
 def phase(name):
@@ -137,13 +168,15 @@ def wide_network(device, seed=0):
     return net, GaussianLikelihood(sd=0.1)
 
 
-def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None):
+def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
+                 record_uturn=False):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
     hyper block), ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``,
     tempered by ``tempering_beta = (K, per-chain betas)`` when given (K1's
-    tempered program, never K3): the steady rates here and the profile of
-    chip_profile.py."""
+    tempered program, never K3), recording U-turn steps with
+    ``record_uturn`` (K1's recording program): the steady rates here and
+    the profile of chip_profile.py."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
@@ -153,7 +186,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None):
     tempered = tempering_beta is not None
     traj = fused_mlp.try_build_fused_trajectory(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
-        tempered=tempered)
+        tempered=tempered, record_uturn=record_uturn)
     vg = None if traj or tempered else fused_mlp.try_build_fused_main_vg(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
@@ -164,7 +197,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None):
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
         hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
         batched_main_vg=vg, batched_hyper_traj=hyper,
-        tempering_beta=tempering_beta)
+        tempering_beta=tempering_beta, record_uturn=record_uturn)
 
 
 def rung_groups(c, n_rungs=4):
@@ -174,12 +207,12 @@ def rung_groups(c, n_rungs=4):
     return groups[:, 0].astype(np.float32), groups[:, 1].astype(np.int32)
 
 
-def quality(label, net, res, wall, burnin):
+def quality(label, net, res, wall, burnin, **extra):
     """The quality figures of ``ess_run``: total ESS of the predictive mean
     at x = 0.5 (``effective_sample_size_batch`` over chains), the worst
     parameter's pooled ESS, both per second of ``wall``, and the
     post-burn-in main and hyper acceptance (and the swap rate per rung of
-    a tempered run). Prints them as one JSON line."""
+    a tempered run, and ``extra``). Prints them as one JSON line."""
     from tensorbnn_tpu_torch.sampler.potential import flatten_state
     from tensorbnn_tpu_torch.utils.autocorr import \
         effective_sample_size_batch
@@ -205,8 +238,72 @@ def quality(label, net, res, wall, burnin):
            "final_leapfrog": res.final_leapfrog}
     if res.swap_accept_rung is not None:
         out["swap_accept_rung"] = res.swap_accept_rung.mean(axis=0).tolist()
+    out.update(extra)
     print(json.dumps({"quality": out}), flush=True)
     return out
+
+
+def uturn_inputs(program, flat, c, x, y, g):
+    """K1 inputs of ``c`` chains for the U-turn comparisons: 0.3 N(0, 1)
+    weights and N(0, 1) momenta as ``k1_inputs``, each chain's prior sd
+    drawn from ``UTURN_PRIOR_SD``."""
+    dev = x.device
+    d, h = flat.theta.numel(), flat.eta.numel()
+    thetas = 0.3 * torch.randn((c, d), generator=g, device=dev)
+    mom = torch.randn((c, d), generator=g, device=dev)
+    lo, hi = UTURN_PRIOR_SD
+    sd = lo + (hi - lo) * torch.rand(c, generator=g, device=dev)
+    etas = flat.eta.expand(c, h).clone()
+    for _, _, _, i_scale in program.prior_blocks:
+        etas[:, i_scale] = sd.sqrt()
+    return thetas, etas, mom, x, y
+
+
+def uturn_projection(program, args, eps_c, c, step):
+    """The twin's U-turn projection ``(q - q0) . v_rec`` of chain ``c`` at
+    ``step``, and its scale ``||q - q0|| ||v_rec||``: the twin run to L =
+    step ends with q at that step and v half-kicked, and the other half
+    kick gives v_rec."""
+    from tensorbnn_tpu_torch.ops import fused_mlp
+
+    thetas, etas, mom = (a[c:c + 1] for a in args[:3])
+    x, y = args[3:]
+    eps = eps_c[c:c + 1]
+    steps = torch.full((1,), step, dtype=torch.int32, device=eps.device)
+    q, v, *_ = fused_mlp.trajectory_plain(program, thetas, etas, mom, x, y,
+                                          eps, steps)
+    _, g = fused_mlp.program_value_and_grad(program, q, etas, x, y)
+    d_q, v_rec = q - thetas, v + 0.5 * eps[:, None] * g
+    return (float((d_q * v_rec).sum()),
+            float(d_q.norm() * v_rec.norm()))
+
+
+def check_uturns(label, program, args, eps_c, l_c, got, want):
+    """Raises unless the kernel's U-turn steps equal the twin's, but at
+    near-zero projections (``UTURN_NEAR_ZERO``), and unless some chains
+    turned and some were censored; prints how many chains turned and were
+    censored, and how many differ at such projections."""
+    got, want = got.cpu(), want.cpu()
+    near = 0
+    for c in (got != want).nonzero()[:, 0].tolist():
+        step = min(s for s in (int(got[c]), int(want[c])) if s > 0)
+        proj, scale = uturn_projection(program, args, eps_c, c, step)
+        if abs(proj) >= UTURN_NEAR_ZERO * scale:
+            raise AssertionError(
+                f"{label}: chain {c} turned at step {int(got[c])} on the "
+                f"kernel and {int(want[c])} on the twin; the twin's "
+                f"projection at step {step} is {proj:.3e}, not near 0 "
+                f"(scale {scale:.3e})")
+        near += 1
+    turned = int((want > 0).sum())
+    censored = want.numel() - turned
+    print(f"{label}: U-turn steps: {turned} chains turned, {censored} "
+          f"censored (L up to {int(l_c.max())}); {near} differ at near-zero "
+          f"projections")
+    if not (turned and censored):
+        raise AssertionError(f"{label}: the comparison needs chains that "
+                             f"turn and chains that are censored")
+    return turned, censored, near
 
 
 def dual_averaging_steps(accepts, eps0, burnin):
@@ -390,6 +487,32 @@ def main() -> int:
                  f"{beta_min}) per-rung (eps, L)")
         k1t_err = max(k1t_err, compare(label, got, want, K1_TOL))
         k1t_shapes[c] = (args, eps_c, l_c, betas)
+
+    # K1 variant (e): the U-turn-recording program, with the prior sd of
+    # each chain drawn from UTURN_PRIOR_SD so that some chains turn and
+    # some are censored
+    u_program = fused_mlp.build_trajectory_program(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, h,
+        n_rows=x.shape[0], record_uturn=True)
+    assert u_program is not None and u_program.record_uturn
+    k1u_err = 0.0
+    k1u_counts = {}
+    u_gen = torch.Generator(device=dev).manual_seed(5)
+    g_eps, g_l = rung_groups(512)
+    for c, eps, steps in ((64, 1e-3, 100),
+                          (512, torch.tensor(g_eps, device=dev),
+                           torch.tensor(g_l, device=dev))):
+        args = uturn_inputs(u_program, flat, c, x, y, u_gen)
+        eps_c, l_c = fused_mlp.per_chain(eps, steps, c, dev)
+        got = fused_mlp.fused_trajectory(u_program, *args, eps_c, l_c)
+        want = fused_mlp.trajectory_plain(u_program, *args, eps_c, l_c)
+        torch.cuda.synchronize()
+        label = (f"K1 record_uturn C={c} "
+                 + (f"(eps, L)=({eps}, {steps})" if c == 64
+                    else "per-chain (eps, L) in 4 groups"))
+        k1u_err = max(k1u_err, compare(label, got[:4], want[:4], K1_TOL))
+        k1u_counts[label] = check_uturns(label, u_program, args, eps_c, l_c,
+                                         got[4], want[4])
 
     phase("4 K2 against its twin")
     wnet, wlik = wide_network(dev)
@@ -734,6 +857,88 @@ def main() -> int:
     assert np.isfinite(lres.theta_samples).all()
     assert np.isfinite(lres.eta_samples).all()
     assert 0.0 < l_acc < 1.0, l_acc
+    del lres, lnet
+
+    # (e) the U-turn quality block: ess_run's settings with
+    # trajectory="uturn" (one shared length schedule, 512 chains) on K1's
+    # U-turn-recording program + K2, under the default probe and then
+    # "always", each held to the JAX package's statistics (UTURN_REF)
+    uturn_launches = {}
+    for probe in ("alternate", "always"):
+        unet, ulik = flagship_network(dev, seed=11)
+        unet.setup_mcmc(**ESS_RUN)
+        reset_counts()
+        t0 = time.perf_counter()
+        ures = unet.train(ESS_EPOCHS, 2, ulik, n_chains=512,
+                          chain_jitter=0.05, trajectory="uturn",
+                          uturn_probe=probe, verbose=False)
+        torch.cuda.synchronize()
+        uwall = time.perf_counter() - t0
+        counts = read_counts(f"U-turn quality block, probe {probe} (K1 "
+                             f"record_uturn + K2)")
+        uturn_launches[probe] = counts
+        if counts["K1"] != ESS_EPOCHS or counts["K3"] or counts["K2"] < 1:
+            raise AssertionError(f"the U-turn block did not run on K1 (one "
+                                 f"launch per epoch) + K2 alone: {counts}")
+        assert ures.main_path == "K1" and ures.fused_hyper, ures.main_path
+        assert ures.leapfrog.shape == (ESS_EPOCHS,), ures.leapfrog.shape
+        assert ures.theta_samples.shape == (n_samples, 512, d), \
+            ures.theta_samples.shape
+        assert np.isfinite(ures.theta_samples).all()
+        assert np.isfinite(ures.eta_samples).all()
+        # chain-epochs whose trajectory turned within its L (the rest were
+        # censored), in burn-in (what the adapter's reservoir saw) and after:
+        # the burn-in work is the ratchet of an all-censored fleet, so the
+        # count, not the work, shows that the path's recorded steps reach
+        # the adapter
+        burnin = ESS_RUN["burnin"]
+        uq = quality(f"U-turn, probe {probe}, 512 chains", unet, ures, uwall,
+                     burnin, probe=probe,
+                     leapfrog_work=float(ures.leapfrog.sum()),
+                     burnin_leapfrog_work=float(
+                         ures.leapfrog[:burnin].sum()),
+                     burnin_turned=int(ures.uturn_turned[:burnin].sum()),
+                     sampling_turned=int(ures.uturn_turned[burnin:].sum()))
+        ref = UTURN_REF[probe]
+        gates = {
+            "main acceptance": abs(uq["main_accept"] - ref["main_accept"])
+            <= UTURN_ACCEPT_TOL,
+            "hyper acceptance": abs(uq["hyper_accept"] - 0.95) < 0.15,
+            "final L": uq["final_leapfrog"] == ref["final_leapfrog"],
+            "total ESS": abs(uq["total_ess"] / ref["total_ess"] - 1.0)
+            <= UTURN_TOTAL_ESS_TOL,
+            "min-param ESS": abs(uq["min_param_ess"] / ref["min_param_ess"]
+                                 - 1.0) <= UTURN_MIN_ESS_TOL,
+            "turned in burn-in": uq["burnin_turned"] > 0}
+        missed = [name for name, ok in gates.items() if not ok]
+        if missed:
+            raise AssertionError(f"U-turn block, probe {probe}: {missed} "
+                                 f"off the JAX package's {ref}: {uq}")
+        del unet, ures
+
+    # (f) wide_deep in U-turn mode on K3 + K2: hmc_step_batched records the
+    # U-turn steps around K3's value and gradient; L is pinned at 20
+    uwnet, uwlik = wide_network(dev)
+    uwnet.setup_mcmc(**wide_mcmc)
+    reset_counts()
+    uwres = uwnet.train(6, 1, uwlik, n_chains=64, chain_jitter=0.01,
+                        trajectory="uturn", verbose=False)
+    uw_launches = read_counts("wide_deep U-turn (K3 + K2)")
+    print(f"wide_deep U-turn: {uwres.n_epochs} epochs in "
+          f"{uwres.wall_time:.2f} s; leapfrog {uwres.leapfrog.tolist()}; "
+          f"step size {uwres.final_step_size:.4e}; main acceptance "
+          f"{np.round(uwres.main_accept, 4).tolist()}")
+    assert uwres.main_path == "K3" and uwres.fused_hyper, uwres.main_path
+    assert (uwres.leapfrog == 20).all(), uwres.leapfrog
+    if (uw_launches["K3"] != 6 * 21 or uw_launches["K1"]
+            or uw_launches["K2"] < 1):
+        raise AssertionError(f"wide_deep U-turn: expected 126 K3 launches "
+                             f"(6 epochs x (L + 1)), none of K1 and some of "
+                             f"K2; got {uw_launches}")
+    assert uwres.theta_samples.shape == (3, 64, wd)
+    assert np.isfinite(uwres.theta_samples).all()
+    assert np.isfinite(uwres.eta_samples).all()
+    del uwres, uwnet
 
     phase("7 times")
     times = {}
@@ -775,6 +980,40 @@ def main() -> int:
         print(f"{label}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
               f"({plain / ms:.1f}x)"
               + ("" if func_ms is None else f", torch.func {func_ms:.4f} ms"))
+    # K1's U-turn-recording program (e) against the non-recording one (a)
+    # on the same inputs, in turns (a, e, e, a): C = 64 at (1e-3, 100), and
+    # C = 512 at (5e-4, 200), the U-turn block's L
+    uturn_times = {}
+    for c, eps, steps in ((64, 1e-3, 100), (512, 5e-4, 200)):
+        args = uturn_inputs(u_program, flat, c, x, y, u_gen)
+        eps_c, l_c = fused_mlp.per_chain(eps, steps, c, dev)
+        got = fused_mlp.fused_trajectory(u_program, *args, eps_c, l_c)
+        want = fused_mlp.trajectory_plain(u_program, *args, eps_c, l_c)
+        label = f"K1 record_uturn C={c} (eps, L)=({eps}, {steps}), timed"
+        k1u_err = max(k1u_err, compare(label, got[:4], want[:4], K1_TOL))
+        k1u_counts[label] = check_uturns(label, u_program, args, eps_c, l_c,
+                                         got[4], want[4])
+        rec = []
+        for prog in (program, u_program, u_program, program):
+            rec.append(cuda_ms(lambda: fused_mlp.fused_trajectory(
+                prog, *args, eps_c, l_c)))
+        plain = cuda_ms(lambda: fused_mlp.trajectory_plain(
+            u_program, *args, eps_c, l_c), reps=3)
+        off_ms = (rec[0] + rec[3]) / 2
+        on_ms = (rec[1] + rec[2]) / 2
+        # each chain's L + 1 evaluations, plus the projection's 3 FLOP per
+        # row and step; outputs q, v, lp0, lp1 and the U-turn step
+        evals = float((l_c.to(torch.float64) + 1).sum())
+        ub = bound(evals * (product_flops(program.ops, 11) + 10 * d),
+                   4 * (4 * c * d + c * h + 11 * 2 + 5 * c))
+        uturn_times[c] = dict(ms=on_ms, record_off_ms=off_ms,
+                              plain_ms=plain, bound_ms=ub[0],
+                              bound_by=ub[1], turns=[float(t) for t in rec])
+        print(f"K1 record_uturn C={c} (eps, L)=({eps}, {steps}): kernel "
+              f"{on_ms:.4f} ms against {off_ms:.4f} ms without recording "
+              f"({100 * (on_ms / off_ms - 1):+.1f}%; a, e, e, a: "
+              f"{', '.join(f'{t:.4f}' for t in rec)}), plain {plain:.4f} "
+              f"ms, bound {ub[0]:.5f} ms ({ub[1]})")
 
     # steady main-chain leapfrog rate at 64 chains, (eps, L) = (1e-3, 100),
     # hyper_leapfrog 100 (the bench's shape), kernels on
@@ -859,6 +1098,17 @@ def main() -> int:
          "launches": tempered_launches["K1"], "max_abs_err": k1t_err,
          "ms": k1t_ms, "plain_ms": k1t_plain, "bound_ms": k1t_bound[0],
          "bound_by": k1t_bound[1], "library_ms": None},
+        # ms at C = 512, L = 200; launches in the "alternate" U-turn block
+        {"name": "K1 fused_trajectory (record_uturn)", "route": "cuda",
+         "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
+         "replaces": "tensorbnn_tpu/ops/fused_mlp.py:449",
+         "launches": uturn_launches["alternate"]["K1"],
+         "max_abs_err": k1u_err, **{k: uturn_times[512][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "record_off_ms": uturn_times[512]["record_off_ms"],
+         "c64_l100": uturn_times[64],
+         "uturn_counts": {k: list(v) for k, v in k1u_counts.items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -36,6 +36,18 @@
 // log posteriors that the caller's MH test needs. A null beta is the
 // untempered kernel (beta = 1, bit for bit the same arithmetic).
 //
+// U-turn-recording variant (the Pallas kernel's record_uturn program, :449-450
+// and :560-574; the driver's trajectory="uturn"): at steps i = 1..L, after the
+// kick, the block reduces (q - q0) . v_rec with block_sum, where q is the
+// pre-drift position and v_rec the kicked momentum plus, at i = L, the other
+// half kick (so the pair is (q_i, v_{i+1/2}), as sampler/hmc.py records it).
+// Thread 0 keeps the first i where the sum is negative and writes it to
+// ut_out[c], 0 when the chain never turned. v_rec is formed in the kick's own
+// pass over the rows, so recording adds one block reduction per step. The
+// start q0 is re-read from the unchanged theta input (L1/L2, read-only): a
+// copy in shared memory measured 4-6% slower on the H100. A null ut_out is
+// the non-recording kernel, bit for bit the same arithmetic.
+//
 // Scope of this kernel: dense layers with tanh / relu / sigmoid / exp / elu
 // activations, Gaussian priors (sd = scale^2, clipped to [1e-8, 1e8]) and a
 // fixed-sd Gaussian likelihood. The wrapper (ops/fused_mlp.py) checks scope,
@@ -207,7 +219,7 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
                                   const int* __restrict__ ops, int n_ops, const int* __restrict__ prior, int n_prior, int D,
                                   int H, int N, float sd, float* __restrict__ q_out,
                                   float* __restrict__ v_out, float* __restrict__ lp0_out,
-                                  float* __restrict__ lp1_out) {
+                                  float* __restrict__ lp1_out, int* __restrict__ ut_out) {
   __shared__ Program p;
   extern __shared__ float dyn[];
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
@@ -268,18 +280,36 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
   const int L = steps_c[c];
   const float beta = beta_c != nullptr ? beta_c[c] : 1.f;
   const float inv_sd2 = 1.f / (sd * sd);
+  const bool record = ut_out != nullptr;
+  const float* q0 = theta + (size_t)c * D;
   float lp0 = 0.f, lp = 0.f;
+  int ut = 0;
   for (int i = 0; i <= L; ++i) {
     lp = value_and_grad(p, q, g, planes, ga, gb, y, N, inv_sd2, beta);
     if (i == 0) lp0 = lp;
     const float kick = (i == 0 || i == L) ? 0.5f * eps : eps;
     const bool drift = i < L;
-    for (int r = tid; r < D; r += nt) {
-      const float vr = fmaf(kick, g[r], v[r]);
-      v[r] = vr;
-      if (drift) q[r] = fmaf(eps, vr, q[r]);
+    if (record && i >= 1) {
+      const float half_fix = i == L ? 0.5f * eps : 0.f;
+      float proj = 0.f;
+      for (int r = tid; r < D; r += nt) {
+        const float gr = g[r], qr = q[r];
+        const float vr = fmaf(kick, gr, v[r]);
+        proj = fmaf(qr - q0[r], fmaf(half_fix, gr, vr), proj);
+        v[r] = vr;
+        if (drift) q[r] = fmaf(eps, vr, qr);
+      }
+      // block_sum's barriers also end the pass over the rows
+      proj = block_sum(proj, p.red);
+      if (ut == 0 && proj < 0.f) ut = i;
+    } else {
+      for (int r = tid; r < D; r += nt) {
+        const float vr = fmaf(kick, g[r], v[r]);
+        v[r] = vr;
+        if (drift) q[r] = fmaf(eps, vr, q[r]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   for (int r = tid; r < D; r += nt) {
@@ -289,18 +319,21 @@ __global__ void trajectory_kernel(const float* __restrict__ theta, const float* 
   if (tid == 0) {
     lp0_out[c] = lp0;
     lp1_out[c] = lp;
+    if (record) ut_out[c] = ut;
   }
 }
 
 }  // namespace
 
 // beta: per-chain inverse temperatures (C,), or null for an untempered run.
+// ut_out: each chain's first U-turn step (C,), or null for no recording.
 extern "C" int tbnn_fused_trajectory(const float* theta, const float* mom, const float* eta,
                                      const float* x, const float* y, const float* eps,
                                      const int* steps, const float* beta, const int* ops, int n_ops,
                                      const int* prior, int n_prior, int C, int D, int H, int N,
                                      float sd, int threads, int smem_bytes, float* q_out,
-                                     float* v_out, float* lp0_out, float* lp1_out, void* stream) {
+                                     float* v_out, float* lp0_out, float* lp1_out, int* ut_out,
+                                     void* stream) {
   if (n_ops < 1 || n_ops > kMaxOps || n_prior > kMaxPrior || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -311,7 +344,7 @@ extern "C" int tbnn_fused_trajectory(const float* theta, const float* mom, const
   }
   trajectory_kernel<<<C, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       theta, mom, eta, x, y, eps, steps, beta, ops, n_ops, prior, n_prior, D, H, N, sd, q_out,
-      v_out, lp0_out, lp1_out);
+      v_out, lp0_out, lp1_out, ut_out);
   return (int)cudaGetLastError();
 }
 

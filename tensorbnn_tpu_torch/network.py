@@ -145,6 +145,17 @@ class Network:
         replica swap after every epoch; the result records the
         ``n_chains`` cold chains and the swap rates (``swap_accept``,
         ``swap_accept_rung``).
+
+        ``trajectory="uturn"`` (default "adapter") runs NUTS-style dynamic
+        trajectory lengths (sampler/uturn.py) instead of the GP-UCB
+        adapter: burn-in trajectories record their first U-turn step, the
+        step size is tuned toward 0.8 acceptance, and after burn-in each
+        epoch draws its leapfrog count from the recorded lengths
+        (``result.leapfrog`` holds the executed count per epoch). It needs
+        ``n_adapters == 1`` and no tempering. ``uturn_probe``, "alternate"
+        (default) or "always", is the burn-in probe schedule: "always"
+        runs every burn-in chunk at ``ceil(1.5 * l_hat)``, "alternate"
+        interleaves such probe chunks with chunks at ``l_hat``.
         """
         options = {_REF_TRAIN_KWARGS.get(k, k): v for k, v in kwargs.items()}
         options.pop("scaleExp", None)

@@ -15,9 +15,11 @@ kernel ``csrc/fused_trajectory.cu``, or raises; on CPU tensors it runs
 chains' device); every chain runs exactly its own ``L``. Built with
 ``tempered=True`` (parallel tempering), ``traj`` takes a trailing ``betas
 (C,)`` of per-chain inverse temperatures and integrates the power posterior
-``prior + beta * loglik``. Scope: dense layers with Gaussian priors and tanh
-/ relu / sigmoid / exp / elu activations under a fixed-sd Gaussian
-likelihood, within one block's shared memory.
+``prior + beta * loglik``. Built with ``record_uturn=True`` (the driver's
+``trajectory="uturn"``), ``traj`` returns a trailing ``uturn (C,)`` int32:
+each chain's first U-turn step, 0 when censored. Scope: dense layers with
+Gaussian priors and tanh / relu / sigmoid / exp / elu activations under a
+fixed-sd Gaussian likelihood, within one block's shared memory.
 
 K3, ``try_build_fused_main_vg``, returns ``batched_main_vg(thetas (C, D),
 etas (C, H), x, y) -> (lp (C,), grad (C, D))``: one log-posterior value and
@@ -31,8 +33,7 @@ last eta coordinate). The driver builds K3 where K1 declines a model: a
 learned sd, Cauchy priors, or planes too wide for shared memory.
 
 Not ported: the Bernoulli and categorical tails, the leakyrelu / prelu /
-sqprelu activations, K1's U-turn-recording variant, and K3's data-axis
-``psum``. Deliberate divergences: the TPU's VMEM gates
+sqprelu activations, and K3's data-axis ``psum``. Deliberate divergences: the TPU's VMEM gates
 (``kernel_vmem_bytes``, ``trajectory_vmem_bytes``), its chain blocks
 (``choose_block_c``) and the TPU-measured ``fused_profitable`` gate do not
 apply on the H100. K3 keeps its planes in device memory and so has no size
@@ -139,8 +140,9 @@ def verify_theta_layout(unravel_theta, ops) -> bool:
 class TrajectoryProgram:
     """Everything K1 needs besides the state: the op program, the prior
     blocks ``(start_row, rows, loc_eta_idx, scale_eta_idx)`` covering the
-    flat state in row order, the likelihood's fixed sd, and whether the
-    likelihood is tempered by per-chain betas."""
+    flat state in row order, the likelihood's fixed sd, whether the
+    likelihood is tempered by per-chain betas, and whether the trajectory
+    records each chain's first U-turn step."""
 
     ops: tuple
     prior_blocks: tuple
@@ -148,6 +150,7 @@ class TrajectoryProgram:
     n_rows: int
     eta_dim: int
     tempered: bool = False
+    record_uturn: bool = False
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -204,11 +207,13 @@ def gaussian_prior_blocks(model, unravel_eta, eta_dim: int
 
 def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
                              eta_dim: int, n_rows: int,
-                             tempered: bool = False
+                             tempered: bool = False,
+                             record_uturn: bool = False
                              ) -> Optional[TrajectoryProgram]:
     """The K1 program for ``(model, likelihood)``, or None when out of
     scope (see the module docstring) or over the shared-memory budget;
-    ``tempered`` builds the power-posterior program."""
+    ``tempered`` builds the power-posterior program, ``record_uturn`` the
+    U-turn-recording one."""
     from tensorbnn_tpu_torch.likelihoods import FixedGaussianLikelihood
     from tensorbnn_tpu_torch.models.layers import GaussianDenseLayer
 
@@ -219,7 +224,8 @@ def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
         return None
     blocks = gaussian_prior_blocks(model, unravel_eta, eta_dim)
     program = TrajectoryProgram(ops, blocks, float(likelihood.sd),
-                                int(n_rows), int(eta_dim), bool(tempered))
+                                int(n_rows), int(eta_dim), bool(tempered),
+                                bool(record_uturn))
     if (len(ops) > MAX_OPS or len(blocks) > MAX_PRIOR_BLOCKS
             or sum(b[1] for b in blocks) != program.dims[2]
             or program.smem_bytes > SMEM_BUDGET_BYTES):
@@ -230,15 +236,18 @@ def build_trajectory_program(model, likelihood, unravel_theta, unravel_eta,
 def try_build_fused_trajectory(model, likelihood, unravel_theta,
                                unravel_eta, x, y, eta_dim: int,
                                n_rows: Optional[int] = None,
-                               tempered: bool = False
+                               tempered: bool = False,
+                               record_uturn: bool = False
                                ) -> Optional[Callable]:
     """``traj(thetas, etas, momenta, x, y, eps, L)`` (with a trailing
-    ``betas`` when ``tempered``) for an in-scope model, else None (the
-    caller then takes the plain ``hmc_step_batched`` path)."""
+    ``betas`` when ``tempered``; returning a trailing ``uturn`` when
+    ``record_uturn``) for an in-scope model, else None (the caller then
+    takes the plain ``hmc_step_batched`` path)."""
     del y
     n = int(n_rows if n_rows is not None else x.shape[0])
     program = build_trajectory_program(model, likelihood, unravel_theta,
-                                       unravel_eta, eta_dim, n, tempered)
+                                       unravel_eta, eta_dim, n, tempered,
+                                       record_uturn)
     if program is None:
         return None
     return functools.partial(fused_trajectory, program)
@@ -264,8 +273,9 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
                      y, eps, n_leapfrog, betas=None):
     """K1's wrapper: CUDA tensors launch the kernel, CPU tensors run
     ``trajectory_plain``. A tempered program needs ``betas (C,)`` (an
-    untempered one ignores them, as the JAX package's does). Counts its
-    kernel launches in ``LAUNCHES``."""
+    untempered one ignores them, as the JAX package's does). Returns ``(q,
+    v, lp0, lp1)``, and ``uturn (C,)`` int32 after them when the program
+    records. Counts its kernel launches in ``LAUNCHES``."""
     if program.tempered and betas is None:
         raise TypeError("tempered trajectory kernel requires betas")
     c = thetas.shape[0]
@@ -306,6 +316,8 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
     v = torch.empty_like(thetas)
     lp0 = torch.empty(c, dtype=torch.float32, device=thetas.device)
     lp1 = torch.empty_like(lp0)
+    ut = (torch.empty(c, dtype=torch.int32, device=thetas.device)
+          if program.record_uturn else None)
     lib = _build.load()
     rc = lib.tbnn_fused_trajectory(
         thetas.data_ptr(), momenta.data_ptr(), etas.data_ptr(),
@@ -314,11 +326,11 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
         ops_t.data_ptr(), len(program.ops), prior_t.data_ptr(),
         len(program.prior_blocks), c, d_total, program.eta_dim, n,
         program.sd, THREADS, program.smem_bytes, q.data_ptr(), v.data_ptr(),
-        lp0.data_ptr(), lp1.data_ptr(),
+        lp0.data_ptr(), lp1.data_ptr(), None if ut is None else ut.data_ptr(),
         torch.cuda.current_stream(thetas.device).cuda_stream)
     _build.check(rc, "fused_trajectory")
     fused_trajectory.LAUNCHES += 1
-    return q, v, lp0, lp1
+    return (q, v, lp0, lp1) + ((ut,) if ut is not None else ())
 
 
 fused_trajectory.LAUNCHES = 0
@@ -596,12 +608,21 @@ def trajectory_plain(program: TrajectoryProgram, thetas, etas, momenta, x,
     """The K1 trajectory in batched torch ops: the kernel's schedule run as
     one wave front to ``max(L)``, with chains past their own ``L`` frozen
     (their value is re-taken at the unchanged end point). ``betas (C,)``
-    tempers the likelihood."""
+    tempers the likelihood.
+
+    A recording program also returns each chain's first U-turn step, as
+    the Pallas kernel records it (tensorbnn_tpu/ops/fused_mlp.py:560-574):
+    at iteration 1 <= i <= L_c, after the kick, ``(q - q0) . v_rec < 0``
+    with the pre-drift q and ``v_rec`` the kicked momentum, plus the other
+    half kick at i == L_c. That pairs (q_i, v_{i+1/2}) as
+    ``leapfrog_batched(record_uturn=True)`` does."""
     d0, dk, _ = program.dims
     x = x.reshape(program.n_rows, d0)
     y = y.reshape(program.n_rows, dk)
     q, v = thetas, momenta
     l_c = l_c.to(torch.int64)
+    ut = torch.zeros(thetas.shape[0], dtype=torch.int32,
+                     device=thetas.device)
     lp0 = lp = None
     for i in range(int(l_c.max()) + 1):
         lp, g = program_value_and_grad(program, q, etas, x, y, betas)
@@ -611,5 +632,11 @@ def trajectory_plain(program: TrajectoryProgram, thetas, etas, momenta, x,
         kick = torch.where((l_c == i) | (i == 0), 0.5 * eps_c, kick)
         drift = torch.where(i < l_c, eps_c, 0.0)
         v = v + kick[:, None] * g
+        if program.record_uturn and i >= 1:
+            half_fix = torch.where(l_c == i, 0.5 * eps_c, 0.0)
+            proj = ((q - thetas) * (v + half_fix[:, None] * g)).sum(-1)
+            ut = torch.where((i <= l_c) & (ut == 0) & (proj < 0), i, ut)
         q = q + drift[:, None] * v
+    if program.record_uturn:
+        return q, v, lp0, lp, ut
     return q, v, lp0, lp

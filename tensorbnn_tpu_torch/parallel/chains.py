@@ -51,16 +51,21 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  batched_main_vg=None,
                                  batched_main_traj=None,
                                  batched_hyper_traj=None,
-                                 tempering_beta=None):
+                                 tempering_beta=None,
+                                 record_uturn: bool = False,
+                                 per_epoch_leapfrog: bool = False):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator)
     -> (carry, trace)``, the trace's fields stacked ``(n_epochs, C, ...)``
     (``swap_accept`` None unless ``tempering_beta``, which the epoch takes
     as ``(n_rungs, per-chain betas)``; each epoch's swap parity comes from
-    the carry's epoch counter on the device).
+    the carry's epoch counter on the device; ``uturn`` None unless
+    ``record_uturn``).
 
     ``step_size`` is a float or a ``(C,)`` array; ``leapfrog`` an int or a
     ``(C,)`` integer array (per-chain-group adaptation). Both are moved to
-    the chains' device once per chunk.
+    the chains' device once per chunk. With ``per_epoch_leapfrog``
+    (``trajectory="uturn"``) ``leapfrog`` is instead a host ``(n_epochs,)``
+    vector and epoch j runs the shared count ``leapfrog[j]``.
     """
     mu = math.log(100.0 * hyper_step_size_init)
     epoch_fn = make_epoch_fn(
@@ -69,7 +74,7 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
         burnin=burnin, mu=mu, batched_main_vg=batched_main_vg,
         batched_main_traj=batched_main_traj,
         batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim,
-        tempering_beta=tempering_beta)
+        tempering_beta=tempering_beta, record_uturn=record_uturn)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator):
@@ -79,13 +84,17 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
             step_size = torch.as_tensor(np.asarray(step_size),
                                         dtype=carry.theta.dtype,
                                         device=device)
-        if np.ndim(leapfrog) > 0:
-            leapfrog = np.asarray(leapfrog, np.int64)
-            leapfrog_dev = torch.as_tensor(leapfrog, dtype=torch.int32,
-                                           device=device)
+        if per_epoch_leapfrog:
+            leaps = [int(n) for n in np.asarray(leapfrog).reshape(n_epochs)]
+        else:
+            if np.ndim(leapfrog) > 0:
+                leapfrog = np.asarray(leapfrog, np.int64)
+                leapfrog_dev = torch.as_tensor(leapfrog, dtype=torch.int32,
+                                               device=device)
+            leaps = [leapfrog] * n_epochs
         traces = []
-        for _ in range(n_epochs):
-            carry, trace = epoch_fn(carry, step_size, leapfrog, generator,
+        for leap in leaps:
+            carry, trace = epoch_fn(carry, step_size, leap, generator,
                                     leapfrog_dev=leapfrog_dev)
             traces.append(trace)
         return carry, EpochTrace(*(None if f[0] is None else torch.stack(f)

@@ -14,8 +14,17 @@ n_chains`` replicas (sampler/tempering.py), with one GP-UCB adapter per
 rung; samples, SJD and acceptance cover the cold chains only, and the
 per-epoch swap rates come back beside them.
 
+U-turn trajectories (``trajectory="uturn"``, sampler/uturn.py) replace the
+GP-UCB adapters with the ``UTurnAdapter``: burn-in chunks of
+``averaging_steps`` epochs record each chain's first U-turn step, and the
+adapter sets the step size (Robbins-Monro toward 0.8 acceptance) and the
+per-epoch leapfrog counts of the next chunk; after burn-in each epoch
+draws its count from the recorded U-turn lengths, in chunks of up to 50
+epochs. Every chain of an epoch shares its ``(eps, L)``.
+
 Kernel choice: with ``use_fused`` "auto" (or True) the driver builds K1
-(ops/fused_mlp.py) for the main block whenever the model is in its scope,
+(ops/fused_mlp.py) for the main block whenever the model is in its scope
+(its U-turn-recording program in ``trajectory="uturn"``),
 else K3 (the per-step potential, same module) under ``hmc_step_batched``,
 and K2 (ops/fused_hyper.py) for the hyper block, on any device; models
 outside all of them take the plain ``hmc_step_batched`` path. A tempered
@@ -51,6 +60,7 @@ from tensorbnn_tpu_torch.sampler.adapter import ParamAdapter
 from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
     host_unraveler
 from tensorbnn_tpu_torch.sampler.tempering import make_ladder
+from tensorbnn_tpu_torch.sampler.uturn import UTurnAdapter
 
 #: JAX-driver options this port does not carry, with the values that mean
 #: "off" (any other value raises NotImplementedError)
@@ -62,7 +72,6 @@ NOT_CARRIED = {
     "precondition": (False, None),
     "compensated": (False,),
     "numerics": ("default",),
-    "trajectory": ("adapter",),
     "data_chunk": (None,),
     "state_layout": ("auto", "flat"),
     "max_dispatch_seconds": (None,),
@@ -74,7 +83,7 @@ NOT_CARRIED = {
 #: JAX-driver options that only qualify a not-carried option; accepted and
 #: unused
 INERT = ("networks_per_file", "precondition_clip", "precondition_windows",
-         "uturn_probe", "x_validate", "y_validate")
+         "x_validate", "y_validate")
 
 
 def _is(value, off) -> bool:
@@ -173,7 +182,8 @@ class RunResult:
     #: raw flat sample stacks: (S, C, D) / (S, C, H)
     theta_samples: np.ndarray = None
     eta_samples: np.ndarray = None
-    #: per-epoch main leapfrog count, mean over chains, shape (epochs,)
+    #: per-epoch main leapfrog count, mean over chains, shape (epochs,);
+    #: the executed count of each epoch under ``trajectory="uturn"``
     leapfrog: np.ndarray = None
     #: which blocks ran through the fused kernels (K1 or K3 main, K2 hyper)
     fused_main: bool = False
@@ -185,6 +195,10 @@ class RunResult:
     #: per-epoch per-rung swap rate, shape (epochs, K): rung r's rate
     #: counts exchanges with either neighbour (None unless tempering > 1)
     swap_accept_rung: np.ndarray = None
+    #: per-epoch count of chains whose trajectory U-turned within its L
+    #: (the rest were censored), shape (epochs,); None unless
+    #: ``trajectory="uturn"``
+    uturn_turned: np.ndarray = None
 
     @property
     def theta_pooled(self) -> np.ndarray:
@@ -231,6 +245,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      verbose: bool = True,
                      tempering: int = 1,
                      tempering_beta_min: float = 0.1,
+                     trajectory: str = "adapter",
+                     uturn_probe: str = "alternate",
                      **options) -> RunResult:
     """Runs the two-block adaptive HMC sampler on the device of
     ``x_train`` (``params``, ``hypers`` and ``generator`` live there too).
@@ -241,21 +257,34 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     g``). ``use_fused``: "auto"/True build the fused kernels for in-scope
     models, False forces the plain path. ``tempering`` > 1 runs parallel
     tempering over that many rungs, the hottest at ``tempering_beta_min``
-    (one adapter per rung, seeds ``adapter_seed + r``).
+    (one adapter per rung, seeds ``adapter_seed + r``). ``trajectory``:
+    "adapter" tunes ``(eps, L)`` with the GP-UCB adapters, "uturn" with
+    the ``UTurnAdapter`` (see the module docstring; one adapter, no
+    tempering); ``uturn_probe`` is its burn-in probe schedule, "alternate"
+    or "always".
     """
     t_start = time.time()
     if n_adapters < 1 or n_chains % n_adapters:
         raise ValueError(f"n_adapters ({n_adapters}) must be >= 1 and "
                          f"divide n_chains ({n_chains})")
-    # tempering's own errors come first, with the JAX driver's messages
-    # (tensorbnn_tpu/sampler/driver.py:495-531), for options the port does
-    # not carry as well
+    # the trajectory's and tempering's own errors come first, with the JAX
+    # driver's messages (tensorbnn_tpu/sampler/driver.py:486-531), for
+    # options the port does not carry as well
+    if trajectory not in ("adapter", "uturn"):
+        raise ValueError(
+            f"trajectory must be 'adapter' or 'uturn', got {trajectory!r}")
+    traj_uturn = trajectory == "uturn"
+    if traj_uturn and n_adapters != 1:
+        raise ValueError(
+            "trajectory='uturn' shares one dynamic length schedule "
+            "across the fleet (one wave front); it is incompatible with "
+            "n_adapters > 1")
     if tempering < 1:
         raise ValueError(f"tempering must be >= 1, got {tempering}")
     tempering_beta = None
     fleet_chains = n_chains
     if tempering > 1:
-        if options.get("trajectory", "adapter") == "uturn":
+        if traj_uturn:
             raise ValueError(
                 "tempering is incompatible with trajectory='uturn' (the "
                 "shared U-turn schedule would mix feedback across "
@@ -308,7 +337,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             try_build_fused_main_vg, try_build_fused_trajectory
         main_traj = try_build_fused_trajectory(
             model, likelihood, flat.unravel_theta, flat.unravel_eta,
-            x_train, y_train, eta_dim=eta_dim, tempered=tempered)
+            x_train, y_train, eta_dim=eta_dim, tempered=tempered,
+            record_uturn=traj_uturn)
         if main_traj is None and not tempered:
             main_vg = try_build_fused_main_vg(
                 model, likelihood, flat.unravel_theta, flat.unravel_eta,
@@ -324,7 +354,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     if verbose:
         print(f"main block: "
               f"{'plain' if main_path == 'plain' else 'fused ' + main_path}"
-              f"{f' (tempered, {tempering} rungs)' if tempered else ''}; "
+              f"{f' (tempered, {tempering} rungs)' if tempered else ''}"
+              f"{' (U-turn recording)' if traj_uturn else ''}; "
               f"hyper block: {'fused K2' if hyper_traj else 'plain'} "
               f"(device {device})")
 
@@ -334,7 +365,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         hyper_leapfrog=config.hyper_leapfrog, burnin=float(config.burnin),
         hyper_step_size_init=config.hyper_step_size, eta_dim=eta_dim,
         batched_main_vg=main_vg, batched_main_traj=main_traj,
-        batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta)
+        batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta,
+        record_uturn=traj_uturn, per_epoch_leapfrog=traj_uturn)
     carry = init_multichain_state(flat.theta, flat.eta,
                                   config.hyper_step_size, fleet_chains,
                                   generator, jitter=chain_jitter)
@@ -342,26 +374,50 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     # adapter groups: the n_adapters groups, or one per tempering rung
     n_grp = tempering if tempered else n_adapters
     grp_chains = fleet_chains // n_grp
-    adapters = [config.make_adapter(
+    # U-turn runs replay the UTurnAdapter instead of GP-UCB adapters
+    adapters = [] if traj_uturn else [config.make_adapter(
         seed=config.adapter_seed + g if n_grp > 1 else None)
         for g in range(n_grp)]
+    if traj_uturn:
+        uturn_ad = UTurnAdapter(
+            step_size_start=config.step_size_start,
+            step_size_min=config.step_size_min,
+            step_size_max=config.step_size_max,
+            leapfrog_start=config.leapfrog_start,
+            leapfrog_min=config.leapfrog_min,
+            leapfrog_max=config.leapfrog_max,
+            burnin=config.burnin, seed=config.adapter_seed,
+            probe=uturn_probe)
     step_sizes = np.full(n_grp, config.step_size_start, np.float64)
     leapfrogs = np.full(n_grp, config.leapfrog_start, np.int64)
 
     theta_rows, eta_rows = [], []
     sjds, main_accepts, hyper_accepts, leaps = [], [], [], []
-    swap_accepts, swap_rung_accepts = [], []
+    swap_accepts, swap_rung_accepts, turned = [], [], []
     iter_ = 0
     while iter_ < epochs:
-        chunk = min(min(a.epochs_until_next_change() for a in adapters),
-                    epochs - iter_)
-        if n_grp == 1:
-            eps_arg, leap_arg = float(step_sizes[0]), int(leapfrogs[0])
+        if traj_uturn:
+            # burn-in chunks keep the step-size updates frequent and end on
+            # the burn-in boundary; sampling chunks are long (JAX
+            # driver.py:1073-1084)
+            if iter_ < config.burnin:
+                chunk = min(max(1, config.averaging_steps),
+                            config.burnin - iter_, epochs - iter_)
+            else:
+                chunk = min(50, epochs - iter_)
+            eps_arg, leap_arg = uturn_ad.plan_chunk(iter_, chunk)
         else:
-            eps_arg = np.repeat(step_sizes, grp_chains).astype(np.float32)
-            leap_arg = np.repeat(leapfrogs, grp_chains)
+            chunk = min(min(a.epochs_until_next_change() for a in adapters),
+                        epochs - iter_)
+            if n_grp == 1:
+                eps_arg, leap_arg = float(step_sizes[0]), int(leapfrogs[0])
+            else:
+                eps_arg = np.repeat(step_sizes, grp_chains).astype(
+                    np.float32)
+                leap_arg = np.repeat(leapfrogs, grp_chains)
         carry, trace = run_chunk(carry, eps_arg, leap_arg, chunk, generator)
-        leaps.append(np.full(chunk, leapfrogs.mean()))
+        leaps.append(np.asarray(leap_arg, np.float64) if traj_uturn
+                     else np.full(chunk, leapfrogs.mean()))
 
         rows = [j for j in range(chunk)
                 if iter_ + j + 1 > config.burnin
@@ -374,7 +430,11 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         fields = [trace.sjd, trace.main_accept, trace.hyper_accept]
         if tempered:
             fields.append(trace.swap_accept)
-        sjd, m_acc, h_acc, *swap = torch.stack(fields).cpu().numpy()
+        if traj_uturn:
+            # the step counts ride the same transfer, exact in float32
+            fields.append(trace.uturn.to(trace.sjd.dtype))
+        sjd, m_acc, h_acc, *extra = torch.stack(fields).cpu().numpy()
+        swap = extra if tempered else []
         # each group's (each rung's) mean SJD feeds its adapter; the
         # recorded diagnostics cover the cold chains
         sjd_grp = sjd.reshape(chunk, n_grp, grp_chains).mean(axis=2)
@@ -385,6 +445,15 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             swap_accepts.append(swap[0].mean(axis=1))
             swap_rung_accepts.append(
                 swap[0].reshape(chunk, tempering, n_chains).mean(axis=2))
+
+        if traj_uturn:
+            # the chunk's acceptance and U-turn steps feed the schedule
+            # (burn-in epochs only)
+            uturn_ad.observe(iter_, m_acc.mean(axis=1),
+                             extra[0].astype(np.int64), leap_arg)
+            turned.append((extra[0] > 0).sum(axis=1))
+            step_sizes[0] = float(uturn_ad.eps)
+            leapfrogs[0] = int(uturn_ad.l_hat)
 
         for j in range(chunk):
             iter_ += 1
@@ -431,6 +500,7 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      else None),
         swap_accept_rung=(np.concatenate(swap_rung_accepts)
                           if swap_rung_accepts else None),
+        uturn_turned=np.concatenate(turned) if traj_uturn else None,
         leapfrog=np.concatenate(leaps) if leaps else np.zeros(0),
         final_step_size=float(np.mean(step_sizes)),
         final_leapfrog=int(round(float(np.mean(leapfrogs)))),

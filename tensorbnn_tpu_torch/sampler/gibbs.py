@@ -64,6 +64,9 @@ class EpochTrace(NamedTuple):
     #: replica-swap indicator (1.0 where a chain exchanged state); None
     #: when tempering is off
     swap_accept: Optional[torch.Tensor] = None  # (C,)
+    #: first U-turn step of the main trajectory, int32, 0 = censored; None
+    #: unless ``record_uturn``
+    uturn: Optional[torch.Tensor] = None  # (C,)
 
 
 class EpochDraws(NamedTuple):
@@ -85,7 +88,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   batched_main_traj: Optional[Callable] = None,
                   batched_hyper_traj: Optional[Callable] = None,
                   eta_dim: Optional[int] = None,
-                  tempering_beta=None) -> Callable:
+                  tempering_beta=None,
+                  record_uturn: bool = False) -> Callable:
     """Builds ``epoch_fn(carry, step_size, leapfrog, generator, draws=None,
     leapfrog_dev=None) -> (carry, trace)``.
 
@@ -110,6 +114,11 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     tempered stats potential or ``Potentials.hyper_vg_t``. After the SJD
     and the hyper block, ``ll = loglik(theta, eta)`` feeds the even/odd
     replica swap, its parity from the epoch counter.
+
+    ``record_uturn`` fills ``EpochTrace.uturn`` with each chain's first
+    U-turn step (``trajectory="uturn"``): from K1's trailing output (the
+    driver builds it with ``record_uturn=True``) or ``HMCResult.uturn``.
+    It draws nothing more.
     """
     potentials = make_potentials(model, likelihood, x, y, unravel_theta,
                                  unravel_eta)
@@ -142,10 +151,13 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             device=theta0.device)
         log_u = draws.main_log_u if draws is not None else draw_log_u(
             theta0.shape[0], theta0, generator)
+        uturn = None
         if batched_main_traj is not None:
-            q_new, v_new, lp0, lp1 = batched_main_traj(
+            q_new, v_new, lp0, lp1, *rec = batched_main_traj(
                 theta0, eta, momenta, x, y, step_size, steps,
                 *((beta_c,) if tempered else ()))
+            if record_uturn:
+                uturn = rec[0]
             main_accept, accepted = metropolis(
                 lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
                 0.5 * (v_new * v_new).sum(-1), log_u)
@@ -158,8 +170,10 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             else:
                 main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
             main = hmc_step_batched(generator, theta0, main_vg, step_size,
-                                    leapfrog, momenta=momenta, log_u=log_u)
-            theta, main_accept = main.position, main.accept_prob
+                                    leapfrog, momenta=momenta, log_u=log_u,
+                                    record_uturn=record_uturn)
+            theta, main_accept, uturn = (main.position, main.accept_prob,
+                                         main.uturn)
 
         # SJD scaled by L^(-1/2) (reference paramAdapter.py:219-222)
         dif = theta - theta0
@@ -224,6 +238,6 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                                log_eps_bar=log_eps_bar, h=h,
                                epoch=carry.epoch + 1.0)
         return new_carry, EpochTrace(theta, eta, sjd, main_accept,
-                                     hyper_accept, swapped)
+                                     hyper_accept, swapped, uturn)
 
     return epoch_fn

@@ -27,6 +27,8 @@ class HMCResult(NamedTuple):
     log_prob: torch.Tensor     # (C,)
     accept_prob: torch.Tensor  # (C,) min(1, exp(log_accept_ratio))
     accepted: torch.Tensor     # (C,) bool
+    #: (C,) int32 first U-turn step (0 = censored) with ``record_uturn``
+    uturn: Optional[torch.Tensor] = None
 
 
 def _per_chain_steps(n_steps, device):
@@ -39,16 +41,24 @@ def _per_chain_steps(n_steps, device):
 
 def leapfrog_batched(vg_fn: Callable, positions: torch.Tensor,
                      momenta: torch.Tensor, step_size, n_steps,
-                     start: Optional[tuple] = None) -> tuple:
+                     start: Optional[tuple] = None,
+                     record_uturn: bool = False) -> tuple:
     """Half-kick / full-drift leapfrog on ``(C, D)`` blocks; ``n_steps + 1``
     value-and-grad evaluations, the first of them ``start`` when the caller
     has ``vg_fn(positions)`` already. ``step_size`` is a float, a scalar
     tensor or a ``(C, 1)`` column. Returns ``(q, v, log_prob, grad)`` at
-    the endpoint."""
+    the endpoint.
+
+    ``record_uturn`` appends each chain's first U-turn step, ``(C,)``
+    int32: the 1-based loop iteration i where ``(q_i - q_0) . v_{i+1/2} <
+    0`` after the iteration's full kick (the NUTS criterion on one forward
+    trajectory), 0 when the chain never turned within its own count."""
     lp, g = vg_fn(positions) if start is None else start
     v = momenta + 0.5 * step_size * g
     q = positions
     cap, n_vec = _per_chain_steps(n_steps, positions.device)
+    ut = torch.zeros(positions.shape[0], dtype=torch.int32,
+                     device=positions.device)
     for i in range(cap):
         if n_vec is None:
             q = q + step_size * v
@@ -61,7 +71,14 @@ def leapfrog_batched(vg_fn: Callable, positions: torch.Tensor,
             q = q + torch.where(act, step_size * v, 0.0)
             lp, g = vg_fn(q)
             v = v + torch.where(act, step_size * g, 0.0)
+        if record_uturn:
+            turned = (ut == 0) & (((q - positions) * v).sum(-1) < 0)
+            if n_vec is not None:
+                turned &= act[:, 0]
+            ut = torch.where(turned, i + 1, ut)
     v = v - 0.5 * step_size * g
+    if record_uturn:
+        return q, v, lp, g, ut
     return q, v, lp, g
 
 
@@ -82,11 +99,13 @@ def hmc_step_batched(generator: Optional[torch.Generator],
                      positions: torch.Tensor, vg_fn: Callable,
                      step_size, n_leapfrog,
                      momenta: Optional[torch.Tensor] = None,
-                     log_u: Optional[torch.Tensor] = None) -> HMCResult:
+                     log_u: Optional[torch.Tensor] = None,
+                     record_uturn: bool = False) -> HMCResult:
     """One HMC transition over a ``(C, D)`` chain block.
 
     ``momenta`` (C, D) and ``log_u`` (C,) are drawn from ``generator``
     unless given. ``step_size`` may be a float, ``(C,)`` or ``(C, 1)``.
+    ``record_uturn`` fills ``HMCResult.uturn`` (see ``leapfrog_batched``).
     """
     if torch.is_tensor(step_size) and step_size.ndim == 1:
         step_size = step_size[:, None]
@@ -99,11 +118,12 @@ def hmc_step_batched(generator: Optional[torch.Generator],
     # half kick (the JAX package's jit merges the two; eager torch would
     # run both)
     lp0, g0 = vg_fn(positions)
-    q_new, v_new, lp1, _ = leapfrog_batched(vg_fn, positions, momenta,
-                                            step_size, n_leapfrog,
-                                            start=(lp0, g0))
+    q_new, v_new, lp1, _, *uturn = leapfrog_batched(
+        vg_fn, positions, momenta, step_size, n_leapfrog, start=(lp0, g0),
+        record_uturn=record_uturn)
     accept_prob, accepted = metropolis(
         lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
         0.5 * (v_new * v_new).sum(-1), log_u)
     return HMCResult(torch.where(accepted[:, None], q_new, positions),
-                     torch.where(accepted, lp1, lp0), accept_prob, accepted)
+                     torch.where(accepted, lp1, lp0), accept_prob, accepted,
+                     uturn[0] if uturn else None)

@@ -1,5 +1,5 @@
-"""K1 (untempered and tempered), K2 and K3 on an NVIDIA card against their
-plain twins on the same card.
+"""K1 (untempered, tempered and U-turn-recording), K2 and K3 on an NVIDIA
+card against their plain twins on the same card.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -75,6 +75,44 @@ def test_k1_kernel_matches_twin(device, per_chain):
     for g, w, (rtol, atol) in zip(got, want, [(1e-3, 1e-4), (1e-3, 1e-3),
                                               (1e-4, 1e-3), (1e-4, 1e-2)]):
         _close(g, w, rtol, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_chain", [False, True])
+def test_k1_uturn_kernel_matches_twin(device, per_chain):
+    """K1's U-turn-recording program: q, v, lp0 and lp1 to the tolerances of
+    tests/test_fused_trajectory.py:72-79, and the U-turn steps equal but
+    where the twin's projection is near 0 (chip_smoke.check_uturns, which
+    also requires chains that turn and chains that are censored)."""
+    from chip_smoke import K1_TOL, check_uturns, uturn_inputs
+
+    lik = FixedGaussianLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    c, n = 64, 11
+    program = fused_mlp.build_trajectory_program(
+        model, lik, flat.unravel_theta, flat.unravel_eta, flat.eta.numel(),
+        n_rows=n, record_uturn=True)
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.linspace(-2, 2, n, device=device)[:, None]
+    y = torch.randn(n, generator=g, device=device)
+    flat_dev = flat._replace(eta=flat.eta.to(device))
+    args = uturn_inputs(program, flat_dev, c, x, y, g)
+    if per_chain:
+        eps = torch.tensor(np.repeat([1e-3, 2e-3, 5e-3, 1e-2], c // 4),
+                           dtype=torch.float32, device=device)
+        steps = torch.tensor(np.repeat([100, 50, 25, 13], c // 4),
+                             dtype=torch.int32, device=device)
+    else:
+        eps = torch.full((c,), 1e-3, device=device)
+        steps = torch.full((c,), 100, dtype=torch.int32, device=device)
+    got = fused_mlp.fused_trajectory(program, *args, eps, steps)
+    want = fused_mlp.trajectory_plain(program, *args, eps, steps)
+    torch.cuda.synchronize()
+    assert len(got) == 5 and got[4].dtype == torch.int32
+    for g_, w, (rtol, atol) in zip(got, want, K1_TOL):
+        _close(g_, w, rtol, atol)
+    check_uturns("K1 record_uturn", program, args, eps, steps, got[4],
+                 want[4])
 
 
 @pytest.mark.cuda

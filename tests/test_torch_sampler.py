@@ -225,8 +225,7 @@ def test_network_train_runs_on_cpu(n_chains, n_adapters):
 def test_network_train_rejects_what_the_port_does_not_carry():
     net = _small_network()
     lik = T.FixedGaussianLikelihood(sd=0.1)
-    for option in (dict(folder_name="run"),
-                   dict(trajectory="uturn"), dict(numerics="exact"),
+    for option in (dict(folder_name="run"), dict(numerics="exact"),
                    dict(compensated=True), dict(precondition=0),
                    dict(state_layout="tree"), dict(data_chunk=4),
                    dict(mesh=object()), dict(metricList=[object()])):
