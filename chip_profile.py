@@ -21,6 +21,17 @@ picks:
   shared (eps, L) = (3e-3, 200) its sampling epochs run (L at the
   ``leapfrog_max`` it settles on), 30 hyper steps from 1e-3: K1's
   U-turn-recording program + K2.
+- ``classification 128``: the JAX bench's ``classification`` cell
+  (SquarePrelu + sigmoid + Bernoulli, 10-16-16-1 over 64 rows), 128
+  chains at its (eps, L) = (5e-4, 50), 10 hyper steps from 1e-4: K1
+  variant (d), and the plain hyper block (no stats layout for
+  SquarePrelu).
+
+Last, ``K3 tutorial call``: one K3 call (value and gradient) at the
+tutorial-shaped classifier (784-20-20-1 with SquarePrelu, sigmoid and
+Bernoulli over 9,585 rows, 64 chains, 0.3 N(0, 1) weights), kernel by
+kernel: device ms and launches per call of each kernel name, and the
+call's total.
 
 It reports, per epoch: the wall time over three unprofiled windows (host
 clock after a synchronize), the enqueue time (until the runner returns),
@@ -41,7 +52,7 @@ import torch
 
 #: kernel-name substrings of each hand-written kernel
 GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
-          ("K3", ("gemm_kernel", "gaussian_tail_kernel")))
+          ("K3", ("gemm_kernel", "tail_kernel", "slope_grad_kernel")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: kernels listed by name, the most expensive first
 TOP_KERNELS = 8
@@ -166,8 +177,8 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from chip_smoke import card_line, chunk_runner, flagship_network, \
-        wide_network
+    from chip_smoke import card_line, chunk_runner, \
+        classification_network, flagship_network, wide_network
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
         make_potentials
@@ -194,7 +205,9 @@ def main() -> int:
              np.full(fleet, 2e-3, np.float32), np.full(fleet, 50), 30, 1e-3,
              (10, 50, 20), True, fleet, False),
             ("uturn 512", flagship_network, 3e-3, 200, 30, 1e-3,
-             (10, 50, 20), False, 512, True)):
+             (10, 50, 20), False, 512, True),
+            ("classification 128", classification_network, 5e-4, 50, 10,
+             1e-4, (10, 50, 20), False, 128, False)):
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
@@ -222,7 +235,35 @@ def main() -> int:
         cell(name, run, carry, eps, steps, *sizes, gen, card, glue)
         del run, carry, net
         torch.cuda.empty_cache()
+    k3_call_breakdown(dev, gen, card)
     return 0
+
+
+def k3_call_breakdown(dev, gen, card, reps=5):
+    """Device ms and launches per call of each kernel of one K3 call at
+    the tutorial shape (summed by kernel name, so the forward, weight- and
+    input-gradient products each come as one row), and the call's total;
+    one JSON line."""
+    from chip_smoke import TUTORIAL_ROWS, tutorial_network
+    from tensorbnn_tpu_torch.ops import fused_mlp
+
+    net, lik = tutorial_network(dev)
+    ops, tail = fused_mlp._model_program(net.model, lik)
+    _, _, d = fused_mlp._program_dims(ops)
+    vg = fused_mlp.make_fused_potential_vg(ops, TUTORIAL_ROWS, tail)
+    thetas = 0.3 * torch.randn((64, d), generator=gen, device=dev)
+    x, y = net.train_x, net.train_y
+    vg(thetas, 1.0, x, y)
+    rows = {}
+    for e in profiled_events(lambda: vg(thetas, 1.0, x, y), reps):
+        if e["cat"] == "kernel":
+            ms, n = rows.get(e["name"][:80], (0.0, 0))
+            rows[e["name"][:80]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    kernels = [[name, ms / reps, n / reps] for name, (ms, n) in
+               sorted(rows.items(), key=lambda kv: -kv[1][0])]
+    print(json.dumps({"cell": "K3 tutorial call", "card": card,
+                      "ms_per_call": sum(k[1] for k in kernels),
+                      "kernels": kernels}), flush=True)
 
 
 if __name__ == "__main__":

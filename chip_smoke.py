@@ -15,7 +15,11 @@ script exits non-zero:
    (512 x 4, beta_min 0.5), per-rung (eps, L); K1's U-turn-recording
    program at 64 chains, (eps, L) = (1e-3, 100), and 512 chains with
    per-chain (eps, L), its U-turn steps equal to the twin's but at
-   near-zero projections;
+   near-zero projections; K1 variant (d), from 0.3 N(0, 1) weights: the
+   JAX bench's ``classification`` stack at 128 chains (shared and
+   per-chain (eps, L)) and tempered at 128 x 4 rungs, ``multiclass`` at
+   128 chains, the learned-sd and Cauchy-compat flagships and a Prelu +
+   LeakyRelu stack at 64;
 4. K2 (the fused hyper-block trajectory) against its twin at the hyper
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
@@ -23,7 +27,10 @@ script exits non-zero:
    benchmarks/run_benchmarks.py) at 64 chains, 5 steps (both coupled);
 5. K3 (the per-step potential) against its twin at ``wide_deep`` (128
    rows, 64 chains, per-chain learned sd, weights from a Network's init),
-   the flagship (64 chains, fixed sd) and a ragged stack; then one
+   the flagship (64 chains, fixed sd) and a ragged stack; its Bernoulli
+   tail and sqprelu at the tutorial shape (784-20-20-1 over 9,585 rows, 64
+   chains), its categorical tail at a digits shape (64-20-10 over 1,437
+   rows) and its prelu and leakyrelu at a ragged stack; then one
    ``wide_deep`` trajectory through K3 against the plain ``torch.func``
    potential;
 6. the sampler through ``Network.train``: 3-epoch runs through K1 and K2,
@@ -36,7 +43,13 @@ script exits non-zero:
    0.5, ``ess_run``'s settings) on tempered K1 + K2, with its swap rate
    per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps, L) = (1e-5, 20)),
    then on the plain path as a witness of its hyper acceptance; the
-   learned-sd flagship on K3 + K2; the U-turn quality block
+   learned-sd flagship on K1 (d) + K2; the JAX bench's ``classification``
+   (K1 (d), plain hyper block) and ``multiclass`` (K1 (d) + K2) cells, 128
+   chains over 60 epochs after 3 epochs against the plain path, held to
+   the JAX package's acceptance and (classification) a training accuracy
+   above 0.9, each printed as a ``{"cell": ...}`` line with its steady
+   steps/sec; the tutorial-shaped model on K3 (6 epochs); the U-turn
+   quality block
    (``trajectory="uturn"``, 512 chains at ``ess_run``'s settings) under
    the "alternate" and then the "always" probe on K1's U-turn-recording
    program + K2, held to the JAX package's seed-deterministic statistics;
@@ -45,7 +58,8 @@ script exits non-zero:
 7. times: each kernel against its twin (CUDA events), K3 against the
    same value and gradient through cuBLAS (the twin) and torch.func, K1's
    U-turn-recording program against the non-recording one on the same
-   inputs, the steady 64-chain leapfrog rates of the flagship at (eps, L)
+   inputs, K1 (d) at its phase 3 shapes, K3 at the tutorial and digits
+   shapes, the steady 64-chain leapfrog rates of the flagship at (eps, L)
    = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20).
 
 It prints the kernels' JSON line and the card's line before its last line,
@@ -116,6 +130,30 @@ UTURN_MIN_ESS_TOL = 0.50
 # relative to ||q - q0|| ||v||: there two float32 orders of summation may
 # give it either sign
 UTURN_NEAR_ZERO = 1e-5
+# the JAX bench's classification and multiclass cells
+# (benchmarks/run_benchmarks.py:238-340): 128 chains, each cell's fixed (eps,
+# L) and hyper steps, hyper step 1e-4, chain jitter 0.01, 60 epochs (the
+# bench's warm-up chunk of 10 and five more); the last 10 epochs, after
+# burn-in, are the window of the JAX package's figures
+CLS_CELLS = {"classification": dict(eps=5e-4, steps=50, hyper_steps=10),
+             "multiclass": dict(eps=1e-2, steps=20, hyper_steps=5)}
+CLS_CHAINS, CLS_EPOCHS, CLS_BURNIN = 128, 60, 50
+# the JAX package's main and hyper acceptance over epochs 51-60 of each cell
+# at the same settings, on its XLA path (`JAX_PLATFORMS=cpu python3
+# jax_reference_stats.py`, which runs run_benchmarks.py::_bench_sampler with
+# use_fused=False): statistics of the sampler, not of the chip
+CLS_REF = {"classification": dict(main_accept=0.998704731464386,
+                                  hyper_accept=0.9714168310165405),
+           "multiclass": dict(main_accept=0.9995704889297485,
+                              hyper_accept=0.9770184755325317)}
+CLS_ACCEPT_TOL, CLS_HYPER_TOL = 0.05, 0.15
+# the training accuracy of the posterior-mean prediction that the
+# classification cell must pass
+CLS_MIN_ACCURACY = 0.9
+# per-chain (eps, L) of K1 (d)'s comparisons at the classification shape
+CLS_GROUPS = ((5e-4, 50), (1e-3, 40), (2e-3, 20), (5e-3, 10))
+# rows of the tutorial-shaped model: 80% of MNIST's 11,982 training 3s and 8s
+TUTORIAL_ROWS = 9585
 # K1's U-turn comparisons draw each chain's prior sd (its scale hyper
 # squared) from this range: the tight prior makes a stable oscillator whose
 # half period (pi sd) falls on both sides of eps L, so some chains turn and
@@ -136,20 +174,132 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_network(device, seed=0, learned_sd=False):
-    from tensorbnn_tpu_torch import FixedGaussianLikelihood, \
-        GaussianDenseLayer, GaussianLikelihood, Network, Tanh
+def trig_network(device, seed=0):
+    """A Network over the flagship's data: 11 points of the reference's
+    trig curve."""
+    from tensorbnn_tpu_torch import Network
     x = np.linspace(-2, 2, 11).astype(np.float32)
     y = (np.sin(x * math.pi * 2) * x - np.cos(x * math.pi)).astype(
         np.float32)
-    net = Network(torch.float32, 1, x, y, x, y, seed=seed, device=device)
-    net.add(GaussianDenseLayer(1, 10)).add(Tanh())
-    net.add(GaussianDenseLayer(10, 10)).add(Tanh())
-    net.add(GaussianDenseLayer(10, 10)).add(Tanh())
-    net.add(GaussianDenseLayer(10, 1))
+    return Network(torch.float32, 1, x, y, x, y, seed=seed, device=device)
+
+
+def flagship_network(device, seed=0, learned_sd=False, cauchy=False):
+    """The flagship, 1-10-10-10-1 tanh, with a fixed- or learned-sd
+    Gaussian likelihood; ``cauchy`` takes ``CauchyDenseLayer``s (the
+    reference's default dense layer, its flipped density) for the Gaussian
+    ones."""
+    from tensorbnn_tpu_torch import CauchyDenseLayer, \
+        FixedGaussianLikelihood, GaussianDenseLayer, GaussianLikelihood, Tanh
+    dense = CauchyDenseLayer if cauchy else GaussianDenseLayer
+    net = trig_network(device, seed)
+    net.add(dense(1, 10)).add(Tanh())
+    net.add(dense(10, 10)).add(Tanh())
+    net.add(dense(10, 10)).add(Tanh())
+    net.add(dense(10, 1))
     if learned_sd:
         return net, GaussianLikelihood(sd=0.1)
     return net, FixedGaussianLikelihood(sd=0.1)
+
+
+def prelu_network(device, seed=0):
+    """1-10-10-1 with a Prelu and a LeakyRelu (alpha 0.3) on the flagship
+    data, fixed-sd Gaussian likelihood: K1's two other slope ops and the
+    exponential prior."""
+    from tensorbnn_tpu_torch import FixedGaussianLikelihood, \
+        GaussianDenseLayer, LeakyRelu, Prelu
+    net = trig_network(device, seed)
+    net.add(GaussianDenseLayer(1, 10)).add(Prelu(10))
+    net.add(GaussianDenseLayer(10, 10)).add(LeakyRelu(0.3))
+    net.add(GaussianDenseLayer(10, 1))
+    return net, FixedGaussianLikelihood(sd=0.1)
+
+
+def classification_network(device, seed=0):
+    """``classification`` of benchmarks/run_benchmarks.py:238-293:
+    GaussianDense(10, 16), SquarePrelu(16), GaussianDense(16, 16),
+    SquarePrelu(16), GaussianDense(16, 1), Sigmoid, under the Bernoulli
+    likelihood, over 64 rows of N(0, 1) data (``default_rng(2)``) labelled
+    ``sum(x) > 0``."""
+    from tensorbnn_tpu_torch import BernoulliLikelihood, GaussianDenseLayer, \
+        Network, Sigmoid, SquarePrelu
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(64, 10)).astype(np.float32)
+    y = (x.sum(axis=1) > 0).astype(np.float32)
+    net = Network(torch.float32, 10, x, y, x, y, seed=seed, device=device)
+    net.add(GaussianDenseLayer(10, 16)).add(SquarePrelu(16))
+    net.add(GaussianDenseLayer(16, 16)).add(SquarePrelu(16))
+    net.add(GaussianDenseLayer(16, 1)).add(Sigmoid())
+    return net, BernoulliLikelihood()
+
+
+def multiclass_network(device, seed=0):
+    """``multiclass`` of benchmarks/run_benchmarks.py:295-340:
+    GaussianDense(2, 8), Tanh, GaussianDense(8, 3), Softmax, under the
+    categorical likelihood, over 16 rows of N(0, 1) data
+    (``default_rng(3)``) with class ids 0..2 as labels."""
+    from tensorbnn_tpu_torch import CategoricalLikelihood, \
+        GaussianDenseLayer, Network, Softmax, Tanh
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(16, 2)).astype(np.float32)
+    y = rng.integers(0, 3, size=16).astype(np.float32)
+    net = Network(torch.float32, 2, x, y, x, y, seed=seed, device=device)
+    net.add(GaussianDenseLayer(2, 8)).add(Tanh())
+    net.add(GaussianDenseLayer(8, 3)).add(Softmax())
+    return net, CategoricalLikelihood()
+
+
+def tutorial_network(device, seed=0):
+    """The reference's classification tutorial stack at MNIST 3-vs-8 width
+    (examples/digits_classification.py:18-20, :81-103 with 784 inputs):
+    GaussianDense(784, 20), SquarePrelu(20, alpha=sqrt(0.1)),
+    GaussianDense(20, 20), SquarePrelu(20), GaussianDense(20, 1), Sigmoid,
+    Bernoulli, over ``TUTORIAL_ROWS`` rows of uniform [0, 1) pixels
+    (``default_rng(5)``; MNIST is not in the repository) labelled by a
+    fixed random hyperplane through the pixels' mean."""
+    from tensorbnn_tpu_torch import BernoulliLikelihood, GaussianDenseLayer, \
+        Network, Sigmoid, SquarePrelu
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(TUTORIAL_ROWS, 784)).astype(np.float32)
+    y = ((x - 0.5) @ rng.normal(size=784) > 0).astype(np.float32)
+    net = Network(torch.float32, 784, x, y, x, y, seed=seed, device=device)
+    net.add(GaussianDenseLayer(784, 20))
+    net.add(SquarePrelu(20, alpha=math.sqrt(0.1)))
+    net.add(GaussianDenseLayer(20, 20)).add(SquarePrelu(20))
+    net.add(GaussianDenseLayer(20, 1)).add(Sigmoid())
+    return net, BernoulliLikelihood()
+
+
+def cls_mcmc(cell, burnin=CLS_BURNIN):
+    """``setup_mcmc`` settings of a classification cell: its fixed (eps, L)
+    (the adapter's first change would come after 100 epochs, past the
+    run), hyper steps and hyper step 1e-4, as ``_bench_sampler`` runs
+    it."""
+    c = CLS_CELLS[cell]
+    return dict(step_size_start=c["eps"], step_size_min=c["eps"],
+                step_size_max=c["eps"], leapfrog_start=c["steps"],
+                leapfrog_min=c["steps"], leapfrog_max=c["steps"],
+                hyper_leapfrog=c["hyper_steps"], hyper_step_size=1e-4,
+                burnin=burnin, averaging_steps=100)
+
+
+def train_accuracy(net, res):
+    """Training accuracy of the posterior-mean prediction over the
+    recorded samples: probabilities above 0.5 for a sigmoid head, the
+    argmax for a softmax one."""
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    params, hypers = net.init_state()
+    unravel = flatten_state(params, hypers, {}).unravel_theta
+    thetas = torch.tensor(res.theta_pooled, device=net.device)
+    preds = torch.func.vmap(lambda th: net.model.apply(
+        unravel(th), net.train_x))(thetas).mean(0)
+    y = net.train_y.reshape(-1)
+    if preds.shape[1] == 1:
+        hit = (preds[:, 0] > 0.5) == (y > 0.5)
+    else:
+        hit = preds.argmax(1) == y.to(torch.int64)
+    return float(hit.to(torch.float32).mean())
 
 
 def wide_network(device, seed=0):
@@ -172,7 +322,8 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
                  record_uturn=False):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
-    hyper block), ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``,
+    hyper block where the stats layout applies, else the plain block),
+    ``hyper_steps`` hyper leapfrog steps from ``hyper_eps``,
     tempered by ``tempering_beta = (K, per-chain betas)`` when given (K1's
     tempered program, never K3), recording U-turn steps with
     ``record_uturn`` (K1's recording program): the steady rates here and
@@ -191,7 +342,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         net.model, lik, flat.unravel_eta, h, hyper_steps)
-    assert (traj or vg) and hyper, "a kernel declined its model"
+    assert traj or vg, "the main-block kernels declined the model"
     return make_multichain_chunk_runner(
         net.model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
@@ -254,7 +405,7 @@ def uturn_inputs(program, flat, c, x, y, g):
     lo, hi = UTURN_PRIOR_SD
     sd = lo + (hi - lo) * torch.rand(c, generator=g, device=dev)
     etas = flat.eta.expand(c, h).clone()
-    for _, _, _, i_scale in program.prior_blocks:
+    for _, _, _, _, i_scale, _ in program.prior_blocks:
         etas[:, i_scale] = sd.sqrt()
     return thetas, etas, mom, x, y
 
@@ -514,6 +665,73 @@ def main() -> int:
         k1u_counts[label] = check_uturns(label, u_program, args, eps_c, l_c,
                                          got[4], want[4])
 
+    # K1 variant (d): the other tails, activations and priors, each from
+    # 0.3 N(0, 1) weights and its Network's hypers, with its own generator
+    def k1d_program(knet, klik, tempered=False):
+        kparams, khypers = knet.init_state()
+        kflat = flatten_state(kparams, khypers, klik.init_hypers(device=dev))
+        prog = fused_mlp.build_trajectory_program(
+            knet.model, klik, kflat.unravel_theta, kflat.unravel_eta,
+            kflat.eta.numel(), n_rows=knet.train_x.shape[0],
+            tempered=tempered)
+        assert prog is not None, "K1 declined a model of variant (d)"
+        return prog, kflat
+
+    def k1d_inputs(knet, kflat, c, g):
+        kd, kh = kflat.theta.numel(), kflat.eta.numel()
+        return (0.3 * torch.randn((c, kd), generator=g, device=dev),
+                kflat.eta.expand(c, kh).contiguous(),
+                torch.randn((c, kd), generator=g, device=dev),
+                knet.train_x, knet.train_y)
+
+    d_gen = torch.Generator(device=dev).manual_seed(7)
+    cls_net, cls_lik = classification_network(dev)
+    c_eps, c_l = (np.repeat(np.asarray(CLS_GROUPS)[:, i], CLS_CHAINS // 4)
+                  for i in (0, 1))
+    k1d_cases = [
+        ("K1 (d) classification C=128 (eps, L)=(0.0005, 50)", cls_net,
+         cls_lik, CLS_CHAINS, 5e-4, 50),
+        ("K1 (d) classification C=128 per-chain (eps, L) in 4 groups",
+         cls_net, cls_lik, CLS_CHAINS,
+         torch.tensor(c_eps, dtype=torch.float32, device=dev),
+         torch.tensor(c_l, dtype=torch.int32, device=dev)),
+        ("K1 (d) multiclass C=128 (eps, L)=(0.01, 20)",
+         *multiclass_network(dev), CLS_CHAINS, 1e-2, 20),
+        ("K1 (d) learned-sd flagship C=64 (eps, L)=(0.001, 100)",
+         *flagship_network(dev, learned_sd=True), 64, 1e-3, 100),
+        ("K1 (d) Cauchy-compat flagship C=64 (eps, L)=(0.001, 100)",
+         *flagship_network(dev, cauchy=True), 64, 1e-3, 100),
+        ("K1 (d) Prelu + LeakyRelu C=64 (eps, L)=(0.001, 100)",
+         *prelu_network(dev), 64, 1e-3, 100)]
+    k1d_err = 0.0
+    k1d_shapes = {}
+    for label, knet, klik, c, eps, steps in k1d_cases:
+        prog, kflat = k1d_program(knet, klik)
+        args = k1d_inputs(knet, kflat, c, d_gen)
+        eps_c, l_c = fused_mlp.per_chain(eps, steps, c, dev)
+        got = fused_mlp.fused_trajectory(prog, *args, eps_c, l_c)
+        want = fused_mlp.trajectory_plain(prog, *args, eps_c, l_c)
+        torch.cuda.synchronize()
+        k1d_err = max(k1d_err, compare(label, got, want, K1_TOL))
+        k1d_shapes[label] = (prog, args, eps_c, l_c)
+    # one tempered Bernoulli launch: 128 chains x 4 rungs at beta_min 0.5,
+    # per-rung (eps, L)
+    prog, kflat = k1d_program(cls_net, cls_lik, tempered=True)
+    c = 4 * CLS_CHAINS
+    args = k1d_inputs(cls_net, kflat, c, d_gen)
+    eps_c = torch.tensor(np.repeat(np.asarray(CLS_GROUPS)[:, 0], CLS_CHAINS),
+                         dtype=torch.float32, device=dev)
+    l_c = torch.tensor(np.repeat(np.asarray(CLS_GROUPS)[:, 1], CLS_CHAINS),
+                       dtype=torch.int32, device=dev)
+    betas = torch.tensor(np.repeat(make_ladder(4, 0.5), CLS_CHAINS),
+                         dtype=torch.float32, device=dev)
+    got = fused_mlp.fused_trajectory(prog, *args, eps_c, l_c, betas)
+    want = fused_mlp.trajectory_plain(prog, *args, eps_c, l_c, betas)
+    torch.cuda.synchronize()
+    k1d_err = max(k1d_err, compare(
+        "K1 (d) tempered classification C=512 (128 x 4 rungs, beta_min "
+        "0.5) per-rung (eps, L)", got, want, K1_TOL))
+
     phase("4 K2 against its twin")
     wnet, wlik = wide_network(dev)
     wparams, whypers = wnet.init_state()
@@ -604,6 +822,63 @@ def main() -> int:
         k3_err = max(k3_err, compare(label, got, want, tols,
                                      labels=("ll", "grad")))
         k3_shapes[label] = (vg, ops, thetas, sd_c, xs, ys)
+
+    # K3's Bernoulli and categorical tails and the slope ops, from 0.3
+    # N(0, 1) weights (the tutorial's He-init start saturates the sigmoid,
+    # where 1 - p keeps one or two bits and two float32 orders disagree)
+    t_gen = torch.Generator(device=dev).manual_seed(9)
+    tut_net, tut_lik = tutorial_network(dev)
+    tut_ops = (("dense", 784, 20), ("sqprelu", 20), ("dense", 20, 20),
+               ("sqprelu", 20), ("dense", 20, 1), ("sigmoid", 1))
+    digit_ops = (("dense", 64, 20), ("tanh", 20), ("dense", 20, 10))
+    slope_ops = (("dense", 3, 37), ("prelu", 37), ("dense", 37, 70),
+                 ("leakyrelu", 70, 0.3), ("dense", 70, 1))
+    dg = np.random.default_rng(6)
+    k3t_inputs = {
+        f"K3 Bernoulli + sqprelu tutorial C=64 N={TUTORIAL_ROWS}": (
+            tut_ops, "bernoulli", 64, tut_net.train_x, tut_net.train_y),
+        "K3 categorical digits 64-20-10 C=64 N=1437": (
+            digit_ops, "categorical", 64,
+            torch.tensor(dg.integers(0, 17, size=(1437, 64)) / 16.0,
+                         dtype=torch.float32, device=dev),
+            torch.tensor(dg.integers(0, 10, size=1437), dtype=torch.float32,
+                         device=dev)),
+        "K3 prelu + leakyrelu 3-37-70-1 C=5 N=13": (
+            slope_ops, "gaussian", 5,
+            torch.randn((13, 3), generator=t_gen, device=dev),
+            torch.randn((13, 1), generator=t_gen, device=dev)),
+    }
+    k3t_err = 0.0
+    for label, (ops, klik, c, xs, ys) in k3t_inputs.items():
+        _, _, kd = fused_mlp._program_dims(ops)
+        thetas = 0.3 * torch.randn((c, kd), generator=t_gen, device=dev)
+        sd_c = 0.1 + 0.2 * torch.rand(c, generator=t_gen, device=dev)
+        vg = fused_mlp.make_fused_potential_vg(ops, xs.shape[0], klik)
+        got = vg(thetas, sd_c, xs, ys)
+        want = fused_mlp.potential_plain(ops, thetas, sd_c, xs, ys, klik)
+        torch.cuda.synchronize()
+        tols = K3_TOL
+        if klik == "bernoulli":
+            # each weight-gradient element sums 9,585 rows: the wide_deep
+            # rule (K3_WIDE_ATOL) for sums whose terms cancel
+            scale = want[1].abs().max().item()
+            tols = (K3_TOL[0], (K3_TOL[1][0],
+                                K3_TOL[1][1] + K3_WIDE_ATOL * scale))
+            print(f"{label}: grad atol {tols[1][1]:.3e} "
+                  f"(max |grad| {scale:.3e})")
+        k3t_err = max(k3t_err, compare(label, got, want, tols,
+                                       labels=("ll", "grad")))
+        k3_shapes[label] = (vg, ops, thetas, sd_c, xs, ys)
+    # K1 declines the tutorial and digits shapes (their planes are past one
+    # block's shared memory); the driver takes K3 for them
+    tparams, thypers = tut_net.init_state()
+    tflat = flatten_state(tparams, thypers, {})
+    assert fused_mlp.build_trajectory_program(
+        tut_net.model, tut_lik, tflat.unravel_theta, tflat.unravel_eta,
+        tflat.eta.numel(), n_rows=TUTORIAL_ROWS) is None
+    assert fused_mlp.TrajectoryProgram(
+        digit_ops, (), 1.0, 1437, 1, lik="categorical").smem_bytes > \
+        fused_mlp.SMEM_BUDGET_BYTES
 
     # one wide_deep trajectory through K3 (plus the priors outside it)
     # against the plain torch.func potential, from the same start and
@@ -836,30 +1111,144 @@ def main() -> int:
                             rel_tol=1e-4), (replay, wres.final_hyper_step)
     del wres, pres, pnet
 
-    # (d) the learned-sd flagship on K3 + K2 (coupled)
+    # (d) the learned-sd flagship on K1 (d) + K2 (coupled)
     lnet, llik = flagship_network(dev, learned_sd=True)
     lnet.setup_mcmc(burnin=100, leapfrog_start=50, leapfrog_min=20,
                     leapfrog_max=100, leapfrog_increment=5,
                     averaging_steps=10, random_steps=5, hyper_leapfrog=30)
     reset_counts()
     lres = lnet.train(150, 5, llik, n_chains=64, verbose=False)
-    learned_launches = read_counts("learned-sd flagship (K3 + K2)")
+    learned_launches = read_counts("learned-sd flagship (K1 + K2)")
     l_acc = float(lres.main_accept[100:].mean())
     print(f"learned-sd flagship: {lres.n_epochs} epochs in "
           f"{lres.wall_time:.2f} s; post-burn-in main acceptance "
           f"{l_acc:.4f}, hyper acceptance "
           f"{float(lres.hyper_accept[100:].mean()):.4f}")
-    assert lres.main_path == "K3" and lres.fused_hyper, lres.main_path
-    if (min(learned_launches["K3"], learned_launches["K2"]) < 1
-            or learned_launches["K1"]):
+    assert lres.main_path == "K1" and lres.fused_hyper, lres.main_path
+    if (learned_launches["K1"] != 150 or learned_launches["K2"] < 1
+            or learned_launches["K3"]):
         raise AssertionError(f"the learned-sd flagship did not run on "
-                             f"K3 + K2 alone: {learned_launches}")
+                             f"K1 (one launch per epoch) + K2 alone: "
+                             f"{learned_launches}")
     assert np.isfinite(lres.theta_samples).all()
     assert np.isfinite(lres.eta_samples).all()
     assert 0.0 < l_acc < 1.0, l_acc
     del lres, lnet
 
-    # (e) the U-turn quality block: ess_run's settings with
+    # (e) the JAX bench's classification and multiclass cells on K1 (d):
+    # three epochs against the plain path on the same draws, then the
+    # cell's 60 epochs with the launches counted, held to the JAX package's
+    # acceptance (CLS_REF) and, for classification, a training accuracy
+    cls_quality, cls_launches = {}, {}
+    for cell, build in (("classification", classification_network),
+                        ("multiclass", multiclass_network)):
+        short_c = {}
+        for use_fused in (True, False):
+            n3, lik3 = build(dev)
+            n3.setup_mcmc(**cls_mcmc(cell, burnin=0))
+            short_c[use_fused] = n3.train(
+                3, 1, lik3, n_chains=CLS_CHAINS, chain_jitter=0.01,
+                use_fused=use_fused, verbose=False)
+        assert short_c[True].main_path == "K1"
+        assert short_c[False].main_path == "plain"
+        np.testing.assert_allclose(short_c[True].theta_samples,
+                                   short_c[False].theta_samples,
+                                   rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(short_c[True].eta_samples,
+                                   short_c[False].eta_samples,
+                                   rtol=1e-3, atol=1e-4)
+        print(f"{cell}: 3 epochs through the kernels agree with the plain "
+              f"path (rtol 1e-3, atol 1e-4)")
+
+        cnet, clik = build(dev)
+        cnet.setup_mcmc(**cls_mcmc(cell))
+        reset_counts()
+        t0 = time.perf_counter()
+        cres = cnet.train(CLS_EPOCHS, 1, clik, n_chains=CLS_CHAINS,
+                          chain_jitter=0.01, verbose=False)
+        torch.cuda.synchronize()
+        cwall = time.perf_counter() - t0
+        counts = read_counts(f"{cell} (K1 (d)"
+                             + (" + K2)" if cell == "multiclass" else ")"))
+        cls_launches[cell] = counts
+        want_k2 = CLS_EPOCHS if cell == "multiclass" else 0
+        if (counts["K1"] != CLS_EPOCHS or counts["K3"]
+                or counts["K2"] != want_k2):
+            raise AssertionError(f"{cell}: expected {CLS_EPOCHS} K1 "
+                                 f"launches, {want_k2} of K2 and none of "
+                                 f"K3; got {counts}")
+        assert cres.main_path == "K1"
+        assert cres.fused_hyper == (cell == "multiclass")
+        assert np.isfinite(cres.theta_samples).all()
+        assert np.isfinite(cres.eta_samples).all()
+        # the steady main-chain rate: the chunk runner the driver builds,
+        # after a warm-up of 2 epochs, over 10
+        cfg = CLS_CELLS[cell]
+        cparams, chypers = cnet.init_state()
+        cflat = flatten_state(cparams, chypers, {})
+        crun = chunk_runner(cnet, clik, cflat, cfg["hyper_steps"], 1e-4)
+        ccarry = init_multichain_state(cflat.theta, cflat.eta, 1e-4,
+                                       CLS_CHAINS, gen, jitter=0.01)
+        ccarry, _ = crun(ccarry, cfg["eps"], cfg["steps"], 2, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ccarry, _ = crun(ccarry, cfg["eps"], cfg["steps"], 10, gen)
+        torch.cuda.synchronize()
+        steady = 10 * cfg["steps"] * CLS_CHAINS / (time.perf_counter() - t0)
+        cq = {"cell": cell, "n_chains": CLS_CHAINS, "epochs": CLS_EPOCHS,
+              "eps": cfg["eps"], "leapfrog": cfg["steps"],
+              "wall_seconds": cwall, "steady_steps_per_sec": steady,
+              "main_accept": float(cres.main_accept[CLS_BURNIN:].mean()),
+              "hyper_accept": float(cres.hyper_accept[CLS_BURNIN:].mean()),
+              "train_accuracy": train_accuracy(cnet, cres),
+              "jax_main_accept": CLS_REF[cell]["main_accept"],
+              "jax_hyper_accept": CLS_REF[cell]["hyper_accept"],
+              "launches": counts}
+        print(json.dumps({"cell": cq}), flush=True)
+        cls_quality[cell] = cq
+        gates = {
+            "main acceptance": abs(cq["main_accept"]
+                                   - cq["jax_main_accept"])
+            <= CLS_ACCEPT_TOL,
+            "hyper acceptance": abs(cq["hyper_accept"]
+                                    - cq["jax_hyper_accept"])
+            <= CLS_HYPER_TOL}
+        if cell == "classification":
+            gates["training accuracy"] = (cq["train_accuracy"]
+                                          > CLS_MIN_ACCURACY)
+        missed = [name for name, ok in gates.items() if not ok]
+        if missed:
+            raise AssertionError(f"{cell}: {missed} off the gates: {cq}")
+        del cnet, cres, crun, ccarry, short_c
+
+    # (f) the tutorial-shaped model on K3: 64 chains, (eps, L) = (1e-3, 20),
+    # 6 epochs, burn-in 3, the tutorial's 30 hyper steps from 1e-5
+    # (examples/digits_classification.py:114-120); its hyper block is plain
+    tnet6, tlik6 = tutorial_network(dev)
+    tnet6.setup_mcmc(burnin=3, step_size_start=1e-3, step_size_min=1e-3,
+                     step_size_max=1e-3, leapfrog_start=20, leapfrog_min=20,
+                     leapfrog_max=20, hyper_leapfrog=30,
+                     hyper_step_size=1e-5, averaging_steps=10)
+    reset_counts()
+    tres6 = tnet6.train(6, 1, tlik6, n_chains=64, chain_jitter=0.01,
+                        verbose=False)
+    tut_launches = read_counts("tutorial-shaped model (K3)")
+    print(f"tutorial-shaped: {tres6.n_epochs} epochs in "
+          f"{tres6.wall_time:.2f} s; main acceptance "
+          f"{np.round(tres6.main_accept, 4).tolist()}; hyper acceptance "
+          f"{np.round(tres6.hyper_accept, 4).tolist()}")
+    assert tres6.main_path == "K3" and not tres6.fused_hyper
+    if (tut_launches["K3"] != 6 * 21 or tut_launches["K1"]
+            or tut_launches["K2"]):
+        raise AssertionError(f"tutorial-shaped: expected 126 K3 launches "
+                             f"(6 epochs x (L + 1)) and none of K1 or K2; "
+                             f"got {tut_launches}")
+    assert tres6.theta_samples.shape == (3, 64, tflat.theta.numel())
+    assert np.isfinite(tres6.theta_samples).all()
+    assert np.isfinite(tres6.eta_samples).all()
+    del tres6, tnet6
+
+    # (g) the U-turn quality block: ess_run's settings with
     # trajectory="uturn" (one shared length schedule, 512 chains) on K1's
     # U-turn-recording program + K2, under the default probe and then
     # "always", each held to the JAX package's statistics (UTURN_REF)
@@ -916,7 +1305,7 @@ def main() -> int:
                                  f"off the JAX package's {ref}: {uq}")
         del unet, ures
 
-    # (f) wide_deep in U-turn mode on K3 + K2: hmc_step_batched records the
+    # (h) wide_deep in U-turn mode on K3 + K2: hmc_step_batched records the
     # U-turn steps around K3's value and gradient; L is pinned at 20
     uwnet, uwlik = wide_network(dev)
     uwnet.setup_mcmc(**wide_mcmc)
@@ -976,6 +1365,24 @@ def main() -> int:
                                                           xs, ys))
         func_ms = cuda_ms(lambda: func_vg(thetas, sd_c))
         times[label] = (ms, plain, func_ms)
+    # K1 (d) at each of its phase 3 shapes
+    for label, (prog, args, eps_c, l_c) in k1d_shapes.items():
+        ms = cuda_ms(lambda: fused_mlp.fused_trajectory(prog, *args, eps_c,
+                                                        l_c))
+        plain = cuda_ms(lambda: fused_mlp.trajectory_plain(prog, *args,
+                                                           eps_c, l_c),
+                        reps=3)
+        times[label] = (ms, plain, None)
+    # K3's Bernoulli tail at the tutorial shape: its twin is the cuBLAS path
+    # (plain_ms and library_ms, as for wide_deep)
+    tut_label = f"K3 Bernoulli + sqprelu tutorial C=64 N={TUTORIAL_ROWS}"
+    for label in (tut_label, "K3 categorical digits 64-20-10 C=64 N=1437"):
+        vg, ops, thetas, sd_c, xs, ys = k3_shapes[label]
+        klik = vg.args[0].lik
+        ms = cuda_ms(lambda: vg(thetas, sd_c, xs, ys))
+        plain = cuda_ms(lambda: fused_mlp.potential_plain(
+            ops, thetas, sd_c, xs, ys, klik))
+        times[label] = (ms, plain, None)
     for label, (ms, plain, func_ms) in times.items():
         print(f"{label}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
               f"({plain / ms:.1f}x)"
@@ -1072,6 +1479,25 @@ def main() -> int:
     t_evals = float((k1t_shapes[2048][2].to(torch.float64) + 1).sum())
     k1t_bound = bound(t_evals * (product_flops(program.ops, 11) + 7 * d),
                       4 * (4 * 2048 * d + 2048 * h + 11 * 2 + 5 * 2048))
+    # K1 (d) at the classification cell's shape, C = 128, (5e-4, 50): the
+    # dense products plus ~10 FLOP per theta row and evaluation (priors,
+    # slopes, leapfrog); inputs theta, mom, eta, x, y, eps, L, outputs q, v,
+    # lp0, lp1
+    k1d_label = "K1 (d) classification C=128 (eps, L)=(0.0005, 50)"
+    k1d_ms, k1d_plain, _ = times[k1d_label]
+    k1d_prog = k1d_shapes[k1d_label][0]
+    cd_ = k1d_prog.dims[2]
+    k1d_bound = bound(CLS_CHAINS * 51 * (product_flops(k1d_prog.ops, 64)
+                                         + 10 * cd_),
+                      4 * (4 * CLS_CHAINS * cd_
+                           + CLS_CHAINS * k1d_prog.eta_dim + 64 * 11
+                           + 4 * CLS_CHAINS))
+    # K3 at the tutorial shape: the products (slopes and tails under 1%);
+    # theta read and grad written, x and y read once, ll written
+    tut_ms, tut_plain, _ = times[tut_label]
+    tut_d = tflat.theta.numel()
+    tut_bound = bound(64 * product_flops(tut_ops, TUTORIAL_ROWS),
+                      4 * (2 * 64 * tut_d + TUTORIAL_ROWS * 785 + 2 * 64))
     kernels = [
         {"name": "K1 fused_trajectory", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
@@ -1109,6 +1535,26 @@ def main() -> int:
          "record_off_ms": uturn_times[512]["record_off_ms"],
          "c64_l100": uturn_times[64],
          "uturn_counts": {k: list(v) for k, v in k1u_counts.items()}},
+        # ms at the classification cell's shape; launches in the
+        # classification and multiclass cells' 60 epochs each
+        {"name": "K1 fused_trajectory (d)", "route": "cuda",
+         "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
+         "replaces": "tensorbnn_tpu/ops/fused_mlp.py:425",
+         "launches": sum(c["K1"] for c in cls_launches.values()),
+         "max_abs_err": k1d_err, "ms": k1d_ms, "plain_ms": k1d_plain,
+         "bound_ms": k1d_bound[0], "bound_by": k1d_bound[1],
+         "library_ms": None,
+         "shapes_ms": {k: v[0] for k, v in times.items()
+                       if k.startswith("K1 (d)")}},
+        # ms at the tutorial shape, launches in its 6-epoch run
+        {"name": "K3 fused_potential (Bernoulli tail)", "route": "cuda",
+         "source": "tensorbnn_tpu_torch/csrc/fused_potential.cu",
+         "replaces": "tensorbnn_tpu/ops/fused_mlp.py:239",
+         "launches": tut_launches["K3"], "max_abs_err": k3t_err,
+         "ms": tut_ms, "plain_ms": tut_plain, "bound_ms": tut_bound[0],
+         "bound_by": tut_bound[1], "library_ms": tut_plain,
+         "digits_categorical_ms": times[
+             "K3 categorical digits 64-20-10 C=64 N=1437"][0]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

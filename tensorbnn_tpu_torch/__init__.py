@@ -3,8 +3,10 @@ hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``tensorbnn_tpu``, which stays the reference.
 Module names mirror it. This package imports torch and numpy only, never
-jax. It carries the sampler's main path: dense Bayesian MLPs sampled by
-two-block Gibbs-within-HMC through ``Network(...).add(...).setup_mcmc(...)
+jax. It carries the sampler's main path: dense Bayesian MLPs (regression
+under the Gaussian likelihoods, binary and multiclass classification
+under the Bernoulli and categorical ones) sampled by two-block
+Gibbs-within-HMC through ``Network(...).add(...).setup_mcmc(...)
 .train(...)``, with the main block's whole leapfrog trajectory in one CUDA
 kernel (K1, ``ops/fused_mlp.py``) or, for models K1 declines, each
 leapfrog step's likelihood value and gradient in another (K3, same
@@ -16,6 +18,8 @@ another device.
 
 from tensorbnn_tpu_torch import distributions
 from tensorbnn_tpu_torch.likelihoods import (
+    BernoulliLikelihood,
+    CategoricalLikelihood,
     FixedGaussianLikelihood,
     GaussianLikelihood,
     Likelihood,
@@ -26,8 +30,12 @@ from tensorbnn_tpu_torch.models.layers import (
     Exp,
     GaussianDenseLayer,
     LayerSpec,
+    LeakyRelu,
+    Prelu,
     Relu,
     Sigmoid,
+    Softmax,
+    SquarePrelu,
     Tanh,
 )
 from tensorbnn_tpu_torch.models.sequential import Sequential
@@ -40,6 +48,8 @@ __all__ = [
     "Likelihood",
     "GaussianLikelihood",
     "FixedGaussianLikelihood",
+    "BernoulliLikelihood",
+    "CategoricalLikelihood",
     "LayerSpec",
     "GaussianDenseLayer",
     "CauchyDenseLayer",
@@ -48,6 +58,10 @@ __all__ = [
     "Sigmoid",
     "Tanh",
     "Elu",
+    "Softmax",
+    "LeakyRelu",
+    "Prelu",
+    "SquarePrelu",
     "Sequential",
     "Network",
     "__version__",

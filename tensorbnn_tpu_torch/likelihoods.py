@@ -4,7 +4,8 @@ Counterpart of ``tensorbnn_tpu/likelihoods.py``: each likelihood is an
 immutable spec with its own (possibly empty) dict of hypers, and
 ``log_likelihood(preds, y, hypers)`` returns the scalar data
 log-likelihood of one chain's batch-major predictions. The Bernoulli and
-categorical likelihoods are not ported yet.
+categorical likelihoods have no hypers and do not couple into the hyper
+block.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Dict
 
 import torch
 
-from tensorbnn_tpu_torch.distributions import gaussian_logprob
+from tensorbnn_tpu_torch.distributions import bernoulli_logprob, \
+    categorical_logprob, gaussian_logprob
 
 Hypers = Dict[str, torch.Tensor]
 
@@ -62,3 +64,29 @@ class FixedGaussianLikelihood(Likelihood):
         del hypers
         sigma = torch.ones_like(preds) * self.sd
         return gaussian_logprob(sigma, preds, y.reshape(preds.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class BernoulliLikelihood(Likelihood):
+    """Bernoulli likelihood over probability-valued predictions (the model
+    ends with ``Sigmoid()``), probabilities clipped to [1e-8, 1 - 1e-7]."""
+
+    main_probs_in_hypers: bool = False
+    n_ref_hyper_scalars: int = 0
+
+    def log_likelihood(self, preds, y, hypers):
+        del hypers
+        return torch.sum(bernoulli_logprob(preds, y.reshape(preds.shape)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CategoricalLikelihood(Likelihood):
+    """Categorical likelihood over probability rows (the model ends with
+    ``Softmax()``); ``y`` holds class ids or one-hot rows."""
+
+    main_probs_in_hypers: bool = False
+    n_ref_hyper_scalars: int = 0
+
+    def log_likelihood(self, preds, y, hypers):
+        del hypers
+        return torch.sum(categorical_logprob(preds, y))

@@ -8,8 +8,11 @@ so a model's state is a tuple of per-layer dicts. Data is batch-major
 Every spec provides ``init(generator, dtype, device)``, ``apply(params,
 x)``, ``log_prior(hypers, params)`` (conditional prior of the params) and
 ``log_hyper_prior(hypers, params)`` (hyperprior plus the conditional prior
-at the given hypers). Scale hypers are squared: prior sd (or Cauchy gamma) = hyper ** 2. The
-LeakyRelu, Prelu, SquarePrelu and Softmax activations are not ported yet.
+at the given hypers). Scale hypers are squared: prior sd (or Cauchy
+gamma) = hyper ** 2 (SquarePrelu's slope prior takes its scale hyper as
+the sd itself).
+``Prelu`` and ``SquarePrelu`` carry sampled slopes (``{"slopes"}``, one
+per feature) with hypers; ``LeakyRelu`` has a fixed slope and no rows.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from tensorbnn_tpu_torch.distributions import cauchy_logprob, \
-    cauchy_logprob_compat, gaussian_logprob, normal_logprob
+    cauchy_logprob_compat, exponential_logprob, gaussian_logprob, \
+    normal_logprob
 
 Params = Dict[str, torch.Tensor]
 Hypers = Dict[str, torch.Tensor]
@@ -110,8 +114,8 @@ class CauchyDenseLayer(LayerSpec):
     """Dense layer with Cauchy priors (gamma = scale ** 2); hyperpriors
     N(0, 0.2) on the locations and N(sqrt(0.5), 0.5) on the squared
     scales. Uses the reference's sign-flipped Cauchy "log prob" unless
-    ``proper=True``. Outside K1's and K2's scope: its main block runs on
-    K3, its hyper block on the plain path."""
+    ``proper=True``. K1 and K3 take its prior in closed form; its hyper
+    block runs on the plain path (outside K2's stats layout)."""
 
     in_dim: int
     out_dim: int
@@ -183,3 +187,95 @@ def Tanh():
 
 def Elu():
     return Activation(name="elu", _fn=torch.nn.functional.elu)
+
+
+def Softmax():
+    """Softmax over the feature (last) axis. Under
+    ``CategoricalLikelihood`` a trailing Softmax folds into the kernels'
+    categorical tail."""
+    return Activation(name="softmax",
+                      _fn=lambda x: torch.softmax(x, dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeakyRelu(LayerSpec):
+    """Leaky ReLU with a fixed slope ``alpha`` (no params, no hypers)."""
+
+    alpha: float = 0.3
+    name: str = "leakyrelu"
+
+    def apply(self, params, x):
+        del params
+        return torch.where(x < 0, self.alpha * x, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class Prelu(LayerSpec):
+    """PReLU with sampled slopes (one per feature, starting at ``alpha``)
+    under an exponential(rate) prior; the rate hyper (start 0.3) has an
+    exponential(0.3) hyperprior, and the hyper chain's conditional takes
+    ``abs(slopes)``."""
+
+    in_dim: int
+    alpha: float = 0.2
+    name: str = "prelu"
+
+    @property
+    def has_hypers(self) -> bool:
+        return True
+
+    def init(self, generator, dtype=torch.float32, device="cpu"):
+        del generator
+        params = {"slopes": torch.full((self.in_dim,), self.alpha,
+                                       dtype=dtype, device=device)}
+        return params, {"rate": torch.tensor(0.3, dtype=dtype,
+                                             device=device)}
+
+    def apply(self, params, x):
+        return torch.where(x < 0, params["slopes"] * x, x)
+
+    def log_prior(self, hypers, params):
+        return torch.sum(exponential_logprob(hypers["rate"],
+                                             params["slopes"]))
+
+    def log_hyper_prior(self, hypers, params):
+        prob = torch.sum(exponential_logprob(0.3, hypers["rate"]))
+        return prob + torch.sum(exponential_logprob(
+            hypers["rate"], params["slopes"].abs()))
+
+
+@dataclasses.dataclass(frozen=True)
+class SquarePrelu(LayerSpec):
+    """PReLU whose slope is the square of the sampled parameter. Gaussian
+    prior (sd = the scale hyper, not squared) on the raw slopes in the main
+    block and on the squared slopes in the hyper block; hyperpriors N(0,
+    0.3) on the location and N(0.3, 0.1) on the scale."""
+
+    in_dim: int
+    alpha: float = 0.2
+    name: str = "squareprelu"
+
+    @property
+    def has_hypers(self) -> bool:
+        return True
+
+    def init(self, generator, dtype=torch.float32, device="cpu"):
+        del generator
+        params = {"slopes": torch.full((self.in_dim,), self.alpha,
+                                       dtype=dtype, device=device)}
+        hypers = {k: torch.tensor(v, dtype=dtype, device=device)
+                  for k, v in (("loc", 0.0), ("scale", 0.3))}
+        return params, hypers
+
+    def apply(self, params, x):
+        return torch.where(x < 0, params["slopes"] ** 2 * x, x)
+
+    def log_prior(self, hypers, params):
+        return gaussian_logprob(hypers["scale"], hypers["loc"],
+                                params["slopes"])
+
+    def log_hyper_prior(self, hypers, params):
+        prob = gaussian_logprob(hypers["scale"], hypers["loc"],
+                                params["slopes"] ** 2)
+        prob = prob + normal_logprob(hypers["loc"], 0.0, 0.3)
+        return prob + normal_logprob(hypers["scale"], 0.3, 0.1)

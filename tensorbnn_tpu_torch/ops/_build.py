@@ -36,18 +36,19 @@ _F = ctypes.c_float
 #: argtypes of every C entry point, by name
 SIGNATURES = {
     # theta, mom, eta, x, y, eps, L, beta (null: untempered), ops, n_ops,
-    # prior, n_prior, C, D, H, N, sd, threads, smem_bytes, q_out, v_out,
-    # lp0, lp1, ut (null: no U-turn recording), stream
+    # prior, n_prior, C, D, H, N, lik, sd, sd_idx (-1: fixed sd), full,
+    # threads, smem_bytes, q_out, v_out, lp0, lp1, ut (null: no U-turn
+    # recording), stream
     "tbnn_fused_trajectory": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                              _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-                              _P, _P, _P],
+                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P],
     # eta, mom, stats, eps, blocks, n_blocks, coupled, sd_idx,
     # C, H, S, n_steps, q_out, v_out, lp0, lp1, stream
     "tbnn_fused_hyper": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
-    # thetas, x, y, sd, layers (host), n_layers, C, D, N, work,
+    # thetas, x, y, sd, layers (host), n_layers, lik, C, D, N, work,
     # work_floats, ll_out, grad_out, stream
-    "tbnn_fused_potential": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    "tbnn_fused_potential": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                              ctypes.c_longlong, _P, _P, _P],
 }
 

@@ -11,8 +11,8 @@ On CUDA tensors ``traj`` launches ``csrc/fused_hyper.cu``, or raises; on
 CPU tensors it runs ``hyper_trajectory_plain``, the same trajectory with
 the closed-form value and gradient written out in batched torch ops.
 Scope is the stats potential's: Gaussian dense layers under a fixed-sd
-Gaussian likelihood (uncoupled) or a learned-sd one (the coupled ``(R,
-K)`` term).
+Gaussian, Bernoulli or categorical likelihood (uncoupled) or a learned-sd
+Gaussian one (the coupled ``(R, K)`` term).
 """
 
 from __future__ import annotations

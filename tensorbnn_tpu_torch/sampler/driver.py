@@ -24,14 +24,16 @@ epochs. Every chain of an epoch shares its ``(eps, L)``.
 
 Kernel choice: with ``use_fused`` "auto" (or True) the driver builds K1
 (ops/fused_mlp.py) for the main block whenever the model is in its scope
-(its U-turn-recording program in ``trajectory="uturn"``),
-else K3 (the per-step potential, same module) under ``hmc_step_batched``,
-and K2 (ops/fused_hyper.py) for the hyper block, on any device; models
-outside all of them take the plain ``hmc_step_batched`` path. A tempered
-run builds K1's tempered program and never K3, which bakes the untempered
-posterior (so a tempered model outside K1 takes the plain main block), and
-no K2 when the likelihood couples into the hypers. The JAX package's
-TPU-measured profitability gate is not carried over.
+(its U-turn-recording program in ``trajectory="uturn"``): every likelihood
+and layer of the port, within one block's shared memory. Else it builds
+K3 (the per-step potential, same module) under ``hmc_step_batched``, else
+the plain ``hmc_step_batched`` path. K2 (ops/fused_hyper.py) takes the
+hyper block whenever the stats layout applies (Gaussian dense layers
+only). A tempered run builds K1's tempered program and never K3, which
+bakes the untempered posterior (so a tempered model outside K1 takes the
+plain main block), and no K2 when the likelihood couples into the hypers.
+The JAX package's TPU gates (its VMEM budget and measured profitability)
+are not carried over.
 
 Memory policy (as the JAX driver's): with ``keep_samples="auto"`` the
 recorded samples stay in memory while their projected size is under

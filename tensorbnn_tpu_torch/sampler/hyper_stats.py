@@ -34,11 +34,11 @@ def probe_stats_layout(model, likelihood, unravel_eta, eta_dim: int):
     eta-index dict, k_w, k_b)`` in model order.
 
     Scope: every hyper-carrying layer is a GaussianDenseLayer, and the
-    likelihood is the fixed-sd Gaussian (uncoupled) or the learned-sd
-    Gaussian (coupled through R).
+    likelihood is the fixed-sd Gaussian, the Bernoulli or the categorical
+    (uncoupled), or the learned-sd Gaussian (coupled through R).
     """
-    from tensorbnn_tpu_torch.likelihoods import FixedGaussianLikelihood, \
-        GaussianLikelihood
+    from tensorbnn_tpu_torch.likelihoods import BernoulliLikelihood, \
+        CategoricalLikelihood, FixedGaussianLikelihood, GaussianLikelihood
     from tensorbnn_tpu_torch.models.layers import GaussianDenseLayer
 
     probe_h, probe_l = eta_index_probe(unravel_eta, eta_dim)
@@ -61,7 +61,9 @@ def probe_stats_layout(model, likelihood, unravel_eta, eta_dim: int):
         if "sd_root" not in probe_l:
             return None
         coupled, sd_idx = True, int(probe_l["sd_root"])
-    elif not isinstance(likelihood, FixedGaussianLikelihood):
+    elif not isinstance(likelihood, (FixedGaussianLikelihood,
+                                     BernoulliLikelihood,
+                                     CategoricalLikelihood)):
         return None
     if likelihood.main_probs_in_hypers != coupled:
         return None

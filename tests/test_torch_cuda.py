@@ -1,5 +1,7 @@
-"""K1 (untempered, tempered and U-turn-recording), K2 and K3 on an NVIDIA
-card against their plain twins on the same card.
+"""K1 (untempered, tempered, U-turn-recording and variant (d)'s tails,
+activations and priors), K2 and K3 (with its Bernoulli and categorical
+tails and slope ops) on an NVIDIA card against their plain twins on the
+same card.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -197,5 +199,94 @@ def test_k3_kernel_matches_twin(device, shape):
     torch.cuda.synchronize()
     assert fused_mlp.fused_potential.LAUNCHES == before + 1
     # tolerances of tests/test_fused_mlp.py:33-36
+    _close(ll, want_ll, 1e-4, 1e-4)
+    _close(grad, want_grad, 1e-3, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_chain", [False, True])
+@pytest.mark.parametrize("case", ["learned_sd", "bernoulli", "categorical",
+                                  "cauchy", "prelu_leakyrelu"])
+def test_k1_d_kernel_matches_twin(device, case, per_chain):
+    """K1 variant (d) at chip_smoke.py's models: the learned-sd flagship,
+    the bench's classification (Bernoulli, SquarePrelu, gauss_raw) and
+    multiclass (categorical on class ids) stacks, the Cauchy-compat
+    flagship and the Prelu + LeakyRelu stack, from 0.3 N(0, 1) weights,
+    to the tolerances of tests/test_fused_trajectory.py:72-79."""
+    import chip_smoke as cs
+
+    build = {"learned_sd": lambda d: cs.flagship_network(d, learned_sd=True),
+             "bernoulli": cs.classification_network,
+             "categorical": cs.multiclass_network,
+             "cauchy": lambda d: cs.flagship_network(d, cauchy=True),
+             "prelu_leakyrelu": cs.prelu_network}[case]
+    net, lik = build(device)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=device))
+    program = fused_mlp.build_trajectory_program(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta,
+        flat.eta.numel(), n_rows=net.train_x.shape[0])
+    assert program is not None
+    c, d = 64, flat.theta.numel()
+    g = torch.Generator(device=device).manual_seed(0)
+    args = (0.3 * torch.randn((c, d), generator=g, device=device),
+            flat.eta.expand(c, -1).contiguous(),
+            torch.randn((c, d), generator=g, device=device),
+            net.train_x, net.train_y)
+    if per_chain:
+        eps = torch.tensor(np.repeat([1e-3, 2e-3, 5e-3, 1e-2], c // 4),
+                           dtype=torch.float32, device=device)
+        steps = torch.tensor(np.repeat([40, 20, 9, 5], c // 4),
+                             dtype=torch.int32, device=device)
+    else:
+        eps = torch.full((c,), 1e-3, device=device)
+        steps = torch.full((c,), 40, dtype=torch.int32, device=device)
+    before = fused_mlp.fused_trajectory.LAUNCHES
+    got = fused_mlp.fused_trajectory(program, *args, eps, steps)
+    want = fused_mlp.trajectory_plain(program, *args, eps, steps)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_trajectory.LAUNCHES == before + 1
+    for g_, w, (rtol, atol) in zip(got, want, cs.K1_TOL):
+        _close(g_, w, rtol, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["bernoulli_sqprelu", "categorical",
+                                   "prelu_leakyrelu", "prelu_last"])
+def test_k3_tails_and_slope_ops_match_twin(device, shape):
+    """K3's Bernoulli and categorical tails (one-hot from class ids) and
+    its slope ops (pre-activation planes, slope_grad_kernel), ragged in
+    every tile dimension, a prelu after the last dense layer included,
+    to the tolerances of tests/test_fused_mlp.py:33-36."""
+    ops, lik = {
+        "bernoulli_sqprelu": ((("dense", 3, 37), ("sqprelu", 37),
+                               ("dense", 37, 70), ("sqprelu", 70),
+                               ("dense", 70, 1), ("sigmoid", 1)),
+                              "bernoulli"),
+        "categorical": ((("dense", 3, 37), ("tanh", 37), ("dense", 37, 10)),
+                        "categorical"),
+        "prelu_leakyrelu": ((("dense", 3, 37), ("prelu", 37),
+                             ("dense", 37, 70), ("leakyrelu", 70, 0.3),
+                             ("dense", 70, 1)), "gaussian"),
+        "prelu_last": ((("dense", 3, 8), ("tanh", 8), ("dense", 8, 2),
+                        ("prelu", 2)), "gaussian"),
+    }[shape]
+    c, n = 5, 13
+    d0, dk, d = fused_mlp._program_dims(ops)
+    rng = np.random.default_rng(4)
+    y = {"bernoulli": (rng.random(n) > 0.5).astype(np.float32),
+         "categorical": rng.integers(0, dk, size=n).astype(np.float32),
+         "gaussian": rng.normal(size=(n, dk))}[lik]
+    thetas, x, y, sd = (
+        torch.tensor(a, dtype=torch.float32, device=device) for a in (
+            0.3 * rng.normal(size=(c, d)), rng.normal(size=(n, d0)), y,
+            0.1 + 0.2 * rng.random(c)))
+    vg = fused_mlp.make_fused_potential_vg(ops, n, lik)
+    before = fused_mlp.fused_potential.LAUNCHES
+    ll, grad = vg(thetas, sd, x, y)
+    want_ll, want_grad = fused_mlp.potential_plain(ops, thetas, sd, x, y,
+                                                   lik)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_potential.LAUNCHES == before + 1
     _close(ll, want_ll, 1e-4, 1e-4)
     _close(grad, want_grad, 1e-3, 1e-4)

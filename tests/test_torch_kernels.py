@@ -194,17 +194,23 @@ def test_k2_twin_matches_pallas(lik):
 
 
 def test_scope_cauchy_model_takes_the_plain_path():
-    """A Cauchy-prior model is outside the port's K1 and K2 and the JAX
-    package's hyper kernel (the JAX K1 covers Cauchy priors; the port's K1
-    does not yet): its main block takes K3 under the plain HMC step, its
-    hyper block the plain path."""
+    """A Cauchy-prior model's hyper block takes the plain path: it is
+    outside the port's K2 and the JAX package's hyper kernel. Its main
+    block takes K1 (variant (d): the closed-form Cauchy prior), as in the
+    JAX package, and K3 still accepts it. A learned-sd likelihood is in
+    K1 (d) and in K2 (the coupled (R, K) mode)."""
     pair = _pair([(1, 6), (6, 1)], dense="CauchyDenseLayer")
     j_model, j_lik, t_model, t_lik = pair
     x, y, j_flat, t_flat, _, _, _ = _setup(pair, 2)
     h = t_flat.eta.numel()
-    assert fused_mlp.try_build_fused_trajectory(
-        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
-        torch.tensor(x), torch.tensor(y), eta_dim=h) is None
+    program = fused_mlp.build_trajectory_program(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta, h,
+        n_rows=x.shape[0])
+    assert program is not None
+    assert {b[0] for b in program.prior_blocks} == {"cauchy"}
+    assert j_traj_build(j_model, j_lik, j_flat.unravel_theta,
+                        j_flat.unravel_eta, x, y, eta_dim=h,
+                        interpret=True) is not None
     assert fused_hyper.try_build_fused_hyper_trajectory(
         t_model, t_lik, t_flat.unravel_eta, h, 5) is None
     assert j_hyper_build(j_model, j_lik, j_flat.unravel_eta, h, 5,
@@ -212,14 +218,13 @@ def test_scope_cauchy_model_takes_the_plain_path():
     assert fused_mlp.try_build_fused_main_vg(
         t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
         torch.tensor(x), torch.tensor(y), eta_dim=h) is not None
-    # a learned-sd likelihood is outside the port's K1, inside its K2
     pair = _pair([(1, 6), (6, 1)], lik=("GaussianLikelihood", 0.2))
     _, _, t_model, t_lik = pair
     _, _, _, t_flat, _, _, _ = _setup(pair, 2)
-    assert fused_mlp.try_build_fused_trajectory(
+    program = fused_mlp.build_trajectory_program(
         t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta,
-        torch.tensor(x), torch.tensor(y),
-        eta_dim=t_flat.eta.numel()) is None
+        t_flat.eta.numel(), n_rows=x.shape[0])
+    assert program is not None and program.sd_idx == t_flat.eta.numel() - 1
     assert fused_hyper.try_build_fused_hyper_trajectory(
         t_model, t_lik, t_flat.unravel_eta, t_flat.eta.numel(),
         5) is not None

@@ -299,12 +299,17 @@ def test_hyper_step_collapse_matches_jax():
     assert steps[0] > 50 * 1e-4 and steps[2:] == [steps[1]] * 4, steps
 
 
-def test_three_epochs_on_k3_match_jax_with_injected_draws():
-    """Three epochs of a learned-sd model, which K1 declines, with the
-    main block on K3 (its CPU twin) against three of the JAX package with
-    its own K3 (``make_epoch_fn(batched_main_vg=...)``, interpret mode),
-    from one state and with JAX's own draws. Tolerances as in
-    test_three_epochs_match_jax_with_injected_draws."""
+def test_three_epochs_on_k3_match_jax_with_injected_draws(monkeypatch):
+    """Three epochs of a learned-sd model over 600 rows, past K1's shared
+    memory, with the main block on K3 (its CPU twin) against three of the
+    JAX package with its own K3 (``make_epoch_fn(batched_main_vg=...)``,
+    interpret mode), from one state and with JAX's own draws. The Pallas
+    K3's 12 MB VMEM budget is the TPU's (600 rows need ~109 MB at its
+    128-lane padding); interpret mode has no VMEM, so the budget is lifted
+    here. Tolerances as in test_three_epochs_match_jax_with_injected_draws.
+    """
+    from tensorbnn_tpu.ops import fused_mlp as j_fused
+    monkeypatch.setattr(j_fused, "VMEM_LIMIT_BYTES", 1 << 40)
     widths = [(4, 16), (16, 16), (16, 1)]
     j_layers, t_layers = [], []
     for i, (a, b) in enumerate(widths):
@@ -315,9 +320,11 @@ def test_three_epochs_on_k3_match_jax_with_injected_draws():
             t_layers.append(T.Tanh())
     j_model, t_model = JSequential(j_layers), TSequential(t_layers)
     j_lik, t_lik = J.GaussianLikelihood(sd=0.3), T.GaussianLikelihood(sd=0.3)
+    # 600 rows: K1's planes need 4 (3 D + 101 N) bytes, over the budget
+    # from 555 rows
     rng = np.random.default_rng(2)
-    x = rng.normal(size=(12, 4)).astype(np.float32)
-    y = rng.normal(size=(12,)).astype(np.float32)
+    x = rng.normal(size=(600, 4)).astype(np.float32)
+    y = rng.normal(size=(600,)).astype(np.float32)
     params, hypers = j_model.init(jax.random.key(0))
     lik_h = j_lik.init_hypers()
     flat = j_flatten(params, hypers, lik_h)
@@ -389,7 +396,11 @@ def test_hmc_step_evaluates_the_start_once(per_chain):
 
 
 def _learned_sd_flagship(seed=0):
-    x = np.linspace(-2, 2, 11).astype(np.float32)
+    """The learned-sd flagship over 704 points of the trig curve: K1 takes
+    the learned sd (variant (d)), but its planes need 4 (3 D + 82 N)
+    bytes, over one block's shared memory from 688 rows, so the driver
+    takes K3."""
+    x = np.linspace(-2, 2, 704).astype(np.float32)
     y = (np.sin(x * math.pi * 2) * x - np.cos(x * math.pi)).astype(
         np.float32)
     net = T.Network(np.float32, 1, x, y, x, y, seed=seed, device="cpu")

@@ -354,9 +354,9 @@ def test_tempered_run_records_cold_chains_and_swap_rates(monkeypatch):
 
 
 def test_tempered_learned_sd_takes_the_plain_blocks():
-    """K1 declines a learned sd, K3 is never built for a tempered run, and
-    K2 does not take a tempered coupled likelihood: both blocks run plain,
-    as in the JAX package."""
+    """A tempered learned-sd run: the main block takes tempered K1 (variant
+    (d) reads the learned sd), and K2 does not take a tempered coupled
+    likelihood, so the hyper block runs plain, as in the JAX package."""
     x = np.linspace(-1, 1, 9).astype(np.float32)
     y = np.sin(x * np.pi).astype(np.float32)
     net = T.Network(np.float32, 1, x, y, x, y, seed=21, device="cpu")
@@ -367,7 +367,7 @@ def test_tempered_learned_sd_takes_the_plain_blocks():
                    hyper_leapfrog=6, random_steps=1)
     res = net.train(12, 4, T.GaussianLikelihood(sd=0.1), n_chains=2,
                     tempering=3, tempering_beta_min=0.05, verbose=False)
-    assert res.main_path == "plain" and not res.fused_hyper
+    assert res.main_path == "K1" and not res.fused_hyper
     assert np.isfinite(res.theta_samples).all()
     assert res.swap_accept_rung.shape == (12, 3)
 

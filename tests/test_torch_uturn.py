@@ -377,8 +377,8 @@ def test_three_uturn_epochs_match_jax_with_injected_draws(path):
 # the driver
 # ---------------------------------------------------------------------------
 
-def _net(module, seed=0, learned_sd=False):
-    x = np.linspace(-2, 2, 11).astype(np.float32)
+def _net(module, seed=0, learned_sd=False, n=11):
+    x = np.linspace(-2, 2, n).astype(np.float32)
     y = (np.sin(x * math.pi * 2) * x - np.cos(x * math.pi)).astype(
         np.float32)
     if module is T:
@@ -423,9 +423,11 @@ def test_network_train_uturn_runs_on_cpu(probe):
 
 
 def test_uturn_takes_k3_where_k1_declines():
-    """A learned sd keeps the model out of K1: U-turn mode runs the main
-    block on K3 under ``hmc_step_batched(record_uturn=True)``."""
-    net, lik = _net(T, learned_sd=True)
+    """The learned-sd model over 2,400 rows, past K1's shared memory (its
+    planes need 4 (3 D + 26 N) bytes, over the budget from 2,194 rows):
+    U-turn mode runs the main block on K3 under
+    ``hmc_step_batched(record_uturn=True)``."""
+    net, lik = _net(T, learned_sd=True, n=2400)
     res = net.train(30, 2, lik, n_chains=4, chain_jitter=0.05,
                     trajectory="uturn", verbose=False)
     assert res.main_path == "K3"
