@@ -52,7 +52,8 @@ import torch
 
 #: kernel-name substrings of each hand-written kernel
 GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
-          ("K3", ("gemm_kernel", "tail_kernel", "slope_grad_kernel")))
+          ("K3", ("gemm_kernel", "tail_kernel", "slope_grad_kernel",
+                  "slice_sum_kernel")))
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: kernels listed by name, the most expensive first
 TOP_KERNELS = 8

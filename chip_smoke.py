@@ -30,9 +30,12 @@ script exits non-zero:
    the flagship (64 chains, fixed sd) and a ragged stack; its Bernoulli
    tail and sqprelu at the tutorial shape (784-20-20-1 over 9,585 rows, 64
    chains), its categorical tail at a digits shape (64-20-10 over 1,437
-   rows) and its prelu and leakyrelu at a ragged stack; then one
-   ``wide_deep`` trajectory through K3 against the plain ``torch.func``
-   potential;
+   rows), its prelu and leakyrelu at a ragged stack, and its packed first
+   layer and split row sums at a ragged 50-7-3-1 Bernoulli stack over
+   3,001 rows (3 chains); two tutorial-shape calls bit-equal; K3 and the
+   float32 twin against the twin in float64 at the tutorial's own He-init
+   start (K3 within 2x the twin's error); then one ``wide_deep``
+   trajectory through K3 against the plain ``torch.func`` potential;
 6. the sampler through ``Network.train``: 3-epoch runs through K1 and K2,
    untempered and tempered (4 rungs), against the same runs on the plain
    path (same seed, same draws), then each main path with the kernels'
@@ -531,6 +534,42 @@ def torch_func_potential(model, unravel_theta, x, y):
     return lambda thetas, sd: vg(thetas, sd)[::-1]
 
 
+def he_init_check(net, lik, flat, dev, c=64):
+    """K3's Bernoulli tail at the tutorial's own start: ``c`` chains of the
+    Network's He-init state, jittered as ``train(chain_jitter=0.01)`` does.
+    The sigmoid saturates there, so K3 and the float32 twin are each held
+    against the twin run in float64; fails if K3's max error in ll or grad
+    is more than twice the float32 twin's. Returns K3's max grad error."""
+    from tensorbnn_tpu_torch.ops import fused_mlp
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    thetas = init_multichain_state(flat.theta, flat.eta, 1e-5, c, gen,
+                                   jitter=0.01).theta.contiguous()
+    ops, tail = fused_mlp._model_program(net.model, lik)
+    vg = fused_mlp.make_fused_potential_vg(ops, net.train_x.shape[0], tail)
+    sd_c = torch.ones(c, device=dev)
+    x, y = net.train_x, net.train_y
+    got = vg(thetas, sd_c, x, y)
+    twin = fused_mlp.potential_plain(ops, thetas, sd_c, x, y, tail)
+    oracle = fused_mlp.potential_plain(ops, thetas.double(), sd_c.double(),
+                                       x.double(), y.double(), tail)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, out in (("K3", got), ("float32 twin", twin)):
+        errs[name] = [(o.double() - w).abs().max().item()
+                      for o, w in zip(out, oracle)]
+    print(f"K3 Bernoulli tail at the He-init start (C={c}, N="
+          f"{x.shape[0]}): max abs err against float64, ll / grad: K3 "
+          f"{errs['K3'][0]:.3e} / {errs['K3'][1]:.3e}, float32 twin "
+          f"{errs['float32 twin'][0]:.3e} / {errs['float32 twin'][1]:.3e}")
+    for i, label in enumerate(("ll", "grad")):
+        if errs["K3"][i] > 2.0 * errs["float32 twin"][i]:
+            raise AssertionError(f"He-init start: K3's {label} is farther "
+                                 f"from float64 than twice the twin's")
+    return errs["K3"][1]
+
+
 def cuda_ms(fn, reps=10):
     """Mean milliseconds per call on the card, after one warm-up call."""
     fn()
@@ -833,6 +872,8 @@ def main() -> int:
     digit_ops = (("dense", 64, 20), ("tanh", 20), ("dense", 20, 10))
     slope_ops = (("dense", 3, 37), ("prelu", 37), ("dense", 37, 70),
                  ("leakyrelu", 70, 0.3), ("dense", 70, 1))
+    split_ops = (("dense", 50, 7), ("sqprelu", 7), ("dense", 7, 3),
+                 ("dense", 3, 1), ("sigmoid", 1))
     dg = np.random.default_rng(6)
     k3t_inputs = {
         f"K3 Bernoulli + sqprelu tutorial C=64 N={TUTORIAL_ROWS}": (
@@ -847,6 +888,15 @@ def main() -> int:
             slope_ops, "gaussian", 5,
             torch.randn((13, 3), generator=t_gen, device=dev),
             torch.randn((13, 1), generator=t_gen, device=dev)),
+        # both new paths with ragged edges everywhere: the packed first
+        # layer (C d_out = 21 columns) and every row sum split into uneven
+        # slices of the 3,001 rows
+        "K3 Bernoulli + sqprelu ragged 50-7-3-1 C=3 N=3001": (
+            split_ops, "bernoulli", 3,
+            torch.tensor(dg.normal(size=(3001, 50)), dtype=torch.float32,
+                         device=dev),
+            torch.tensor(dg.random(3001) > 0.5, dtype=torch.float32,
+                         device=dev)),
     }
     k3t_err = 0.0
     for label, (ops, klik, c, xs, ys) in k3t_inputs.items():
@@ -869,10 +919,26 @@ def main() -> int:
         k3t_err = max(k3t_err, compare(label, got, want, tols,
                                        labels=("ll", "grad")))
         k3_shapes[label] = (vg, ops, thetas, sd_c, xs, ys)
+        print(f"{label}: plan {vg.args[0].plan(c).layers}")
+    split_plan = k3_shapes["K3 Bernoulli + sqprelu ragged 50-7-3-1 C=3 "
+                           "N=3001"][0].args[0].plan(3).layers
+    assert split_plan[0][0] == 1 and all(
+        row[1] > 1 for row in split_plan) and split_plan[0][3] > 1, split_plan
+    # the split row sums add their slices in a fixed order: two calls on the
+    # same inputs give bit-equal results at the tutorial shape
+    tut_label = f"K3 Bernoulli + sqprelu tutorial C=64 N={TUTORIAL_ROWS}"
+    vg, _, thetas, sd_c, xs, ys = k3_shapes[tut_label]
+    first, second = vg(thetas, sd_c, xs, ys), vg(thetas, sd_c, xs, ys)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{tut_label}: two calls on the same inputs "
+                             f"differ")
+    print(f"{tut_label}: two calls bit-equal (ll and grad)")
     # K1 declines the tutorial and digits shapes (their planes are past one
     # block's shared memory); the driver takes K3 for them
     tparams, thypers = tut_net.init_state()
     tflat = flatten_state(tparams, thypers, {})
+    he_err = he_init_check(tut_net, tut_lik, tflat, dev)
     assert fused_mlp.build_trajectory_program(
         tut_net.model, tut_lik, tflat.unravel_theta, tflat.unravel_eta,
         tflat.eta.numel(), n_rows=TUTORIAL_ROWS) is None
@@ -1554,7 +1620,10 @@ def main() -> int:
          "ms": tut_ms, "plain_ms": tut_plain, "bound_ms": tut_bound[0],
          "bound_by": tut_bound[1], "library_ms": tut_plain,
          "digits_categorical_ms": times[
-             "K3 categorical digits 64-20-10 C=64 N=1437"][0]},
+             "K3 categorical digits 64-20-10 C=64 N=1437"][0],
+         "flagship_ms": times["K3 flagship C=64 N=11"][0],
+         "plan": k3_shapes[tut_label][0].args[0].plan(64).layers,
+         "he_init_grad_err": he_err},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,15 +17,17 @@
 // wide_deep model (N = 128 rows, 64 chains) one call is 27.9 GFLOP of float32
 // multiply-adds against 303 MB of state read and gradient written: 0.42 ms at
 // the 67 TFLOP/s of float32 outside the tensor cores, against 0.09 ms at
-// 3.35 TB/s.
+// 3.35 TB/s. At the tutorial's 784-20-20-1 (N = 9,585, 64 chains) it is 40.0
+// GFLOP, 0.598 ms, nearly all of it the first layer's forward and weight
+// gradient.
 //
 // What the design does about it: the TPU kernel puts chains on the 128 lanes
 // and keeps every plane of a chain block in VMEM. A wide chain's planes do not
 // fit on chip here (one 128 x 256 plane is 128 KB, and there are ten), so this
-// is a family of batched tile kernels with fused epilogues whose planes live in
-// a device-memory workspace that the caller allocates:
+// is a family of tile kernels with fused epilogues whose planes live in a
+// device-memory workspace that the caller allocates:
 //   - forward, per layer: A[c] = H[c] W[c] + b[c], the layer's activation in
-//     the epilogue; the first layer's H is the shared x;
+//     the epilogue;
 //   - the tail: the per-chain ll and G = d ll / d out (Gaussian: (y - out) /
 //     sd^2);
 //   - backward, per layer in reverse: dW[c] = H_prev[c]^T G[c] written straight
@@ -37,10 +39,26 @@
 // through double-buffered shared memory, a 4 x 4 register micro-tile per
 // thread, full float32 FFMA (no TF32, no tensor cores). Ragged edges are
 // masked, so the narrow flagship (N = 11, widths 1 and 10) runs the same code.
+// Two things keep the tiles full and the card busy (the launch plan, made in
+// ops/fused_mlp.py::PotentialProgram.plan and checked here):
+//   - the first layer's two products are packed, as the TPU kernel keeps
+//     chains on its lanes: the data x is every chain's, so its forward is one
+//     product x [W_1 ... W_C] (N x C d_out) and its weight gradient one x^T
+//     [G_1 ... G_C] (d0 x C d_out). Batched per chain, a 20-wide layer fills
+//     20 of a tile's 64 columns; packed, every tile is full. The depth order
+//     is the batched one, so the results are bit-equal to it;
+//   - a row sum over the N rows whose grid leaves room on the card (the deep
+//     layers' weight gradients, one tile per chain; the slope passes) runs in
+//     slices of rows as extra blocks, as many as the card holds at once, each
+//     slice writing its partial sums to the workspace, and slice_sum_kernel
+//     then adds the slices in slice order: a fixed order (no atomics), so two
+//     calls give bit-equal results.
 // One call makes 3 L launches for L dense layers (L forward, 1 tail, L weight
 // gradients, L - 1 input gradients), plus one slope_grad_kernel per prelu or
-// sqprelu. A faster design (wgmma, TMA-fed tiles, a
-// persistent kernel over the layers) is later work.
+// sqprelu and one slice_sum_kernel per split row sum: 15 at the tutorial
+// shape, 30 at wide_deep. Tensor cores (wgmma, TF32) for the per-chain
+// 256-wide layers of wide_deep, TMA-fed tiles and a persistent kernel over
+// the layers are later work.
 //
 // The activation derivatives come from each activation's output, which is
 // what the forward pass keeps: tanh 1 - h^2, relu [h > 0], sigmoid h (1 - h),
@@ -72,6 +90,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstring>
 
@@ -121,7 +140,12 @@ __host__ __device__ __forceinline__ bool has_slopes(int act) {
   return act == kPrelu || act == kSqPrelu;
 }
 
-// One batched product out[c] = A[c] B[c] (M x N, depth K) over blockIdx.z = c.
+// One product out = A B (M x N, depth K) per chain: batched over blockIdx.z =
+// c, or packed (pack > 0: the first layer, whose A is the shared data). Packed,
+// the output's columns n in [0, C pack) are (c, j) = divmod(n, pack), and every
+// batched operand and output is chain c's at column j: one grid of full tiles
+// covers all chains, where batching fills 20 of a tile's 64 columns at d_out =
+// 20.
 struct Gemm {
   int M, N, K;
   const float* a;
@@ -148,27 +172,38 @@ struct Gemm {
   const float* slope;
   size_t slope_batch;
   float* pre;
+  // the chain's width of a packed product, 0 for a batched one
+  int pack;
+  // blockIdx.y = slice m_tiles + the row tile; slice covers depth [slice
+  // k_slice, min(K, (slice + 1) k_slice)) and writes its partial out and
+  // col_sum at slice slice_stride (a weight gradient split over the data's
+  // rows; one slice of depth K otherwise)
+  int m_tiles, k_slice;
+  size_t slice_stride;
 };
 
 // MODE kForward:    A = H (N x d_in, k-contiguous), B = W (d_in x d_out).
 // MODE kWeightGrad: A = H_prev^T (d_in x N, read from H_prev), B = G (N x d_out).
 // MODE kInputGrad:  A = G (N x d_out), B = W^T (d_out x d_in, read from W).
-template <int MODE>
+// PACKED (forward and weight gradient of the first layer): see Gemm.
+template <int MODE, bool PACKED>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm p) {
   constexpr bool kAk = MODE != kWeightGrad;  // A(m, k) contiguous in k
   constexpr bool kBn = MODE != kInputGrad;   // B(k, n) contiguous in n
+  static_assert(!PACKED || kBn, "a packed product reads B along n");
   __shared__ __align__(16) float As[2][kBK][kBM + kPad];
   __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const size_t c = blockIdx.z;
-  const float* __restrict__ a = p.a + c * p.a_batch;
-  const float* __restrict__ b = p.b + c * p.b_batch;
+  const int m_tile = blockIdx.y % p.m_tiles, slice = blockIdx.y / p.m_tiles;
+  const int m0 = m_tile * kBM, n0 = blockIdx.x * kBN;
+  const int k_lo = slice * p.k_slice, k_hi = min(p.K, k_lo + p.k_slice);
+  const size_t z = blockIdx.z;  // the chain of a batched product
+  const float* __restrict__ a = p.a + z * p.a_batch;
+  const float* __restrict__ b = p.b + z * p.b_batch;
 
   // each thread stages 4 elements of each tile; neighbouring threads take
   // neighbouring addresses along the contiguous axis
-  float ra[4], rb[4];
   auto a_coord = [&](int e, int& mm, int& kk) {
     const int idx = tid + e * kThreads;
     if (kAk) { kk = idx % kBK; mm = idx / kBK; } else { mm = idx % kBM; kk = idx / kBM; }
@@ -177,6 +212,17 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm p) {
     const int idx = tid + e * kThreads;
     if (kBn) { nn = idx % kBN; kk = idx / kBN; } else { kk = idx % kBK; nn = idx / kBK; }
   };
+  // a packed product's B(k, n) = b[k ldb + b_col], chain c's column j: each
+  // thread stages the one column tid % kBN of every tile
+  static_assert(kThreads % kBN == 0, "a thread's B column is fixed");
+  size_t b_col = 0;
+  bool b_live = false;
+  if (PACKED) {
+    const int n = n0 + tid % kBN, c = n / p.pack;
+    b_col = (size_t)c * p.b_batch + (n - c * p.pack);
+    b_live = n < p.N;
+  }
+  float ra[4], rb[4];
   auto load = [&](int k0) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -184,12 +230,16 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm p) {
       a_coord(e, mm, kk);
       b_coord(e, kb, nn);
       const int m = m0 + mm, ka = k0 + kk, n = n0 + nn, kq = k0 + kb;
-      ra[e] = (m < p.M && ka < p.K)
+      ra[e] = (m < p.M && ka < k_hi)
                   ? (kAk ? a[(size_t)m * p.lda + ka] : a[(size_t)ka * p.lda + m])
                   : 0.f;
-      rb[e] = (n < p.N && kq < p.K)
-                  ? (kBn ? b[(size_t)kq * p.ldb + n] : b[(size_t)n * p.ldb + kq])
-                  : 0.f;
+      if (PACKED) {
+        rb[e] = (b_live && kq < k_hi) ? b[(size_t)kq * p.ldb + b_col] : 0.f;
+      } else {
+        rb[e] = (n < p.N && kq < k_hi)
+                    ? (kBn ? b[(size_t)kq * p.ldb + n] : b[(size_t)n * p.ldb + kq])
+                    : 0.f;
+      }
     }
   };
   auto store = [&](int buf) {
@@ -209,14 +259,14 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   float col[4] = {0.f, 0.f, 0.f, 0.f};
-  const bool sum_cols = MODE == kWeightGrad && blockIdx.y == 0 && ty == 0;
+  const bool sum_cols = MODE == kWeightGrad && m_tile == 0 && ty == 0;
 
   int buf = 0;
-  load(0);
+  load(k_lo);
   store(0);
   __syncthreads();
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    const bool more = k0 + kBK < p.K;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+    const bool more = k0 + kBK < k_hi;
     if (more) load(k0 + kBK);  // in flight while this tile is multiplied
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
@@ -239,37 +289,54 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm p) {
     buf ^= 1;
   }
 
-  float* __restrict__ out = p.out + c * p.out_batch;
+  // the output column n is chain c's column j
+  auto chain_col = [&](int n, size_t& c, int& j) {
+    if (PACKED) {
+      c = (size_t)(n / p.pack);
+      j = n - (int)c * p.pack;
+    } else {
+      c = z;
+      j = n;
+    }
+  };
+  float* __restrict__ out = p.out + (size_t)slice * p.slice_stride;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= p.M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = n0 + tx * 4 + jj;
       if (n >= p.N) continue;
-      float v = acc[i][j];
+      size_t c;
+      int j;
+      chain_col(n, c, j);
+      float v = acc[i][jj];
       if (MODE == kForward) {
-        v += p.aux[c * p.aux_batch + n];
+        v += p.aux[c * p.aux_batch + j];
         float slope = p.alpha;
         if (has_slopes(p.act)) {
-          const float s = p.slope[c * p.slope_batch + n];
+          const float s = p.slope[c * p.slope_batch + j];
           slope = p.act == kSqPrelu ? s * s : s;
-          p.pre[c * p.out_batch + (size_t)m * p.ldo + n] = v;
+          p.pre[c * p.out_batch + (size_t)m * p.ldo + j] = v;
         }
         v = act_forward(p.act, v, slope);
       }
       if (MODE == kInputGrad && p.act != kNone) {
-        v *= act_backward(p.act, p.aux[c * p.aux_batch + (size_t)m * p.ldaux + n], p.alpha);
+        v *= act_backward(p.act, p.aux[c * p.aux_batch + (size_t)m * p.ldaux + j], p.alpha);
       }
-      out[(size_t)m * p.ldo + n] = v;
+      out[c * p.out_batch + (size_t)m * p.ldo + j] = v;
     }
   }
   if (MODE == kWeightGrad && sum_cols) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < p.N) p.col_sum[c * p.out_batch + n] = col[j];
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = n0 + tx * 4 + jj;
+      if (n >= p.N) continue;
+      size_t c;
+      int j;
+      chain_col(n, c, j);
+      p.col_sum[(size_t)slice * p.slice_stride + c * p.out_batch + j] = col[jj];
     }
   }
 }
@@ -360,44 +427,90 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The slope gradient of a prelu / sqprelu and its derivative, per chain
-// (blockIdx.y) and 32 features (blockIdx.x): d s_j = sum_n min(a, 0) G[n, j]
-// (times 2 s_j for sqprelu) into grad's slope rows, then G[n, j] *= a < 0 ?
-// s_eff : 1 in place. Threads (32, kSlopeRows): a feature per lane, rows
-// strided over threadIdx.y, a shared-memory sum over threadIdx.y.
+// (blockIdx.y), 32 features (blockIdx.x) and slice of rows (blockIdx.z, rows
+// [z rows_per_slice, min(N, (z + 1) rows_per_slice))): d s_j = sum_n min(a, 0)
+// G[n, j] (times 2 s_j for sqprelu) into grad's slope rows, or, split, the
+// slice's raw sum into part (n_slices, C, d) for slice_sum_kernel; then G[n, j]
+// *= a < 0 ? s_eff : 1 in place. Threads (32, kSlopeRows): a feature per lane,
+// rows strided over threadIdx.y, a shared-memory sum over threadIdx.y.
 constexpr int kSlopeRows = 16;
 
 __global__ void __launch_bounds__(32 * kSlopeRows)
     slope_grad_kernel(const float* __restrict__ pre, size_t pre_batch, float* __restrict__ g,
                       size_t g_batch, const float* __restrict__ slopes, float* __restrict__ grad,
-                      size_t batch, int n_rows, int d, int sq) {
-  __shared__ float part[kSlopeRows][33];
+                      size_t batch, int n_rows, int d, int sq, int rows_per_slice,
+                      float* __restrict__ part) {
+  __shared__ float part_t[kSlopeRows][33];
   const size_t c = blockIdx.y;
   const int j = blockIdx.x * 32 + threadIdx.x;
+  const int lo = blockIdx.z * rows_per_slice, hi = min(n_rows, lo + rows_per_slice);
   float t = 0.f;
   if (j < d) {
     const float s = slopes[c * batch + j];
     const float eff = sq ? s * s : s;
-    for (int n = threadIdx.y; n < n_rows; n += kSlopeRows) {
-      const float a = pre[c * pre_batch + (size_t)n * d + j];
-      if (a < 0.f) {
-        float* gp = g + c * g_batch + (size_t)n * d + j;
-        const float gv = *gp;
-        t = fmaf(a, gv, t);
-        *gp = gv * eff;
+    const float* pc = pre + c * pre_batch + j;
+    float* gc = g + c * g_batch + j;
+    // four rows at a time, every load issued before the first use; the
+    // rows are summed in the order n, n + kSlopeRows, ... as one at a time
+    for (int n = lo + threadIdx.y; n < hi; n += 4 * kSlopeRows) {
+      float a[4], gv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = n + u * kSlopeRows;
+        a[u] = r < hi ? pc[(size_t)r * d] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) gv[u] = a[u] < 0.f ? gc[(size_t)(n + u * kSlopeRows) * d] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (a[u] < 0.f) {
+          t = fmaf(a[u], gv[u], t);
+          gc[(size_t)(n + u * kSlopeRows) * d] = gv[u] * eff;
+        }
       }
     }
   }
-  part[threadIdx.y][threadIdx.x] = t;
+  part_t[threadIdx.y][threadIdx.x] = t;
   __syncthreads();
   if (threadIdx.y == 0 && j < d) {
-    for (int r = 1; r < kSlopeRows; ++r) t += part[r][threadIdx.x];
-    const float s = slopes[c * batch + j];
-    grad[c * batch + j] = sq ? 2.f * s * t : t;
+    for (int r = 1; r < kSlopeRows; ++r) t += part_t[r][threadIdx.x];
+    if (part != nullptr) {
+      part[((size_t)blockIdx.z * gridDim.y + c) * d + j] = t;
+    } else {
+      const float s = slopes[c * batch + j];
+      grad[c * batch + j] = sq ? 2.f * s * t : t;
+    }
   }
 }
 
-dim3 tiles(int M, int N, int C) {
-  return dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, C);
+// The fixed-order reduce of a product or slope pass split over rows: out[c *
+// batch + e] = sum over slices, in slice order, of part[(slice C + c) width +
+// e], for e < width; with slopes, times 2 s_e for sqprelu (a slope pass).
+__global__ void __launch_bounds__(kThreads)
+    slice_sum_kernel(const float* __restrict__ part, int n_slices, int width, int C,
+                     const float* __restrict__ slopes, int sq, float* __restrict__ out,
+                     size_t batch) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)C * width) return;
+  const size_t c = i / width;
+  const int e = (int)(i - (long long)c * width);
+  float t = 0.f;
+  for (int s = 0; s < n_slices; ++s) t += part[((size_t)s * C + c) * width + e];
+  if (slopes != nullptr && sq) t = 2.f * slopes[c * batch + e] * t;
+  out[c * batch + e] = t;
+}
+
+template <int MODE>
+void launch_gemm(Gemm& p, int C, int n_slices, cudaStream_t stream) {
+  p.m_tiles = (p.M + kBM - 1) / kBM;
+  const dim3 grid((p.N + kBN - 1) / kBN, p.m_tiles * n_slices, p.pack ? 1 : C);
+  if constexpr (MODE != kInputGrad) {
+    if (p.pack) {
+      gemm_kernel<MODE, true><<<grid, kThreads, 0, stream>>>(p);
+      return;
+    }
+  }
+  gemm_kernel<MODE, false><<<grid, kThreads, 0, stream>>>(p);
 }
 
 }  // namespace
@@ -405,31 +518,52 @@ dim3 tiles(int M, int N, int C) {
 // thetas (C, D), x (N, d0), y (N, dK) (one-hot for the categorical tail), sd
 // (C,) on the card; layers a HOST table of (d_in, d_out, act, row_off,
 // slope_off, alpha bits) per dense layer (slope_off the first slope row of a
-// following prelu / sqprelu, else -1); lik 0 Gaussian, 1 Bernoulli, 2
+// following prelu / sqprelu, else -1); plan a HOST table of (packed,
+// weight-gradient slices, rows a slice, slope-pass slices, rows a slice) per
+// dense layer (ops/fused_mlp.py::PotentialProgram.plan: packed only for the
+// first layer, the slices of rows covering [0, N) in order, none empty, one
+// slope slice for a layer without slopes); lik 0 Gaussian, 1 Bernoulli, 2
 // categorical; work at least C N (sum of d_out + the d_out of every layer with
-// slopes + 2 max d_out) floats. Writes ll (C,) and grad (C, D).
+// slopes + 2 max d_out) floats plus the largest split product's partials
+// (slices x C x its rows). Writes ll (C,) and grad (C, D).
 extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const float* y,
-                                    const float* sd, const int* layers, int n_layers, int lik,
-                                    int C, int D, int N, float* work, long long work_floats,
-                                    float* ll, float* grad, void* stream_ptr) {
+                                    const float* sd, const int* layers, const int* plan,
+                                    int n_layers, int lik, int C, int D, int N, float* work,
+                                    long long work_floats, float* ll, float* grad,
+                                    void* stream_ptr) {
   if (n_layers < 1 || n_layers > kMaxLayers || C < 1 || C > 65535 || N < 1 ||
       lik < kGaussian || lik > kCategorical) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  constexpr int kCols = 6;
+  constexpr int kCols = 6, kPlanCols = 5;
   size_t plane_off[kMaxLayers], pre_off[kMaxLayers];
-  size_t rows = 0, planes = 0;
+  size_t rows = 0, planes = 0, partials = 0;
   int max_d = 0;
+  // slices of rows [s r, min(N, (s + 1) r)) that cover [0, N), none empty
+  auto slices_ok = [&](int n_slices, int per) {
+    return n_slices >= 1 && n_slices <= 65535 && per >= 1 &&
+           (long long)(n_slices - 1) * per < N && (long long)n_slices * per >= N;
+  };
   for (int l = 0; l < n_layers; ++l) {
     const int* row = layers + kCols * l;
+    const int* pl = plan + kPlanCols * l;
     const int d_in = row[0], d_out = row[1], act = row[2];
     if (d_in < 1 || d_out < 1 || act < kNone || act > kSqPrelu ||
         (l > 0 && d_in != layers[kCols * (l - 1) + 1]) || row[3] != (int)rows ||
         has_slopes(act) != (row[4] >= 0)) {
       return (int)cudaErrorInvalidValue;
     }
-    rows += (size_t)d_out + (size_t)d_in * d_out;
+    if (pl[0] < 0 || pl[0] > 1 || (pl[0] == 1 && (l > 0 || (long long)C * d_out > 0x7fffffff)) ||
+        !slices_ok(pl[1], pl[2]) || !slices_ok(pl[3], pl[4]) ||
+        (long long)pl[1] * ((d_in + kBM - 1) / kBM) > 65535 ||
+        (!has_slopes(act) && pl[3] != 1)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const size_t layer_rows = (size_t)d_out + (size_t)d_in * d_out;
+    if (pl[1] > 1) partials = std::max(partials, (size_t)pl[1] * C * layer_rows);
+    if (pl[3] > 1) partials = std::max(partials, (size_t)pl[3] * C * d_out);
+    rows += layer_rows;
     if (has_slopes(act)) {
       if (row[4] != (int)rows) return (int)cudaErrorInvalidValue;
       rows += (size_t)d_out;
@@ -444,11 +578,15 @@ extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const f
     if (has_slopes(layers[kCols * l + 2])) planes += (size_t)C * N * layers[kCols * l + 1];
   }
   const size_t g_batch = (size_t)N * max_d;
-  if (rows != (size_t)D || (long long)(planes + 2 * (size_t)C * g_batch) > work_floats) {
+  if (rows != (size_t)D ||
+      (long long)(planes + 2 * (size_t)C * g_batch + partials) > work_floats) {
     return (int)cudaErrorInvalidValue;
   }
   float* g_cur = work + planes;
   float* g_next = g_cur + (size_t)C * g_batch;
+  // the partials of one split product at a time: each is reduced before the
+  // next product runs, in stream order
+  float* part = g_next + (size_t)C * g_batch;
   const int last = n_layers - 1;
   auto alpha_of = [&](int l) {
     float a;
@@ -461,21 +599,32 @@ extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const f
     const int act = layers[kCols * l + 2];
     return has_slopes(act) ? (int)kNone : act;
   };
+  auto slice_sum = [&](int n_slices, int width, const float* slopes, int sq, float* out) {
+    const long long n = (long long)C * width;
+    slice_sum_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        part, n_slices, width, C, slopes, sq, out, D);
+  };
   auto slope_pass = [&](int l, float* g) {
     const int* row = layers + kCols * l;
-    const dim3 grid((row[1] + 31) / 32, C);
+    const int* pl = plan + kPlanCols * l;
+    const int d = row[1], sq = row[2] == kSqPrelu;
+    const dim3 grid((d + 31) / 32, C, pl[3]);
     slope_grad_kernel<<<grid, dim3(32, kSlopeRows), 0, stream>>>(
-        work + pre_off[l], (size_t)N * row[1], g, g_batch, thetas + row[4], grad + row[4], D, N,
-        row[1], row[2] == kSqPrelu);
+        work + pre_off[l], (size_t)N * d, g, g_batch, thetas + row[4], grad + row[4], D, N, d,
+        sq, pl[4], pl[3] > 1 ? part : nullptr);
+    if (pl[3] > 1) slice_sum(pl[3], d, thetas + row[4], sq, grad + row[4]);
   };
 
   for (int l = 0; l < n_layers; ++l) {
     const int* row = layers + kCols * l;
     const int d_in = row[0], d_out = row[1];
+    const bool packed = plan[kPlanCols * l] == 1;
     Gemm p{};
     p.M = N;
-    p.N = d_out;
+    p.N = packed ? C * d_out : d_out;
     p.K = d_in;
+    p.k_slice = d_in;
+    p.pack = packed ? d_out : 0;
     p.a = l == 0 ? x : work + plane_off[l - 1];
     p.a_batch = l == 0 ? 0 : (size_t)N * d_in;
     p.lda = d_in;
@@ -494,7 +643,7 @@ extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const f
       p.slope_batch = D;
       p.pre = work + pre_off[l];
     }
-    gemm_kernel<kForward><<<tiles(N, d_out, C), kThreads, 0, stream>>>(p);
+    launch_gemm<kForward>(p, C, 1, stream);
   }
 
   const int dk = layers[kCols * last + 1];
@@ -517,31 +666,42 @@ extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const f
 
   for (int l = last; l >= 0; --l) {
     const int* row = layers + kCols * l;
+    const int* pl = plan + kPlanCols * l;
     const int d_in = row[0], d_out = row[1];
     const float* h_prev = l == 0 ? x : work + plane_off[l - 1];
     const size_t h_batch = l == 0 ? 0 : (size_t)N * d_in;
+    const bool packed = pl[0] == 1, split = pl[1] > 1;
+    const int layer_rows = d_out + d_in * d_out;
 
+    // dW = H_prev^T G, db = the column sums of G; split over the rows, each
+    // slice's partials go to part (slices, C, layer rows) in grad's layout
     Gemm w{};
     w.M = d_in;
-    w.N = d_out;
+    w.N = packed ? C * d_out : d_out;
     w.K = N;
+    w.k_slice = split ? pl[2] : N;
+    w.pack = packed ? d_out : 0;
     w.a = h_prev;
     w.a_batch = h_batch;
     w.lda = d_in;
     w.b = g_cur;
     w.b_batch = g_batch;
     w.ldb = d_out;
-    w.out = grad + row[3] + d_out;
-    w.out_batch = D;
+    float* dst = split ? part : grad + row[3];
+    w.out = dst + d_out;
+    w.out_batch = split ? (size_t)layer_rows : (size_t)D;
     w.ldo = d_out;
-    w.col_sum = grad + row[3];
-    gemm_kernel<kWeightGrad><<<tiles(d_in, d_out, C), kThreads, 0, stream>>>(w);
+    w.col_sum = dst;
+    w.slice_stride = split ? (size_t)C * layer_rows : 0;
+    launch_gemm<kWeightGrad>(w, C, pl[1], stream);
+    if (split) slice_sum(pl[1], layer_rows, nullptr, 0, grad + row[3]);
 
     if (l > 0) {
       Gemm q{};
       q.M = N;
       q.N = d_in;
       q.K = d_out;
+      q.k_slice = d_out;
       q.a = g_cur;
       q.a_batch = g_batch;
       q.lda = d_out;
@@ -556,7 +716,7 @@ extern "C" int tbnn_fused_potential(const float* thetas, const float* x, const f
       q.ldaux = d_in;
       q.act = epilogue_act(l - 1);
       q.alpha = alpha_of(l - 1);
-      gemm_kernel<kInputGrad><<<tiles(N, d_in, C), kThreads, 0, stream>>>(q);
+      launch_gemm<kInputGrad>(q, C, 1, stream);
       if (has_slopes(layers[kCols * (l - 1) + 2])) slope_pass(l - 1, g_next);
       float* t = g_cur;
       g_cur = g_next;

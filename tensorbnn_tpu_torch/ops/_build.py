@@ -46,10 +46,10 @@ SIGNATURES = {
     # C, H, S, n_steps, q_out, v_out, lp0, lp1, stream
     "tbnn_fused_hyper": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
-    # thetas, x, y, sd, layers (host), n_layers, lik, C, D, N, work,
-    # work_floats, ll_out, grad_out, stream
-    "tbnn_fused_potential": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                             ctypes.c_longlong, _P, _P, _P],
+    # thetas, x, y, sd, layers (host), plan (host), n_layers, lik, C, D,
+    # N, work, work_floats, ll_out, grad_out, stream
+    "tbnn_fused_potential": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P, ctypes.c_longlong, _P, _P, _P],
 }
 
 _lib = None

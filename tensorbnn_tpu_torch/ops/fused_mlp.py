@@ -76,6 +76,15 @@ THREADS = 128
 #: dynamic shared memory one block may take: the H100's 227 KB per block
 #: less room for the kernel's static tables
 SMEM_BUDGET_BYTES = 232448 - 4096
+#: the H100's streaming multiprocessors, which K3's launch plan fills
+SMS = 132
+#: K3's product tiles (csrc/fused_potential.cu: kBM, kBN, kBK)
+TILE_M, TILE_N, TILE_K = 64, 64, 16
+#: blocks an SM holds at once: a product's 256 threads at 76-80 registers
+#: (ptxas for sm_90a), a slope pass's 512 threads (an SM's 2,048)
+PRODUCT_BLOCKS_PER_SM, SLOPE_BLOCKS_PER_SM = 3, 4
+#: a slice of rows in a split row sum is at least this long
+MIN_SLICE_ROWS = 256
 
 
 # --------------------------------------------------------------------------
@@ -487,6 +496,7 @@ class PotentialProgram:
     layers: tuple
     n_rows: int
     lik: str = "gaussian"
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         # the host table the C entry point walks; kept alive with the
@@ -498,15 +508,87 @@ class PotentialProgram:
     def dims(self) -> Tuple[int, int, int]:
         return _program_dims(self.ops)
 
+    def plan(self, c: int) -> "PotentialPlan":
+        """K3's launch plan for ``c`` chains, which the C entry point
+        checks and runs. The first layer's forward and weight-gradient
+        products are packed: one product over all chains' columns against
+        the shared data. A row sum over the data's N rows (a weight
+        gradient, a slope pass) whose grid leaves room on the card is
+        split into the most slices of rows whose blocks the card holds at
+        once (``PRODUCT_BLOCKS_PER_SM`` or ``SLOPE_BLOCKS_PER_SM`` on each
+        of ``SMS``), each slice's partials summed in slice order afterwards
+        (no atomics); slices are multiples of the tile depth and at least
+        ``MIN_SLICE_ROWS`` rows long."""
+        if c not in self._plans:
+            rows, partials = [], 0
+            for i, (d_in, d_out, _, _, slope_off, _) in enumerate(
+                    self.layers):
+                packed = i == 0
+                blocks = (_cdiv(c * d_out if packed else d_out, TILE_N)
+                          * _cdiv(d_in, TILE_M) * (1 if packed else c))
+                wg = _row_slices(self.n_rows, blocks,
+                                 PRODUCT_BLOCKS_PER_SM * SMS)
+                sp = (1, self.n_rows)
+                if slope_off >= 0:
+                    sp = _row_slices(self.n_rows, _cdiv(d_out, 32) * c,
+                                     SLOPE_BLOCKS_PER_SM * SMS)
+                rows.append((int(packed), *wg, *sp))
+                # a split product's partials: slices x C x its grad rows
+                if wg[0] > 1:
+                    partials = max(partials,
+                                   wg[0] * c * (d_out + d_in * d_out))
+                if sp[0] > 1:
+                    partials = max(partials, sp[0] * c * d_out)
+            self._plans[c] = PotentialPlan(tuple(rows), partials)
+        return self._plans[c]
+
     def workspace_floats(self, c: int) -> int:
         """Floats of the kernel's workspace: every layer's output plane
         ``(C, N, d_out)``, the pre-activation plane of each layer followed
         by a prelu or sqprelu (their derivative and slope gradient need the
-        input's sign, which the output does not keep), and two gradient
-        planes ``(C, N, max d_out)``."""
+        input's sign, which the output does not keep), two gradient
+        planes ``(C, N, max d_out)``, and the partials of the largest
+        split row sum of ``plan(c)``."""
         widths = [row[1] for row in self.layers]
         pre = [row[1] for row in self.layers if row[4] >= 0]
-        return c * self.n_rows * (sum(widths) + sum(pre) + 2 * max(widths))
+        return (c * self.n_rows * (sum(widths) + sum(pre) + 2 * max(widths))
+                + self.plan(c).partial_floats)
+
+
+def _row_slices(n_rows: int, blocks: int, wave: int) -> Tuple[int, int]:
+    """``(slices, rows a slice)`` of a row sum whose unsplit grid has
+    ``blocks`` blocks: the most slices whose blocks fit in ``wave``, as
+    far as slices of at least ``MIN_SLICE_ROWS`` rows allow, each a
+    multiple of ``TILE_K`` rows (the last one shorter); one slice of all
+    rows when no split fits."""
+    want = min(wave // blocks, n_rows // MIN_SLICE_ROWS)
+    if want <= 1:
+        return 1, n_rows
+    per = _cdiv(_cdiv(n_rows, want), TILE_K) * TILE_K
+    return _cdiv(n_rows, per), per
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class PotentialPlan:
+    """K3's launch plan for one chain count: per dense layer ``(packed,
+    weight-gradient slices, rows a slice, slope-pass slices, rows a
+    slice)``, slice ``s`` covering rows ``[s * rows, min(N, (s + 1) *
+    rows))`` (one slope slice for a layer without slopes), and the floats
+    of the largest split row sum's partials (split row sums run one at a
+    time, so they share that room)."""
+
+    layers: tuple
+    partial_floats: int
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """The host table the C entry point reads."""
+        return np.ascontiguousarray(np.asarray(self.layers,
+                                               np.int32).reshape(-1))
 
 
 def make_fused_potential_vg(ops, n_rows: int, lik: str = "gaussian"
@@ -571,7 +653,8 @@ def fused_potential(program: PotentialProgram, thetas, sd, x, y):
     lib = _build.load()
     rc = lib.tbnn_fused_potential(
         thetas.data_ptr(), x.data_ptr(), y.data_ptr(), sd_c.data_ptr(),
-        program.table.ctypes.data, len(program.layers),
+        program.table.ctypes.data, program.plan(c).table.ctypes.data,
+        len(program.layers),
         LIK_CODES[program.lik], c, d_total, n, work.data_ptr(), work.numel(),
         ll.data_ptr(), grad.data_ptr(),
         torch.cuda.current_stream(thetas.device).cuda_stream)

@@ -1,7 +1,7 @@
 """K1 (untempered, tempered, U-turn-recording and variant (d)'s tails,
 activations and priors), K2 and K3 (with its Bernoulli and categorical
-tails and slope ops) on an NVIDIA card against their plain twins on the
-same card.
+tails, slope ops, packed first layer and split row sums) on an NVIDIA card
+against their plain twins on the same card, and K3's repeat bit-equal.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -290,3 +290,53 @@ def test_k3_tails_and_slope_ops_match_twin(device, shape):
     assert fused_mlp.fused_potential.LAUNCHES == before + 1
     _close(ll, want_ll, 1e-4, 1e-4)
     _close(grad, want_grad, 1e-3, 1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_packed_and_split_match_twin(device):
+    """K3's packed first layer (C d_out = 21 columns, one ragged tile) and
+    its row sums split into uneven slices of 3,001 rows (every weight
+    gradient and the slope pass), against the twin, to the tolerances of
+    tests/test_fused_mlp.py:33-36."""
+    ops = (("dense", 50, 7), ("sqprelu", 7), ("dense", 7, 3), ("dense", 3, 1),
+           ("sigmoid", 1))
+    c, n = 3, 3001
+    d0, _, d = fused_mlp._program_dims(ops)
+    rng = np.random.default_rng(8)
+    thetas, x, y, sd = (
+        torch.tensor(a, dtype=torch.float32, device=device) for a in (
+            0.3 * rng.normal(size=(c, d)), rng.normal(size=(n, d0)),
+            (rng.random(n) > 0.5).astype(np.float32), np.ones(c)))
+    vg = fused_mlp.make_fused_potential_vg(ops, n, "bernoulli")
+    plan = vg.args[0].plan(c).layers
+    assert plan[0][0] == 1 and all(row[1] > 1 for row in plan)
+    assert plan[0][3] > 1 and n % plan[0][2] != 0
+    before = fused_mlp.fused_potential.LAUNCHES
+    ll, grad = vg(thetas, sd, x, y)
+    want_ll, want_grad = fused_mlp.potential_plain(ops, thetas, sd, x, y,
+                                                   "bernoulli")
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_potential.LAUNCHES == before + 1
+    _close(ll, want_ll, 1e-4, 1e-4)
+    _close(grad, want_grad, 1e-3, 1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_two_calls_bit_equal_at_tutorial_shape(device):
+    """The split row sums add their slices in a fixed order (no atomics):
+    two K3 calls on the same inputs at the tutorial shape (784-20-20-1,
+    9,585 rows, 64 chains) give bit-equal ll and grad."""
+    import chip_smoke as cs
+
+    net, lik = cs.tutorial_network(device)
+    ops, tail = fused_mlp._model_program(net.model, lik)
+    _, _, d = fused_mlp._program_dims(ops)
+    vg = fused_mlp.make_fused_potential_vg(ops, cs.TUTORIAL_ROWS, tail)
+    assert any(row[1] > 1 for row in vg.args[0].plan(64).layers)
+    g = torch.Generator(device=device).manual_seed(0)
+    thetas = 0.3 * torch.randn((64, d), generator=g, device=device)
+    first = vg(thetas, 1.0, net.train_x, net.train_y)
+    second = vg(thetas, 1.0, net.train_x, net.train_y)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
