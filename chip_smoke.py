@@ -19,7 +19,8 @@ script exits non-zero:
    JAX bench's ``classification`` stack at 128 chains (shared and
    per-chain (eps, L)) and tempered at 128 x 4 rungs, ``multiclass`` at
    128 chains, the learned-sd and Cauchy-compat flagships and a Prelu +
-   LeakyRelu stack at 64;
+   LeakyRelu stack at 64; every path of K1's layer table (an elu, a relu
+   after it, a sigmoid and an exp) at 64 chains, L in {1, 2, 3, 40};
 4. K2 (the fused hyper-block trajectory) against its twin at the hyper
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
@@ -61,7 +62,10 @@ script exits non-zero:
 7. times: each kernel against its twin (CUDA events), K3 against the
    same value and gradient through cuBLAS (the twin) and torch.func, K1's
    U-turn-recording program against the non-recording one on the same
-   inputs, K1 (d) at its phase 3 shapes, K3 at the tutorial and digits
+   inputs, K1 (d) at its phase 3 shapes (each K1 shape also in us per
+   evaluation along its longest trajectory, with its barriers a step from
+   its layer table and its device time with the host's time taken out),
+   K3 at the tutorial and digits
    shapes, the steady 64-chain leapfrog rates of the flagship at (eps, L)
    = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20).
 
@@ -215,6 +219,22 @@ def prelu_network(device, seed=0):
     net.add(GaussianDenseLayer(1, 10)).add(Prelu(10))
     net.add(GaussianDenseLayer(10, 10)).add(LeakyRelu(0.3))
     net.add(GaussianDenseLayer(10, 1))
+    return net, FixedGaussianLikelihood(sd=0.1)
+
+
+def fused_paths_network(device, seed=0):
+    """1-6-5-4-1 on the flagship data under a fixed-sd Gaussian likelihood,
+    through every path of K1's layer table: an Elu (its derivative reads
+    the pre-activation plane) followed by a Relu (an op that does not
+    follow a dense layer: a layer of its own), a Sigmoid and an Exp fused
+    into their dense layers."""
+    from tensorbnn_tpu_torch import Elu, Exp, FixedGaussianLikelihood, \
+        GaussianDenseLayer, Relu, Sigmoid
+    net = trig_network(device, seed)
+    net.add(GaussianDenseLayer(1, 6)).add(Elu()).add(Relu())
+    net.add(GaussianDenseLayer(6, 5)).add(Sigmoid())
+    net.add(GaussianDenseLayer(5, 4)).add(Exp())
+    net.add(GaussianDenseLayer(4, 1))
     return net, FixedGaussianLikelihood(sd=0.1)
 
 
@@ -584,6 +604,29 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=10):
+    """Mean milliseconds per call on the card with the host's time taken
+    out: the stream is held by a sleeping kernel while the host enqueues
+    the calls, so they run back to back (a short K1 call's ``cuda_ms`` is
+    its host's). The hold doubles until it outlasts the enqueueing."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+
+
 def main() -> int:
     phase("1 card")
     if not torch.cuda.is_available():
@@ -770,6 +813,20 @@ def main() -> int:
     k1d_err = max(k1d_err, compare(
         "K1 (d) tempered classification C=512 (128 x 4 rungs, beta_min "
         "0.5) per-rung (eps, L)", got, want, K1_TOL))
+    # every path of K1's layer table (fused_paths_network), per-chain L in
+    # {1, 2, 3, 40}, with its own generator
+    fp_net, fp_lik = fused_paths_network(dev)
+    prog, kflat = k1d_program(fp_net, fp_lik)
+    args = k1d_inputs(fp_net, kflat, 64, torch.Generator(
+        device=dev).manual_seed(9))
+    eps_c, l_c = (torch.tensor(np.repeat(v, 16), device=dev) for v in (
+        np.float32([1e-3, 2e-3, 5e-3, 1e-2]), np.int32([1, 2, 3, 40])))
+    got = fused_mlp.fused_trajectory(prog, *args, eps_c, l_c)
+    want = fused_mlp.trajectory_plain(prog, *args, eps_c, l_c)
+    torch.cuda.synchronize()
+    compare(f"K1 fused paths (elu, relu, sigmoid, exp; "
+            f"{prog.barriers_per_step} barriers a step) C=64 L in (1, 2, 3, "
+            f"40)", got, want, K1_TOL)
 
     phase("4 K2 against its twin")
     wnet, wlik = wide_network(dev)
@@ -1397,18 +1454,31 @@ def main() -> int:
 
     phase("7 times")
     times = {}
+    # each K1 shape's evaluations along its longest trajectory (max L + 1),
+    # which set its time: K1 is bound by a step's latency; and the barriers
+    # of one step that computes no value, counted from its layer table
+    k1_evals, k1_barriers, k1_device = {}, {}, {}
     for label, (prog, args, eps_c, l_c) in k1_shapes.items():
         ms = cuda_ms(lambda: fused_mlp.fused_trajectory(prog, *args, eps_c,
                                                         l_c))
         plain = cuda_ms(lambda: fused_mlp.trajectory_plain(prog, *args,
                                                            eps_c, l_c))
         times[label] = (ms, plain, None)
+        k1_evals[label] = int(l_c.max()) + 1
+        k1_barriers[label] = prog.barriers_per_step
+        k1_device[label] = device_ms(lambda: fused_mlp.fused_trajectory(
+            prog, *args, eps_c, l_c))
     for c, (args, eps_c, l_c, betas) in k1t_shapes.items():
         ms = cuda_ms(lambda: fused_mlp.fused_trajectory(t_program, *args,
                                                         eps_c, l_c, betas))
         plain = cuda_ms(lambda: fused_mlp.trajectory_plain(
             t_program, *args, eps_c, l_c, betas))
-        times[f"K1 tempered C={c} per-rung (eps, L)"] = (ms, plain, None)
+        label = f"K1 tempered C={c} per-rung (eps, L)"
+        times[label] = (ms, plain, None)
+        k1_evals[label] = int(l_c.max()) + 1
+        k1_barriers[label] = t_program.barriers_per_step
+        k1_device[label] = device_ms(lambda: fused_mlp.fused_trajectory(
+            t_program, *args, eps_c, l_c, betas))
     for label, (prog, args) in k2_shapes.items():
         ms = cuda_ms(lambda: fused_hyper.fused_hyper_trajectory(prog, *args))
         plain = cuda_ms(lambda: fused_hyper.hyper_trajectory_plain(prog,
@@ -1439,6 +1509,10 @@ def main() -> int:
                                                            eps_c, l_c),
                         reps=3)
         times[label] = (ms, plain, None)
+        k1_evals[label] = int(l_c.max()) + 1
+        k1_barriers[label] = prog.barriers_per_step
+        k1_device[label] = device_ms(lambda: fused_mlp.fused_trajectory(
+            prog, *args, eps_c, l_c))
     # K3's Bernoulli tail at the tutorial shape: its twin is the cuBLAS path
     # (plain_ms and library_ms, as for wide_deep)
     tut_label = f"K3 Bernoulli + sqprelu tutorial C=64 N={TUTORIAL_ROWS}"
@@ -1452,7 +1526,12 @@ def main() -> int:
     for label, (ms, plain, func_ms) in times.items():
         print(f"{label}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
               f"({plain / ms:.1f}x)"
-              + ("" if func_ms is None else f", torch.func {func_ms:.4f} ms"))
+              + ("" if func_ms is None else f", torch.func {func_ms:.4f} ms")
+              + ("" if label not in k1_evals else
+                 f", {1e3 * ms / k1_evals[label]:.3f} us per evaluation "
+                 f"(max L + 1 = {k1_evals[label]}), "
+                 f"{k1_barriers[label]} barriers a step, device "
+                 f"{k1_device[label]:.4f} ms"))
     # K1's U-turn-recording program (e) against the non-recording one (a)
     # on the same inputs, in turns (a, e, e, a): C = 64 at (1e-3, 100), and
     # C = 512 at (5e-4, 200), the U-turn block's L
@@ -1482,11 +1561,14 @@ def main() -> int:
         uturn_times[c] = dict(ms=on_ms, record_off_ms=off_ms,
                               plain_ms=plain, bound_ms=ub[0],
                               bound_by=ub[1], turns=[float(t) for t in rec])
+        uturn_times[c]["us_per_eval"] = 1e3 * on_ms / (steps + 1)
         print(f"K1 record_uturn C={c} (eps, L)=({eps}, {steps}): kernel "
-              f"{on_ms:.4f} ms against {off_ms:.4f} ms without recording "
+              f"{on_ms:.4f} ms ({1e3 * on_ms / (steps + 1):.3f} us per "
+              f"evaluation) against {off_ms:.4f} ms without recording "
               f"({100 * (on_ms / off_ms - 1):+.1f}%; a, e, e, a: "
               f"{', '.join(f'{t:.4f}' for t in rec)}), plain {plain:.4f} "
-              f"ms, bound {ub[0]:.5f} ms ({ub[1]})")
+              f"ms, bound {ub[0]:.5f} ms ({ub[1]}), "
+              f"{u_program.barriers_per_step} barriers a step")
 
     # steady main-chain leapfrog rate at 64 chains, (eps, L) = (1e-3, 100),
     # hyper_leapfrog 100 (the bench's shape), kernels on
@@ -1541,7 +1623,8 @@ def main() -> int:
     # tempered K1 at C = 2,048 with per-rung L: each chain's own L + 1
     # evaluations (the beta products add 2 FLOP per row and evaluation);
     # inputs theta, mom, eta, x, y, eps, L, beta, outputs q, v, lp0, lp1
-    k1t_ms, k1t_plain, _ = times["K1 tempered C=2048 per-rung (eps, L)"]
+    k1t_label = "K1 tempered C=2048 per-rung (eps, L)"
+    k1t_ms, k1t_plain, _ = times[k1t_label]
     t_evals = float((k1t_shapes[2048][2].to(torch.float64) + 1).sum())
     k1t_bound = bound(t_evals * (product_flops(program.ops, 11) + 7 * d),
                       4 * (4 * 2048 * d + 2048 * h + 11 * 2 + 5 * 2048))
@@ -1570,7 +1653,8 @@ def main() -> int:
          "replaces": "tensorbnn_tpu/ops/fused_mlp.py:425",
          "launches": launches["K1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "us_per_eval": 1e3 * k1_ms / 101},
         {"name": "K2 fused_hyper", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_hyper.cu",
          "replaces": "tensorbnn_tpu/ops/fused_hyper.py:108",
@@ -1589,7 +1673,8 @@ def main() -> int:
          "replaces": "tensorbnn_tpu/ops/fused_mlp.py:451",
          "launches": tempered_launches["K1"], "max_abs_err": k1t_err,
          "ms": k1t_ms, "plain_ms": k1t_plain, "bound_ms": k1t_bound[0],
-         "bound_by": k1t_bound[1], "library_ms": None},
+         "bound_by": k1t_bound[1], "library_ms": None,
+         "us_per_eval": 1e3 * k1t_ms / k1_evals[k1t_label]},
         # ms at C = 512, L = 200; launches in the "alternate" U-turn block
         {"name": "K1 fused_trajectory (record_uturn)", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_trajectory.cu",
@@ -1598,6 +1683,7 @@ def main() -> int:
          "max_abs_err": k1u_err, **{k: uturn_times[512][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None,
+         "us_per_eval": uturn_times[512]["us_per_eval"],
          "record_off_ms": uturn_times[512]["record_off_ms"],
          "c64_l100": uturn_times[64],
          "uturn_counts": {k: list(v) for k, v in k1u_counts.items()}},
@@ -1609,7 +1695,7 @@ def main() -> int:
          "launches": sum(c["K1"] for c in cls_launches.values()),
          "max_abs_err": k1d_err, "ms": k1d_ms, "plain_ms": k1d_plain,
          "bound_ms": k1d_bound[0], "bound_by": k1d_bound[1],
-         "library_ms": None,
+         "library_ms": None, "us_per_eval": 1e3 * k1d_ms / 51,
          "shapes_ms": {k: v[0] for k, v in times.items()
                        if k.startswith("K1 (d)")}},
         # ms at the tutorial shape, launches in its 6-epoch run

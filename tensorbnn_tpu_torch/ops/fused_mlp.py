@@ -71,8 +71,12 @@ LIK_CODES = {"gaussian": 0, "bernoulli": 1, "categorical": 2}
 PRIOR_CODES = {"gauss": 0, "gauss_raw": 1, "cauchy": 2, "exp": 3}
 MAX_OPS = 32
 MAX_PRIOR_BLOCKS = 64
-#: threads per chain's block
-THREADS = 128
+#: K1's threads per chain's block: the value threads (row or item r of the
+#: log posterior's and the U-turn sum's partials on thread r % 128, which
+#: fixes their bits), or twice as many for a fleet that fits the card
+THREADS, WIDE_THREADS = 128, 256
+#: K1 blocks of WIDE_THREADS an SM holds (its at most 64 registers)
+WIDE_BLOCKS_PER_SM = 4
 #: dynamic shared memory one block may take: the H100's 227 KB per block
 #: less room for the kernel's static tables
 SMEM_BUDGET_BYTES = 232448 - 4096
@@ -114,6 +118,38 @@ def _program_dims(ops) -> Tuple[int, int, int]:
 def _alpha_bits(alpha: float) -> int:
     """A float32's bits as an int32, for the kernels' int tables."""
     return int(np.asarray(alpha, np.float32).view(np.int32))
+
+
+#: act codes of the ops that carry sampled slopes (their backward sums a
+#: column over the N rows)
+SLOPE_CODES = (OP_CODES["prelu"], OP_CODES["sqprelu"])
+
+
+def _layer_table(ops, standalone: bool = False) -> Optional[tuple]:
+    """The op program as the kernels' layer rows ``(d_in, d_out, act,
+    row_off, slope_off, alpha_bits)``: each op fused into the dense layer
+    before it (``act`` an ``OP_CODES`` code, 0 for none; ``row_off`` the
+    layer's first theta row; ``slope_off`` the first slope row of a prelu
+    or sqprelu, else -1; ``alpha_bits`` a leakyrelu's slope as float32
+    bits). An op that does not directly follow a dense layer is, with
+    ``standalone`` (K1), a row of its own with ``d_in`` 0 and ``row_off``
+    the next theta row; without it (K3) the table is None."""
+    layers, off = [], 0
+    for op in ops:
+        if op[0] == "dense":
+            layers.append([op[1], op[2], 0, off, -1, 0])
+        else:
+            if not layers or layers[-1][2]:
+                if not standalone:
+                    return None
+                layers.append([0, op[1], 0, off, -1, 0])
+            layers[-1][2] = OP_CODES[op[0]]
+            if op[0] in ("prelu", "sqprelu"):
+                layers[-1][4] = off
+            elif op[0] == "leakyrelu":
+                layers[-1][5] = _alpha_bits(op[2])
+        off += _op_rows(op)
+    return tuple(map(tuple, layers))
 
 
 def _model_program(model, likelihood) -> Optional[Tuple[tuple, str]]:
@@ -305,21 +341,97 @@ class TrajectoryProgram:
         n = self.n_rows
         return 4 * (3 * d_total + n * sum(widths) + 2 * n * max(widths))
 
-    def tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The op table ``(code, d_in, d_out, alpha bits)`` and the prior
-        table ``(kind, rows, loc_idx, scale_idx, sign)`` as int32 tensors on
-        ``device``."""
+    @functools.cached_property
+    def layers(self) -> tuple:
+        """K1's layer table: the rows of ``_layer_table`` with
+        ``standalone`` (each activation fused into the dense layer before
+        it, an op that does not follow a dense layer a row of its own) and
+        a seventh column, ``deriv``: 1 where the activation's derivative is
+        applied where its output's gradient is produced (the next dense
+        layer's input-gradient items, or the Gaussian and Bernoulli tails)
+        with no pass of its own. That is an elementwise activation (not a
+        slope op) whose next layer is dense, or that ends a program with
+        such a tail. The kernel runs the flags as given; its entry point
+        refuses one that cannot hold."""
+        rows = _layer_table(self.ops, standalone=True)
+        out = []
+        for l, row in enumerate(rows):
+            act = row[2]
+            if act == 0 or act in SLOPE_CODES:
+                deriv = False
+            elif l == len(rows) - 1:
+                deriv = self.lik != "categorical"
+            else:
+                deriv = rows[l + 1][0] > 0
+            out.append(row + (int(deriv),))
+        return tuple(out)
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """The host table the C entry point checks and hands the kernel."""
+        return np.ascontiguousarray(np.asarray(self.layers,
+                                               np.int32).reshape(-1))
+
+    @functools.cached_property
+    def update_merged(self) -> bool:
+        """Whether the leapfrog update runs in the backward's last phase
+        (layer 0's products) with no barrier of its own, passed to the
+        kernel as ``merge``: each of layer 0's gradient rows is written
+        there by the thread that updates it, unless a recording program
+        has more such rows than ``THREADS`` (its update runs on the value
+        threads alone)."""
+        d_in, d_out = self.layers[0][:2]
+        return not self.record_uturn or (d_in + 1) * d_out <= THREADS
+
+    @property
+    def barriers_per_step(self) -> int:
+        """``__syncthreads`` in one leapfrog step that computes no value
+        (0 < i < L) as the kernel runs the table: one per layer's forward
+        pass, one for the categorical tail's pass, one for each slope pass
+        and each derivative pass (``deriv`` 0), one for each dense layer's
+        backward products, and one for the update unless it is merged into
+        the last of them. The value steps i = 0 and i = L add three (the
+        block reduction)."""
+        n = (len(self.layers) + (self.lik == "categorical")
+             + (not self.update_merged))
+        for d_in, _, act, _, _, _, deriv in self.layers:
+            n += act in SLOPE_CODES or (act != 0 and not deriv)
+            n += d_in > 0
+        return n
+
+    @functools.cached_property
+    def step_items(self) -> int:
+        """The most items of one phase of a step: the update's rows, and
+        per layer its forward items and its backward products' (the
+        weight-gradient rows, then from a warp boundary the input
+        gradient)."""
+        n = self.n_rows
+        return max([self.dims[2]] + [
+            max(n * d_out, _cdiv((d_in + 1) * d_out, 32) * 32 + n * d_in)
+            for d_in, d_out, *_ in self.layers])
+
+    def threads(self, c: int) -> int:
+        """Threads of each of ``c`` chains' blocks: ``WIDE_THREADS`` where
+        a phase of a step has more items than ``THREADS`` (so that it runs
+        one round of items) and the fleet's blocks fit the card at once
+        (``WIDE_BLOCKS_PER_SM`` on each of ``SMS``), else ``THREADS``: a
+        larger fleet runs in fewer waves of narrower blocks (on an H100,
+        the tempered flagship at C = 2,048 took 0.74 ms at 128 threads
+        against 1.02 at 256; PERF.md)."""
+        if self.step_items > THREADS and c <= WIDE_BLOCKS_PER_SM * SMS:
+            return WIDE_THREADS
+        return THREADS
+
+    def prior_table(self, device) -> torch.Tensor:
+        """The prior table ``(kind, rows, loc_idx, scale_idx, sign)`` as an
+        int32 tensor on ``device``."""
         key = str(device)
         if key not in self._tables:
-            ops = [(OP_CODES[op[0]], op[1], _op_width(op),
-                    _alpha_bits(op[2]) if op[0] == "leakyrelu" else 0)
-                   for op in self.ops]
             prior = [(PRIOR_CODES[kind], rows, i_loc, i_scale, sign)
                      for kind, _, rows, i_loc, i_scale, sign
                      in self.prior_blocks]
-            self._tables[key] = (
-                torch.tensor(ops, dtype=torch.int32, device=device),
-                torch.tensor(prior, dtype=torch.int32, device=device))
+            self._tables[key] = torch.tensor(prior, dtype=torch.int32,
+                                             device=device)
         return self._tables[key]
 
 
@@ -450,7 +562,7 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
     thetas, etas, momenta, x, y, eps_c, l_c = (
         t.contiguous() for t in (thetas, etas, momenta, x, y, eps_c, l_c))
     beta_ptr = None if beta_c is None else beta_c.contiguous()
-    ops_t, prior_t = program.tables(thetas.device)
+    prior_t = program.prior_table(thetas.device)
     q = torch.empty_like(thetas)
     v = torch.empty_like(thetas)
     lp0 = torch.empty(c, dtype=torch.float32, device=thetas.device)
@@ -462,11 +574,11 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
         thetas.data_ptr(), momenta.data_ptr(), etas.data_ptr(),
         x.data_ptr(), y.data_ptr(), eps_c.data_ptr(), l_c.data_ptr(),
         None if beta_ptr is None else beta_ptr.data_ptr(),
-        ops_t.data_ptr(), len(program.ops), prior_t.data_ptr(),
+        program.table.ctypes.data, len(program.layers), prior_t.data_ptr(),
         len(program.prior_blocks), c, d_total, program.eta_dim, n,
         LIK_CODES[program.lik], program.sd,
         -1 if program.sd_idx is None else program.sd_idx, int(program.full),
-        THREADS,
+        int(program.update_merged), program.threads(c),
         program.smem_bytes, q.data_ptr(), v.data_ptr(), lp0.data_ptr(),
         lp1.data_ptr(), None if ut is None else ut.data_ptr(),
         torch.cuda.current_stream(thetas.device).cuda_stream)
@@ -598,21 +710,10 @@ def make_fused_potential_vg(ops, n_rows: int, lik: str = "gaussian"
     ``(C,)`` (read by the Gaussian tail only); None when an activation does
     not follow a dense layer (K3 fuses each activation into the epilogue of
     the layer before it)."""
-    layers, off = [], 0
-    for op in ops:
-        if op[0] == "dense":
-            layers.append([op[1], op[2], 0, off, -1, 0])
-        elif not layers or layers[-1][2]:
-            return None
-        else:
-            layers[-1][2] = OP_CODES[op[0]]
-            if op[0] in ("prelu", "sqprelu"):
-                layers[-1][4] = off
-            elif op[0] == "leakyrelu":
-                layers[-1][5] = _alpha_bits(op[2])
-        off += _op_rows(op)
-    program = PotentialProgram(tuple(ops), tuple(map(tuple, layers)),
-                               int(n_rows), lik)
+    layers = _layer_table(ops)
+    if layers is None:
+        return None
+    program = PotentialProgram(tuple(ops), layers, int(n_rows), lik)
     return functools.partial(fused_potential, program)
 
 

@@ -347,16 +347,20 @@ def test_k1_d_tempered_bernoulli_twin_matches_pallas(mode):
 
 
 def test_k1_d_program_tables():
-    """The op and prior tables K1 reads (leakyrelu's alpha as float32
-    bits, each prior block's kind and sign) and the build it launches."""
+    """The layer and prior tables K1 reads (each leakyrelu fused into the
+    dense layer before it with its alpha as float32 bits, each prior
+    block's kind and sign) and the build it launches."""
     _, t_traj, _, _ = _k1_pair("leakyrelu", "shared")
-    ops_t, prior_t = t_traj.args[0].tables("cpu")
-    assert ops_t.shape == (5, 4) and prior_t.shape == (6, 5)
-    assert ops_t[1, 0] == fused_mlp.OP_CODES["leakyrelu"]
-    alphas = ops_t[:, 3].numpy().view(np.float32)
-    assert alphas[1] == np.float32(0.2) and alphas[3] == np.float32(0.3)
+    program = t_traj.args[0]
+    layers, prior_t = program.layers, program.prior_table("cpu")
+    assert len(layers) == 3 and prior_t.shape == (6, 5)
+    assert program.table.tolist() == [v for row in layers for v in row]
+    assert layers[0][2] == layers[1][2] == fused_mlp.OP_CODES["leakyrelu"]
+    alphas = np.asarray([row[5] for row in layers], np.int32).view(
+        np.float32)
+    assert alphas[0] == np.float32(0.2) and alphas[1] == np.float32(0.3)
     _, t_traj, _, _ = _k1_pair("cauchy_proper", "shared")
-    _, prior_t = t_traj.args[0].tables("cpu")
+    prior_t = t_traj.args[0].prior_table("cpu")
     assert (prior_t[:, 0] == fused_mlp.PRIOR_CODES["cauchy"]).all()
     assert (prior_t[:, 4] == -1).all()
     # the kernel's general build for every program but those of the

@@ -1,7 +1,8 @@
-"""K1 (untempered, tempered, U-turn-recording and variant (d)'s tails,
-activations and priors), K2 and K3 (with its Bernoulli and categorical
-tails, slope ops, packed first layer and split row sums) on an NVIDIA card
-against their plain twins on the same card, and K3's repeat bit-equal.
+"""K1 (untempered, tempered, U-turn-recording, variant (d)'s tails,
+activations and priors, and every path of its layer table), K2 and K3
+(with its Bernoulli and categorical tails, slope ops, packed first layer
+and split row sums) on an NVIDIA card against their plain twins on the same
+card, and K1's and K3's repeats bit-equal.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -340,3 +341,129 @@ def test_k3_two_calls_bit_equal_at_tutorial_shape(device):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("record", [False, True])
+def test_k1_fused_paths_match_twin(device, record):
+    """K1 at chip_smoke.fused_paths_network's stack, which takes every path
+    of the layer table (an elu with its pre-activation plane, a relu after
+    it as a layer of its own, a sigmoid and an exp fused into their dense
+    layers), at per-chain L in {1, 2, 3, 40}, with and without U-turn
+    recording, to the tolerances of tests/test_fused_trajectory.py:72-79.
+    The U-turn steps equal the twin's at L = 1 and 2, and elsewhere but at
+    a near-zero projection (chip_smoke.UTURN_NEAR_ZERO)."""
+    import chip_smoke as cs
+
+    net, lik = cs.fused_paths_network(device)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, {})
+    program = fused_mlp.build_trajectory_program(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta,
+        flat.eta.numel(), n_rows=net.train_x.shape[0], record_uturn=record)
+    assert program is not None and program.barriers_per_step == 10
+    c, d = 64, flat.theta.numel()
+    g = torch.Generator(device=device).manual_seed(4)
+    args = (0.3 * torch.randn((c, d), generator=g, device=device),
+            flat.eta.to(device).expand(c, -1).contiguous(),
+            torch.randn((c, d), generator=g, device=device),
+            net.train_x, net.train_y)
+    eps = torch.tensor(np.repeat([1e-3, 2e-3, 5e-3, 1e-2], c // 4),
+                       dtype=torch.float32, device=device)
+    steps = torch.tensor(np.repeat([1, 2, 3, 40], c // 4), dtype=torch.int32,
+                         device=device)
+    before = fused_mlp.fused_trajectory.LAUNCHES
+    got = fused_mlp.fused_trajectory(program, *args, eps, steps)
+    want = fused_mlp.trajectory_plain(program, *args, eps, steps)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_trajectory.LAUNCHES == before + 1
+    assert len(got) == 4 + record
+    for g_, w, (rtol, atol) in zip(got, want, cs.K1_TOL):
+        _close(g_, w, rtol, atol)
+    if record:
+        ut, ut_want = got[4].cpu(), want[4].cpu()
+        short = steps.cpu() <= 2
+        assert torch.equal(ut[short], ut_want[short])
+        for i in (ut != ut_want).nonzero()[:, 0].tolist():
+            step = min(s for s in (int(ut[i]), int(ut_want[i])) if s > 0)
+            proj, scale = cs.uturn_projection(program, args, eps, i, step)
+            assert abs(proj) < cs.UTURN_NEAR_ZERO * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flagship_c64", "uturn_c512"])
+def test_k1_two_calls_bit_equal(device, shape):
+    """Two K1 calls on the same inputs give bit-equal q, v, lp0, lp1 (and
+    U-turn steps): the flagship at 64 chains, (eps, L) = (1e-3, 100), and
+    the U-turn-recording program at 512 chains, (5e-4, 200)."""
+    import chip_smoke as cs
+
+    lik = FixedGaussianLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    record = shape == "uturn_c512"
+    c, n = (512, 11) if record else (64, 11)
+    program = fused_mlp.build_trajectory_program(
+        model, lik, flat.unravel_theta, flat.unravel_eta, flat.eta.numel(),
+        n_rows=n, record_uturn=record)
+    g = torch.Generator(device=device).manual_seed(6)
+    x = torch.linspace(-2, 2, n, device=device)[:, None]
+    y = torch.randn(n, generator=g, device=device)
+    flat_dev = flat._replace(eta=flat.eta.to(device))
+    if record:
+        args = cs.uturn_inputs(program, flat_dev, c, x, y, g)
+    else:
+        d = flat.theta.numel()
+        args = (0.3 * torch.randn((c, d), generator=g, device=device),
+                flat_dev.eta.expand(c, -1).contiguous(),
+                torch.randn((c, d), generator=g, device=device), x, y)
+    eps, steps = (5e-4, 200) if record else (1e-3, 100)
+    first = fused_mlp.fused_trajectory(program, *args, eps, steps)
+    second = fused_mlp.fused_trajectory(program, *args, eps, steps)
+    torch.cuda.synchronize()
+    assert len(first) == 4 + record
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deriv_without_act", "deriv_before_op",
+                                  "merge_recording_wide_layer0"])
+def test_k1_entry_point_refuses_flags_that_cannot_hold(device, case):
+    """The wrapper decides each layer's ``deriv`` and the update's
+    ``merge``; the C entry point refuses a flag the kernel cannot run: a
+    derivative fused where there is no elementwise activation or where no
+    dense layer takes the output's gradient, and an update merged into
+    layer 0's phase by a recording program whose layer 0 has more rows
+    than the value threads."""
+    import chip_smoke as cs
+
+    build = {"deriv_without_act": cs.flagship_network,
+             "deriv_before_op": cs.fused_paths_network,
+             "merge_recording_wide_layer0": cs.classification_network}[case]
+    net, lik = build(device)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=device))
+    program = fused_mlp.build_trajectory_program(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta,
+        flat.eta.numel(), n_rows=net.train_x.shape[0],
+        record_uturn=case == "merge_recording_wide_layer0")
+    layers = [list(row) for row in program.layers]
+    if case == "merge_recording_wide_layer0":
+        assert not program.update_merged
+        program.__dict__["update_merged"] = True
+    else:
+        # the last layer has no activation; the fused-paths elu is
+        # followed by a relu, a layer of its own
+        l = (len(layers) - 1 if case == "deriv_without_act" else
+             next(i for i in range(len(layers) - 1)
+                  if layers[i + 1][0] == 0))
+        assert layers[l][6] == 0
+        layers[l][6] = 1
+        program.__dict__["layers"] = tuple(map(tuple, layers))
+        program.__dict__["table"] = np.asarray(layers, np.int32).reshape(-1)
+    c, d = 4, flat.theta.numel()
+    args = (torch.zeros((c, d), device=device),
+            flat.eta.to(device).expand(c, -1).contiguous(),
+            torch.zeros((c, d), device=device), net.train_x, net.train_y)
+    with pytest.raises(RuntimeError, match="fused_trajectory launch failed"):
+        fused_mlp.fused_trajectory(program, *args, 1e-3, 3)
