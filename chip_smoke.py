@@ -25,7 +25,10 @@ script exits non-zero:
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
    flagship at 64 chains, 30 steps, and ``wide_deep`` (the 10x256 model of
-   benchmarks/run_benchmarks.py) at 64 chains, 5 steps (both coupled);
+   benchmarks/run_benchmarks.py) at 64 chains, 5 steps (both coupled); the
+   tempered block's shape (the flagship at 2,048 chains, 30 steps) and a
+   16-block stack (32 items, the widest table) at 64 chains, 100 steps;
+   each line with its items and lanes a chain;
 5. K3 (the per-step potential) against its twin at ``wide_deep`` (128
    rows, 64 chains, per-chain learned sd, weights from a Network's init),
    the flagship (64 chains, fixed sd) and a ragged stack; its Bernoulli
@@ -65,7 +68,8 @@ script exits non-zero:
    inputs, K1 (d) at its phase 3 shapes (each K1 shape also in us per
    evaluation along its longest trajectory, with its barriers a step from
    its layer table and its device time with the host's time taken out),
-   K3 at the tutorial and digits
+   K2 at its phase 4 shapes (each also in device time), K3 at the
+   tutorial and digits
    shapes, the steady 64-chain leapfrog rates of the flagship at (eps, L)
    = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20).
 
@@ -339,6 +343,22 @@ def wide_network(device, seed=0):
         net.add(GaussianDenseLayer(256, 256)).add(Tanh())
     net.add(GaussianDenseLayer(256, 1))
     return net, GaussianLikelihood(sd=0.1)
+
+
+def stack_network(device, n_blocks, learned_sd=False, seed=0):
+    """``n_blocks`` Gaussian dense layers, 1-4-...-4-1 tanh, on the flagship
+    data: K2's widest tables, 32 items uncoupled at 16 blocks (64 hypers)
+    and 31 with a learned sd at 15 (61)."""
+    from tensorbnn_tpu_torch import FixedGaussianLikelihood, \
+        GaussianDenseLayer, GaussianLikelihood, Tanh
+    net = trig_network(device, seed)
+    net.add(GaussianDenseLayer(1, 4)).add(Tanh())
+    for _ in range(n_blocks - 2):
+        net.add(GaussianDenseLayer(4, 4)).add(Tanh())
+    net.add(GaussianDenseLayer(4, 1))
+    if learned_sd:
+        return net, GaussianLikelihood(sd=0.1)
+    return net, FixedGaussianLikelihood(sd=0.1)
 
 
 def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
@@ -854,17 +874,34 @@ def main() -> int:
                  flat.theta + 0.1 * torch.randn((c, d), generator=gen,
                                                 device=dev),
                  flat.eta + 0.05 * torch.randn((c, h), generator=gen,
-                                               device=dev))
+                                               device=dev), gen)
                 for c in (64, 512)]
     k2_cases += [
         ("K2 coupled learned-sd flagship C=64 H=17 n_steps=30", lnet0,
-         llik0, lflat, 30, 1e-2, True, l_thetas, l_etas),
+         llik0, lflat, 30, 1e-2, True, l_thetas, l_etas, gen),
         ("K2 coupled wide_deep C=64 H=41 n_steps=5", wnet, wlik, wflat, 5,
-         1e-4, True, w_thetas, w_etas)]
+         1e-4, True, w_thetas, w_etas, gen)]
+    # the tempered block's hyper shape (2,048 replicas, 30 steps), and the
+    # widest table (16 blocks, 32 items), from a generator of their own
+    k2_gen = torch.Generator(device=dev).manual_seed(13)
+    snet, slik = stack_network(dev, 16)
+    sparams, shypers = snet.init_state()
+    sflat = flatten_state(sparams, shypers, {})
+    for label, knet, klik, kflat, c, n_steps in (
+            ("K2 tempered C=2048 n_steps=30", net, lik, flat, 2048, 30),
+            ("K2 16 blocks C=64 H=64 n_steps=100", snet, slik, sflat, 64,
+             100)):
+        kd, kh = kflat.theta.numel(), kflat.eta.numel()
+        k2_cases.append((
+            label, knet, klik, kflat, n_steps, 1e-3, False,
+            kflat.theta + 0.1 * torch.randn((c, kd), generator=k2_gen,
+                                            device=dev),
+            kflat.eta + 0.05 * torch.randn((c, kh), generator=k2_gen,
+                                           device=dev), k2_gen))
     k2_err = 0.0
     k2_shapes = {}
-    for label, knet, klik, kflat, n_steps, eps, coupled, thetas, etas in \
-            k2_cases:
+    for label, knet, klik, kflat, n_steps, eps, coupled, thetas, etas, \
+            kgen in k2_cases:
         c, kh = etas.shape
         prog = fused_hyper.build_hyper_program(knet.model, klik,
                                                kflat.unravel_eta, kh, n_steps)
@@ -873,12 +910,14 @@ def main() -> int:
                                        knet.train_y, kflat.unravel_theta,
                                        kflat.unravel_eta, kh)
         args = (etas, stats_fn(thetas),
-                torch.randn((c, kh), generator=gen, device=dev),
+                torch.randn((c, kh), generator=kgen, device=dev),
                 torch.full((c,), eps, device=dev))
         got = fused_hyper.fused_hyper_trajectory(prog, *args)
         want = fused_hyper.hyper_trajectory_plain(prog, *args)
         torch.cuda.synchronize()
-        k2_err = max(k2_err, compare(label, got, want, K2_TOL))
+        k2_err = max(k2_err, compare(
+            f"{label} ({len(prog.items)} items on {prog.lanes} lanes a "
+            f"chain)", got, want, K2_TOL))
         k2_shapes[label] = (prog, args)
 
     phase("5 K3 against its twin")
@@ -1479,11 +1518,19 @@ def main() -> int:
         k1_barriers[label] = t_program.barriers_per_step
         k1_device[label] = device_ms(lambda: fused_mlp.fused_trajectory(
             t_program, *args, eps_c, l_c, betas))
+    # K2 at each of its phase 4 shapes, with its device time (a K2 call is
+    # shorter than its host's enqueue); the twin of the two widest shapes
+    # over 3 calls
+    k2_device = {}
     for label, (prog, args) in k2_shapes.items():
         ms = cuda_ms(lambda: fused_hyper.fused_hyper_trajectory(prog, *args))
         plain = cuda_ms(lambda: fused_hyper.hyper_trajectory_plain(prog,
-                                                                   *args))
+                                                                   *args),
+                        reps=3 if label.startswith(("K2 tempered",
+                                                    "K2 16 blocks")) else 10)
         times[label] = (ms, plain, None)
+        k2_device[label] = device_ms(
+            lambda: fused_hyper.fused_hyper_trajectory(prog, *args))
     # K3's twin is the cuBLAS path (baddbmm/bmm, float32, TF32 off): its
     # time is both plain_ms and library_ms. The same value and gradient
     # through torch.func (cuBLAS under vmap, autograd's backward) is
@@ -1531,7 +1578,9 @@ def main() -> int:
                  f", {1e3 * ms / k1_evals[label]:.3f} us per evaluation "
                  f"(max L + 1 = {k1_evals[label]}), "
                  f"{k1_barriers[label]} barriers a step, device "
-                 f"{k1_device[label]:.4f} ms"))
+                 f"{k1_device[label]:.4f} ms")
+              + ("" if label not in k2_device else
+                 f", device {k2_device[label]:.4f} ms"))
     # K1's U-turn-recording program (e) against the non-recording one (a)
     # on the same inputs, in turns (a, e, e, a): C = 64 at (1e-3, 100), and
     # C = 512 at (5e-4, 200), the U-turn block's L
@@ -1660,7 +1709,9 @@ def main() -> int:
          "replaces": "tensorbnn_tpu/ops/fused_hyper.py:108",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "device_ms": k2_device["K2 C=64 n_steps=100"],
+         "shapes_device_ms": k2_device},
         {"name": "K3 fused_potential", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_potential.cu",
          "replaces": "tensorbnn_tpu/ops/fused_mlp.py:157",

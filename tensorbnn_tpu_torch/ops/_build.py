@@ -42,10 +42,10 @@ SIGNATURES = {
     "tbnn_fused_trajectory": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                               _I, _P, _P, _P, _P, _P, _P],
-    # eta, mom, stats, eps, blocks, n_blocks, coupled, sd_idx,
-    # C, H, S, n_steps, q_out, v_out, lp0, lp1, stream
+    # eta, mom, stats, eps, items (host), n_items, coupled, C, H, S,
+    # n_steps, lanes, threads, q_out, v_out, lp0, lp1, stream
     "tbnn_fused_hyper": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P],
+                         _I, _P, _P, _P, _P, _P],
     # thetas, x, y, sd, layers (host), plan (host), n_layers, lik, C, D,
     # N, work, work_floats, ll_out, grad_out, stream
     "tbnn_fused_potential": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -9,7 +9,10 @@ rows it consumes. The MH accept stays with the caller.
 
 On CUDA tensors ``traj`` launches ``csrc/fused_hyper.cu``, or raises; on
 CPU tensors it runs ``hyper_trajectory_plain``, the same trajectory with
-the closed-form value and gradient written out in batched torch ops.
+the closed-form value and gradient written out in batched torch ops. The
+kernel runs each item of the potential (a dense block's weights' or
+biases' (loc, scale) pair, or the coupled term) on a lane of its own, from
+the item table that ``HyperProgram`` decides and the C entry point checks.
 Scope is the stats potential's: Gaussian dense layers under a fixed-sd
 Gaussian, Bernoulli or categorical likelihood (uncoupled) or a learned-sd
 Gaussian one (the coupled ``(R, K)`` term).
@@ -20,8 +23,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, ClassVar, Optional
 
+import numpy as np
 import torch
 
 from tensorbnn_tpu_torch.ops import _build
@@ -36,25 +40,50 @@ MAX_BLOCKS = 16
 @dataclasses.dataclass
 class HyperProgram:
     """K2's layout: per dense block the eta rows ``(w_loc, w_scale, b_loc,
-    b_scale)`` and the weight and bias counts ``(k_w, k_b)``."""
+    b_scale)`` and the weight and bias counts ``(k_w, k_b)``; and the item
+    table, lanes and block size the kernel runs it with."""
 
     blocks: tuple
     coupled: bool
     sd_idx: int
     eta_dim: int
     n_steps: int
-    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: threads per block: 64 chains at 8 lanes a chain spread over 8 SMs.
+    #: On the H100, 32, 64 and 128 threads time within 1.5% of each other
+    #: from 8 to 2,048 chains, and 256 4-9% slower (PERF.md)
+    threads: ClassVar[int] = 64
 
     @property
     def n_stats(self) -> int:
         return 4 * len(self.blocks) + (2 if self.coupled else 0)
 
-    def table(self, device) -> torch.Tensor:
-        key = str(device)
-        if key not in self._tables:
-            self._tables[key] = torch.tensor(self.blocks, dtype=torch.int32,
-                                             device=device)
-        return self._tables[key]
+    @functools.cached_property
+    def items(self) -> tuple:
+        """One row per item of the potential, in the value's order, each
+        run by a lane of its own: per dense block its weights' and then its
+        biases' ``(loc_row, scale_row, S1's column, S2's column, k)``; then,
+        if coupled, ``(sd_idx, -1, R's column, K's column, 0)``."""
+        out = []
+        for j, (wl, ws, bl, bs, k_w, k_b) in enumerate(self.blocks):
+            out.append((wl, ws, 4 * j, 4 * j + 1, k_w))
+            out.append((bl, bs, 4 * j + 2, 4 * j + 3, k_b))
+        if self.coupled:
+            n = 4 * len(self.blocks)
+            out.append((self.sd_idx, -1, n, n + 1, 0))
+        return tuple(out)
+
+    @functools.cached_property
+    def lanes(self) -> int:
+        """Lanes a chain: the least power of two at or above its items (at
+        most 32, so a chain's items share one warp)."""
+        return 1 << (len(self.items) - 1).bit_length()
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """The host item table the C entry point checks and hands the
+        kernel."""
+        return np.ascontiguousarray(np.asarray(self.items,
+                                               np.int32).reshape(-1))
 
 
 def build_hyper_program(model, likelihood, unravel_eta, eta_dim: int,
@@ -119,7 +148,6 @@ def fused_hyper_trajectory(program: HyperProgram, etas, stats, momenta,
                              f"{tuple(t.shape)}, expected {shapes[name]}")
     etas, stats, momenta, eps_c = (t.contiguous() for t in
                                    (etas, stats, momenta, eps_c))
-    blocks_t = program.table(etas.device)
     q = torch.empty_like(etas)
     v = torch.empty_like(etas)
     lp0 = torch.empty(c, dtype=torch.float32, device=etas.device)
@@ -127,10 +155,10 @@ def fused_hyper_trajectory(program: HyperProgram, etas, stats, momenta,
     lib = _build.load()
     rc = lib.tbnn_fused_hyper(
         etas.data_ptr(), momenta.data_ptr(), stats.data_ptr(),
-        eps_c.data_ptr(), blocks_t.data_ptr(), len(program.blocks),
-        int(program.coupled), program.sd_idx, c, program.eta_dim,
-        program.n_stats, program.n_steps, q.data_ptr(), v.data_ptr(),
-        lp0.data_ptr(), lp1.data_ptr(),
+        eps_c.data_ptr(), program.table.ctypes.data, len(program.items),
+        int(program.coupled), c, program.eta_dim, program.n_stats,
+        program.n_steps, program.lanes, program.threads, q.data_ptr(),
+        v.data_ptr(), lp0.data_ptr(), lp1.data_ptr(),
         torch.cuda.current_stream(etas.device).cuda_stream)
     _build.check(rc, "fused_hyper_trajectory")
     fused_hyper_trajectory.LAUNCHES += 1

@@ -1,8 +1,10 @@
 """K1 (untempered, tempered, U-turn-recording, variant (d)'s tails,
-activations and priors, and every path of its layer table), K2 and K3
+activations and priors, and every path of its layer table), K2 (with its
+widest item tables) and K3
 (with its Bernoulli and categorical tails, slope ops, packed first layer
 and split row sums) on an NVIDIA card against their plain twins on the same
-card, and K1's and K3's repeats bit-equal.
+card, K1's, K2's and K3's repeats bit-equal, and K1's and K2's entry
+points refusing tables that cannot hold.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -173,6 +175,91 @@ def test_k2_kernel_matches_twin(device, coupled):
     assert fused_hyper.fused_hyper_trajectory.LAUNCHES == before + 1
     for g, w in zip(got, want):
         _close(g, w, 1e-4, 1e-3)
+
+
+def _stack(n_blocks, learned_sd):
+    """``chip_smoke.stack_network``'s model on the CPU: K2's widest tables
+    (32 items at 16 blocks, 31 with a learned sd at 15)."""
+    import chip_smoke as cs
+
+    net, lik = cs.stack_network(torch.device("cpu"), n_blocks, learned_sd)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    return net.model, lik, flat
+
+
+def _k2_case(device, model, lik, flat, c, n_steps, seed):
+    """A K2 program and its inputs: etas around the init, stats of the
+    scale of a posterior's (K = 11 rows for a learned sd), eps 1e-3."""
+    h = flat.eta.numel()
+    program = fused_hyper.build_hyper_program(model, lik, flat.unravel_eta,
+                                              h, n_steps)
+    rng = np.random.default_rng(seed)
+    stats = np.abs(rng.normal(size=(c, program.n_stats))) * 10.0
+    if program.coupled:
+        stats[:, -1] = 11.0
+    args = [torch.tensor(a, dtype=torch.float32, device=device) for a in (
+        np.tile(flat.eta.numpy(), (c, 1)) + 0.05 * rng.normal(size=(c, h)),
+        stats, rng.normal(size=(c, h)), np.full(c, 1e-3))]
+    return program, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coupled", [False, True])
+def test_k2_two_calls_bit_equal(device, coupled):
+    """Two K2 calls on the same inputs give bit-equal q, v, lp0, lp1: the
+    flagship at 64 chains, 100 steps, uncoupled and with a learned sd."""
+    lik = (GaussianLikelihood(sd=0.2) if coupled
+           else FixedGaussianLikelihood(sd=0.1))
+    model, flat = _flagship(lik)
+    program, args = _k2_case(device, model, lik, flat, 64, 100, 3)
+    first = fused_hyper.fused_hyper_trajectory(program, *args)
+    second = fused_hyper.fused_hyper_trajectory(program, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coupled", [False, True])
+def test_k2_widest_tables_match_twin(device, coupled):
+    """K2 against its twin at the widest tables, a chain's items filling
+    its warp: 16 blocks uncoupled (32 items, H = 64) and 15 blocks with a
+    learned sd (31 items, H = 61), 64 chains, 100 steps."""
+    model, lik, flat = _stack(15 if coupled else 16, coupled)
+    program, args = _k2_case(device, model, lik, flat, 64, 100, 4)
+    assert len(program.items) == (31 if coupled else 32)
+    assert program.lanes == 32
+    got = fused_hyper.fused_hyper_trajectory(program, *args)
+    want = fused_hyper.hyper_trajectory_plain(program, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["missing_row", "repeated_row",
+                                  "coupled_not_last"])
+def test_k2_entry_point_refuses_bad_tables(device, case):
+    """The wrapper decides K2's item table; the C entry point refuses one
+    that does not cover each eta row (and stats column) exactly once, or
+    whose coupled term is not the last item."""
+    lik = GaussianLikelihood(sd=0.2)
+    model, flat = _flagship(lik)
+    program, args = _k2_case(device, model, lik, flat, 4, 3, 5)
+    items = list(program.items)
+    if case == "missing_row":
+        items = items[:-2] + items[-1:]
+    elif case == "repeated_row":
+        items[1] = (items[0][0],) + items[1][1:]
+    else:
+        items[-2], items[-1] = items[-1], items[-2]
+    program.__dict__["items"] = tuple(items)
+    program.__dict__["table"] = np.asarray(items, np.int32).reshape(-1)
+    program.__dict__["lanes"] = 1 << (len(items) - 1).bit_length()
+    with pytest.raises(RuntimeError,
+                       match="fused_hyper_trajectory launch failed"):
+        fused_hyper.fused_hyper_trajectory(program, *args)
 
 
 @pytest.mark.cuda
