@@ -6,7 +6,9 @@ CUDA card and the CUDA toolkit (``nvcc``); it imports torch, numpy and
 script exits non-zero:
 
 1. card: name and power limit (nvidia-smi); a CUDA device is required;
-2. build: compiles the kernels from ``tensorbnn_tpu_torch/csrc``;
+2. build: compiles the kernels from ``tensorbnn_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all started together) and, beside them, the host
+   text store's parser (``g++``);
 3. K1 (the fused main-block trajectory) against its plain twin at the
    flagship shapes, from a flagship Network's state: 64 chains with shared
    (eps, L) = (1e-2, 13) and (1e-3, 100), 512 chains with per-chain
@@ -62,7 +64,17 @@ script exits non-zero:
    program + K2, held to the JAX package's seed-deterministic statistics;
    ``wide_deep`` in U-turn mode on K3 + K2. The quality blocks report ESS
    (the predictive mean at x = 0.5 and the worst parameter) per second;
-7. times: each kernel against its twin (CUDA events), K3 against the
+7. the sample store, resume and the Predictor on the card: the flagship
+   at 64 chains on K1 + K2 with ``folder_name``, buffered and streamed
+   (each store loads to the run's samples bit for bit); ``Predictor(
+   device="cuda")`` over the text and npz stores (``predict`` bit-equal to
+   ``model.apply`` over the run's samples); a run stopped at a checkpoint
+   and resumed (bit-equal to the uninterrupted run in samples, acceptance
+   and store bytes); ``reweight`` to Cauchy priors and the per-chain
+   ``autocorrelation_length``; the JAX bench's predict cell (2,000
+   networks x 4,096 points): one ``predict`` call's host time and its
+   forward's device time against the bound, as a ``{"store": ...}`` line;
+8. times: each kernel against its twin (CUDA events), K3 against the
    same value and gradient through cuBLAS (the twin) and torch.func, K1's
    U-turn-recording program against the non-recording one on the same
    inputs, K1 (d) at its phase 3 shapes (each K1 shape also in us per
@@ -79,8 +91,10 @@ It prints the kernels' JSON line and the card's line before its last line,
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -165,6 +179,15 @@ CLS_MIN_ACCURACY = 0.9
 CLS_GROUPS = ((5e-4, 50), (1e-3, 40), (2e-3, 20), (5e-3, 10))
 # rows of the tutorial-shaped model: 80% of MNIST's 11,982 training 3s and 8s
 TUTORIAL_ROWS = 9585
+# phase 7: the flagship at the verify recipe over 64 chains, recorded every
+# 10 epochs after the burn-in of 200 (1,280 networks, 10 files of 128); the
+# interrupted run stops at epoch 300, a chunk boundary (the adapter's cycle
+# is 10 epochs), where its checkpoint (every 5 chunks) falls
+STORE_EPOCHS, STORE_STOP, STORE_STEP, STORE_PER_FILE = 400, 300, 10, 128
+# the JAX bench's predict cell (benchmarks/run_benchmarks.py:1182-1240):
+# 2,000 networks of the flagship around a seed-0 init (sd 0.05) over 4,096
+# points; 220 multiply-adds a point and network
+PREDICT_NETS, PREDICT_POINTS, PREDICT_MACS = 2000, 4096, 220
 # K1's U-turn comparisons draw each chain's prior sd (its scale hyper
 # squared) from this range: the tight prior makes a stable oscillator whose
 # half period (pi sd) falls on both sides of eps L, so some chains turn and
@@ -647,6 +670,258 @@ def device_ms(fn, reps=10):
         cycles *= 2
 
 
+def predict_cell(dev, directory):
+    """The JAX bench's predict cell (benchmarks/run_benchmarks.py:1196-
+    1214): ``PREDICT_NETS`` flagship networks around a seed-0 init (sd
+    0.05, numpy seed 0), stored as an npz store in ``directory``, and
+    ``PREDICT_POINTS`` inputs from the same numpy generator. Returns the
+    ``Predictor`` on ``dev``, the inputs and the model."""
+    from tensorbnn_tpu_torch import FixedGaussianLikelihood, \
+        GaussianDenseLayer, Predictor, Sequential, Tanh
+    from tensorbnn_tpu_torch.io import checkpoint
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
+        host_unraveler
+
+    model = Sequential([GaussianDenseLayer(1, 10), Tanh(),
+                        GaussianDenseLayer(10, 10), Tanh(),
+                        GaussianDenseLayer(10, 10), Tanh(),
+                        GaussianDenseLayer(10, 1)])
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    flat = flatten_state(params, hypers, {})
+    rng = np.random.default_rng(0)
+    thetas = (flat.theta.numpy()[None] + 0.05 * rng.normal(
+        size=(PREDICT_NETS, flat.theta.numel()))).astype(np.float32)
+    hyper_samples = tuple(
+        {k: np.broadcast_to(v.numpy(), (PREDICT_NETS,)) for k, v in
+         h.items()} for h in hypers)
+    checkpoint.save_samples(directory, host_unraveler(params)(thetas),
+                            hyper_samples, {})
+    with open(os.path.join(directory, "architecture.txt"), "w") as f:
+        f.write("\n".join(model.layer_names) + "\n")
+    pred = Predictor(directory, likelihood=FixedGaussianLikelihood(sd=0.1),
+                     device=dev)
+    x = rng.normal(size=(PREDICT_POINTS, 1)).astype(np.float32)
+    return pred, x, model
+
+
+def store_phase(dev, reset_counts, read_counts) -> dict:
+    """Phase 7: the sample store, resume and the Predictor on the card, at
+    the flagship's full width over 64 chains (K1 (a) + K2). (a) a buffered
+    run with ``folder_name`` and the same run streamed (``keep_samples=
+    False``) write the same samples: each store (text, npz, streamed)
+    loads to the run's ensemble bit for bit; (b) ``Predictor`` on the card
+    reads the text store (``samples.npz`` moved aside) and the npz store,
+    and its ``predict`` equals ``model.apply`` over the run's samples bit
+    for bit; (c) a run stopped at a checkpoint (``checkpoint_every``) and
+    resumed is the uninterrupted run, in samples, acceptance and store
+    bytes; (d) ``reweight`` to Cauchy priors gives finite weights summing
+    to 1, ``autocorrelation_length`` is finite and per chain; (e) the JAX
+    bench's predict cell: 2,000 networks x 4,096 points, one ``predict``
+    call's host time and its forward's device time, against the bound."""
+    from tensorbnn_tpu_torch import CauchyDenseLayer, Predictor, Tanh
+    from tensorbnn_tpu_torch.io import fast_text
+    from tensorbnn_tpu_torch.ops import _build
+    from tensorbnn_tpu_torch.utils import autocorr
+
+    out = {"native_text": fast_text.native_available()}
+    print(f"native text store (fast_text.native_available()): "
+          f"{out['native_text']}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        d = {k: os.path.join(tmp, k) for k in
+             ("buffered", "streamed", "resumed", "ckpt", "aside", "predict")}
+
+        def run(epochs, **kw):
+            net, lik = flagship_network(dev)
+            net.setup_mcmc(**RECIPE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = net.train(epochs, STORE_STEP, lik, n_chains=64,
+                            networks_per_file=STORE_PER_FILE, verbose=False,
+                            **kw)
+            torch.cuda.synchronize()
+            assert res.main_path == "K1" and res.fused_hyper, res.main_path
+            return net, lik, res, time.perf_counter() - t0
+
+        reset_counts()
+        net, lik, res, out["buffered_s"] = run(STORE_EPOCHS,
+                                               folder_name=d["buffered"])
+        _, _, res_s, out["streamed_s"] = run(
+            STORE_EPOCHS, folder_name=d["streamed"], keep_samples=False)
+        _, _, res_1, out["interrupted_s"] = run(
+            STORE_STOP, checkpoint_dir=d["ckpt"], checkpoint_every=5)
+        _, _, res_r, out["resumed_s"] = run(
+            STORE_EPOCHS, folder_name=d["resumed"], checkpoint_dir=d["ckpt"],
+            checkpoint_every=5)
+        out["launches"] = read_counts("store and resume (K1 + K2)")
+        # one K1 launch an epoch: 400 + 400 + 300 + 100 epochs
+        if (out["launches"]["K1"] != 3 * STORE_EPOCHS
+                or out["launches"]["K2"] < 1 or out["launches"]["K3"]):
+            raise AssertionError(f"the store runs did not take K1 (one "
+                                 f"launch an epoch) + K2 alone: "
+                                 f"{out['launches']}")
+
+        # (a) two stores, one sample set
+        n_nets = (STORE_EPOCHS - RECIPE["burnin"]) // STORE_STEP * 64
+        assert res.theta_samples.shape[:2] == (n_nets // 64, 64)
+        assert np.isfinite(res.theta_samples).all()
+        assert res_s.theta_samples.shape[0] == 0
+        np.testing.assert_array_equal(res_s.main_accept, res.main_accept)
+        chains = np.repeat(np.arange(64), n_nets // 64)
+        os.makedirs(d["aside"])
+        os.replace(os.path.join(d["buffered"], "samples.npz"),
+                   os.path.join(d["aside"], "samples.npz"))
+        preds = {"text": Predictor(d["buffered"], likelihood=lik,
+                                   device=dev)}
+        os.replace(os.path.join(d["aside"], "samples.npz"),
+                   os.path.join(d["buffered"], "samples.npz"))
+        preds["npz"] = Predictor(d["buffered"], likelihood=lik, device=dev)
+        preds["streamed"] = Predictor(d["streamed"], likelihood=lik,
+                                      device=dev)
+        for name, pred in preds.items():
+            assert pred.n_networks == n_nets, (name, pred.n_networks)
+            np.testing.assert_array_equal(pred.chain_index, chains)
+            for got, want in zip(pred.param_samples, res.param_samples):
+                for k in want:
+                    np.testing.assert_array_equal(got[k], want[k])
+        print(f"(a) {n_nets} networks: the text, npz and streamed stores "
+              f"load to the run's chain-major ensemble bit for bit "
+              f"(buffered run {out['buffered_s']:.2f} s, streamed "
+              f"{out['streamed_s']:.2f} s)")
+
+        # (b) the Predictor on the card against model.apply over the run's
+        # samples
+        xs = torch.linspace(-2.0, 2.0, 101, device=dev)[:, None]
+        ens = tuple({k: torch.as_tensor(v, device=dev) for k, v in p.items()}
+                    for p in res.param_samples)
+        want = torch.func.vmap(net.model.apply, in_dims=(0, None))(
+            ens, xs).cpu().numpy()
+        for name in ("text", "npz"):
+            np.testing.assert_array_equal(preds[name].predict(xs), want)
+        print(f"(b) Predictor(device='cuda').predict over the text and npz "
+              f"stores equals model.apply over the run's samples bit for "
+              f"bit ({want.shape})")
+
+        # (c) resume at a chunk boundary
+        assert res_1.n_epochs == STORE_STOP and res_r.resume_epoch == \
+            STORE_STOP
+        np.testing.assert_array_equal(res_r.theta_samples,
+                                      res.theta_samples)
+        np.testing.assert_array_equal(res_r.eta_samples, res.eta_samples)
+        for field in ("main_accept", "hyper_accept", "sjd"):
+            full = getattr(res, field)
+            np.testing.assert_array_equal(getattr(res_1, field),
+                                          full[:STORE_STOP])
+            np.testing.assert_array_equal(getattr(res_r, field),
+                                          full[STORE_STOP:])
+        burnin = RECIPE["burnin"]
+        np.testing.assert_array_equal(
+            res_r.after_epoch(res_r.main_accept, burnin + 150),
+            res.main_accept[burnin + 150:])
+        names = sorted(n for n in os.listdir(d["buffered"])
+                       if n.endswith(".txt"))
+        for n in names:
+            with open(os.path.join(d["buffered"], n), "rb") as f_a, \
+                    open(os.path.join(d["resumed"], n), "rb") as f_b:
+                assert f_a.read() == f_b.read(), n
+        out["post_burnin_main_accept"] = float(
+            res.after_epoch(res.main_accept, burnin).mean())
+        print(f"(c) stopped at epoch {STORE_STOP} by checkpoint_every and "
+              f"resumed: samples, acceptance (post-burn-in main "
+              f"{out['post_burnin_main_accept']:.4f}) and the {len(names)} "
+              f"text files bit-equal to the uninterrupted run")
+
+        # (d) diagnostics
+        pred = preds["npz"]
+        cauchy = [CauchyDenseLayer(1, 10), Tanh(), CauchyDenseLayer(10, 10),
+                  Tanh(), CauchyDenseLayer(10, 10), Tanh(),
+                  CauchyDenseLayer(10, 1)]
+        w = pred.reweight(cauchy, net.train_x, net.train_y, likelihood=lik)
+        assert w.shape == (n_nets,) and np.isfinite(w).all(), w
+        assert abs(float(w.sum()) - 1.0) < 1e-5, w.sum()
+        xq = xs[::10]
+        tau = pred.autocorrelation_length(xq, 1000)
+        blocks = pred._chain_blocks()
+        assert len(blocks) == 64
+        series = pred.predict(xq)[..., 0].T
+        taus = np.concatenate([autocorr.integrated_time_batch(
+            series[:, a:b]) for a, b in blocks])
+        assert np.isfinite(tau) and tau == float(
+            taus[~np.isnan(taus)].mean()), tau
+        out["reweight_ess"] = float(1.0 / np.sum(w.astype(np.float64) ** 2))
+        out["tau_per_chain"] = tau
+        print(f"(d) reweight to Cauchy priors: finite, sum "
+              f"{float(w.sum()):.7f}, ESS {out['reweight_ess']:.2f} of "
+              f"{n_nets}; autocorrelation length {tau:.4f} (per chain, "
+              f"{len(blocks)} chains)")
+
+        # (e) the predict cell
+        pred, x, model = predict_cell(dev, d["predict"])
+        for _ in range(3):                              # warm
+            got = pred.predict(x)
+        reps = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = pred.predict(x)
+        host_ms = 1e3 * (time.perf_counter() - t0) / reps
+        x_dev = torch.as_tensor(x, device=dev)
+        fwd_ms = cuda_ms(lambda: pred.predict_tensor(x_dev))
+        fwd_dev_ms = device_ms(lambda: pred.predict_tensor(x_dev))
+        # where the call's host time goes besides the forward: the copy of
+        # the predictions to pageable host memory (what predict does), and
+        # to a pinned buffer for comparison
+        y_dev = pred.predict_tensor(x_dev)
+        pinned = torch.empty(y_dev.shape, dtype=y_dev.dtype, pin_memory=True)
+        copy_ms = {}
+        for label, copy in (("pageable", lambda: y_dev.cpu()),
+                            ("pinned", lambda: pinned.copy_(y_dev))):
+            copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                copy()
+                torch.cuda.synchronize()
+            copy_ms[label] = 1e3 * (time.perf_counter() - t0) / reps
+        # the predictions against the same forward in float64 on the card
+        assert got.shape == (PREDICT_NETS, PREDICT_POINTS, 1)
+        assert np.isfinite(got).all()
+        ens64 = tuple({k: v.double() for k, v in p.items()}
+                      for p in pred.ensemble(1))
+        want = torch.func.vmap(model.apply, in_dims=(0, None))(
+            ens64, torch.as_tensor(x, dtype=torch.float64, device=dev))
+        out["predict_max_abs_err"] = float(np.abs(got - want.cpu().numpy())
+                                           .max())
+        assert out["predict_max_abs_err"] < 1e-5, out["predict_max_abs_err"]
+        n_pred = PREDICT_NETS * PREDICT_POINTS
+        n_params = sum(v.numel() for p in pred.ensemble(1)
+                       for v in p.values())
+        pb = bound(n_pred * 2 * PREDICT_MACS,
+                   4 * (n_pred + n_params + PREDICT_POINTS))
+        out["predict"] = {
+            "networks": PREDICT_NETS, "points": PREDICT_POINTS,
+            "host_ms": host_ms, "forward_ms": fwd_ms,
+            "forward_device_ms": fwd_dev_ms,
+            "copy_to_host_ms": copy_ms["pageable"],
+            "copy_to_pinned_ms": copy_ms["pinned"], "bound_ms": pb[0],
+            "bound_by": pb[1],
+            "predictions_per_sec": n_pred / (host_ms / 1e3),
+            "forward_predictions_per_sec": n_pred / (fwd_dev_ms / 1e3),
+            "output_mb": got.nbytes / 1e6}
+        print(f"(e) predict, {PREDICT_NETS} networks x {PREDICT_POINTS} "
+              f"points: one call {host_ms:.3f} host-ms (to numpy, "
+              f"{got.nbytes / 1e6:.1f} MB), "
+              f"{n_pred / (host_ms / 1e3):,.0f} network-predictions/sec; "
+              f"its forward {fwd_ms:.4f} ms by events, {fwd_dev_ms:.4f} "
+              f"device-ms, bound {pb[0]:.5f} ms ({pb[1]}); the copy to the "
+              f"host {copy_ms['pageable']:.3f} host-ms (pinned "
+              f"{copy_ms['pinned']:.3f}); max abs err against float64 "
+              f"{out['predict_max_abs_err']:.3e}")
+        del preds, pred, ens, ens64, want, y_dev, pinned
+    print(json.dumps({"store": out}), flush=True)
+    return out
+
+
 def main() -> int:
     phase("1 card")
     if not torch.cuda.is_available():
@@ -669,10 +944,16 @@ def main() -> int:
     from tensorbnn_tpu_torch.sampler.tempering import make_ladder
 
     phase("2 build")
+    from tensorbnn_tpu_torch.io import fast_text
     t0 = time.perf_counter()
+    # the host text store's g++ runs beside the kernels' nvcc (one process
+    # a source, all started together)
+    text_build = fast_text.start_build()
     _build.load(verbose=True)
+    native_text = fast_text.finish_build(text_build)
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds} s)")
+          f"(nvcc {_build.build_seconds} s); native text store "
+          f"{native_text}")
 
     net, lik = flagship_network(dev)
     params, hypers = net.init_state()
@@ -1491,7 +1772,10 @@ def main() -> int:
     assert np.isfinite(uwres.eta_samples).all()
     del uwres, uwnet
 
-    phase("7 times")
+    phase("7 store, resume and Predictor on the card")
+    store_phase(dev, reset_counts, read_counts)
+
+    phase("8 times")
     times = {}
     # each K1 shape's evaluations along its longest trajectory (max L + 1),
     # which set its time: K1 is bound by a step's latency; and the barriers

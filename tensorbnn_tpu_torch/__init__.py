@@ -13,7 +13,10 @@ leapfrog step's likelihood value and gradient in another (K3, same
 module), and the hyper block's trajectory in a third (K2,
 ``ops/fused_hyper.py``). The kernels are built from ``csrc/`` with
 ``nvcc`` on first use; ``Network`` runs on the CUDA card unless given
-another device.
+another device. Runs keep their posterior in the reference text store and
+an npz store (``folder_name``), resume from a checkpoint
+(``checkpoint_dir``), and ``Predictor`` runs the saved ensemble on the
+card (``predictor.py``).
 """
 
 from tensorbnn_tpu_torch import distributions
@@ -24,8 +27,17 @@ from tensorbnn_tpu_torch.likelihoods import (
     GaussianLikelihood,
     Likelihood,
 )
+from tensorbnn_tpu_torch.metrics import (
+    Accuracy,
+    Metric,
+    MulticlassAccuracy,
+    PercentError,
+    SquaredError,
+)
 from tensorbnn_tpu_torch.models.layers import (
+    LAYER_REGISTRY,
     CauchyDenseLayer,
+    DenseLayer,
     Elu,
     Exp,
     GaussianDenseLayer,
@@ -40,6 +52,7 @@ from tensorbnn_tpu_torch.models.layers import (
 )
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.network import Network
+from tensorbnn_tpu_torch.predictor import Predictor, predictor
 
 __version__ = "0.1.0"
 
@@ -53,6 +66,7 @@ __all__ = [
     "LayerSpec",
     "GaussianDenseLayer",
     "CauchyDenseLayer",
+    "DenseLayer",
     "Exp",
     "Relu",
     "Sigmoid",
@@ -62,7 +76,15 @@ __all__ = [
     "LeakyRelu",
     "Prelu",
     "SquarePrelu",
+    "LAYER_REGISTRY",
     "Sequential",
     "Network",
+    "Predictor",
+    "predictor",
+    "Metric",
+    "SquaredError",
+    "PercentError",
+    "Accuracy",
+    "MulticlassAccuracy",
     "__version__",
 ]

@@ -5,7 +5,9 @@ immutable spec with its own (possibly empty) dict of hypers, and
 ``log_likelihood(preds, y, hypers)`` returns the scalar data
 log-likelihood of one chain's batch-major predictions. The Bernoulli and
 categorical likelihoods have no hypers and do not couple into the hyper
-block.
+block. ``n_ref_hyper_scalars`` counts the hypers the reference text store
+keeps after the layers' (GaussianLikelihood's ``sd_root``), and
+``display`` renders them for the driver's progress lines.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ class Likelihood:
     """Base likelihood spec."""
 
     main_probs_in_hypers: bool = False
+    n_ref_hyper_scalars = 0
 
     def init_hypers(self, dtype=torch.float32, device="cpu") -> Hypers:
         del dtype, device
@@ -33,6 +36,10 @@ class Likelihood:
 
     def log_likelihood(self, preds, y, hypers: Hypers) -> torch.Tensor:
         raise NotImplementedError
+
+    def display(self, hypers: Hypers) -> str:
+        del hypers
+        return ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +49,7 @@ class GaussianLikelihood(Likelihood):
 
     sd: float = 0.1
     main_probs_in_hypers: bool = True
+    n_ref_hyper_scalars = 1
 
     def init_hypers(self, dtype=torch.float32, device="cpu"):
         return {"sd_root": torch.tensor(math.sqrt(self.sd), dtype=dtype,
@@ -51,6 +59,9 @@ class GaussianLikelihood(Likelihood):
         sd = hypers["sd_root"] ** 2
         sigma = torch.ones_like(preds) * sd
         return gaussian_logprob(sigma, preds, y.reshape(preds.shape))
+
+    def display(self, hypers):
+        return f"Loss Standard Deviation: {float(hypers['sd_root']) ** 2}"
 
 
 @dataclasses.dataclass(frozen=True)

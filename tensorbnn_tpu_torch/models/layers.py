@@ -13,6 +13,14 @@ gamma) = hyper ** 2 (SquarePrelu's slope prior takes its scale hyper as
 the sd itself).
 ``Prelu`` and ``SquarePrelu`` carry sampled slopes (``{"slopes"}``, one
 per feature) with hypers; ``LeakyRelu`` has a fixed slope and no rows.
+
+The reference-format hooks (``n_ref_param_tensors``,
+``n_ref_hyper_scalars``, ``ref_param_tensors``, ``params_from_ref``,
+``ref_hyper_values``, ``hypers_from_ref``) convert a layer's state, with
+an optional leading sample axis, to and from the reference text store's
+layout (dense ``W (out, in)``, ``b (out, 1)``; hypers as scalars in
+declaration order). They work on numpy arrays on the host, where the
+store's writer and reader run.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from tensorbnn_tpu_torch.distributions import cauchy_logprob, \
@@ -34,7 +43,12 @@ Hypers = Dict[str, torch.Tensor]
 class LayerSpec:
     """Base layer spec. Stateless layers inherit the no-op defaults."""
 
+    #: registry name, written to architecture.txt
     name: str = "layer"
+    #: state tensors the reference text store keeps for this layer
+    n_ref_param_tensors = 0
+    #: hyper scalars the reference text store keeps for this layer
+    n_ref_hyper_scalars = 0
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device="cpu") -> Tuple[Params, Hypers]:
@@ -56,9 +70,52 @@ class LayerSpec:
     def has_hypers(self) -> bool:
         return False
 
+    def ref_param_tensors(self, params: Params) -> list:
+        del params
+        return []
+
+    def params_from_ref(self, tensors: list) -> Params:
+        del tensors
+        return {}
+
+    def ref_hyper_values(self, hypers: Hypers) -> list:
+        del hypers
+        return []
+
+    def hypers_from_ref(self, values: list) -> Hypers:
+        del values
+        return {}
+
+
+class _DenseRefIO:
+    """Reference-format conversions of both dense layers: ``(..., in,
+    out)`` weights and ``(..., out)`` biases against the reference's
+    ``(..., out, in)`` and ``(..., out, 1)``; the four hypers in the
+    reference's order."""
+
+    n_ref_param_tensors = 2
+    n_ref_hyper_scalars = 4
+    _HYPER_KEYS = ("w_loc", "w_scale", "b_loc", "b_scale")
+
+    def ref_param_tensors(self, params):
+        w = np.swapaxes(np.asarray(params["w"]), -1, -2)
+        b = np.asarray(params["b"])[..., None]
+        return [w, b]
+
+    def params_from_ref(self, tensors):
+        w, b = tensors
+        return {"w": np.swapaxes(np.asarray(w), -1, -2),
+                "b": np.asarray(b)[..., 0]}
+
+    def ref_hyper_values(self, hypers):
+        return [np.asarray(hypers[k]) for k in self._HYPER_KEYS]
+
+    def hypers_from_ref(self, values):
+        return {k: np.asarray(v) for k, v in zip(self._HYPER_KEYS, values)}
+
 
 @dataclasses.dataclass(frozen=True)
-class GaussianDenseLayer(LayerSpec):
+class GaussianDenseLayer(_DenseRefIO, LayerSpec):
     """Dense layer with Gaussian priors on weights and biases.
 
     Four scalar hypers (``w_loc``, ``w_scale``, ``b_loc``, ``b_scale``);
@@ -110,7 +167,7 @@ class GaussianDenseLayer(LayerSpec):
 
 
 @dataclasses.dataclass(frozen=True)
-class CauchyDenseLayer(LayerSpec):
+class CauchyDenseLayer(_DenseRefIO, LayerSpec):
     """Dense layer with Cauchy priors (gamma = scale ** 2); hyperpriors
     N(0, 0.2) on the locations and N(sqrt(0.5), 0.5) on the squared
     scales. Uses the reference's sign-flipped Cauchy "log prob" unless
@@ -157,6 +214,10 @@ class CauchyDenseLayer(LayerSpec):
         return prob + self.log_prior(hypers, params)
 
 
+#: the reference's ``DenseLayer = CauchyDenseLayer``
+DenseLayer = CauchyDenseLayer
+
+
 @dataclasses.dataclass(frozen=True)
 class Activation(LayerSpec):
     """Stateless elementwise activation."""
@@ -199,14 +260,23 @@ def Softmax():
 
 @dataclasses.dataclass(frozen=True)
 class LeakyRelu(LayerSpec):
-    """Leaky ReLU with a fixed slope ``alpha`` (no params, no hypers)."""
+    """Leaky ReLU with a fixed slope ``alpha`` (no params, no hypers). The
+    reference stores alpha as a state tensor its forward pass never reads,
+    so the text store keeps one tensor for it (``n_ref_param_tensors = 1``,
+    the constant itself, with no sample axis, as the JAX package writes
+    it), and reading it back gives no params."""
 
     alpha: float = 0.3
     name: str = "leakyrelu"
+    n_ref_param_tensors = 1
 
     def apply(self, params, x):
         del params
         return torch.where(x < 0, self.alpha * x, x)
+
+    def ref_param_tensors(self, params):
+        del params
+        return [np.asarray([self.alpha])]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +289,8 @@ class Prelu(LayerSpec):
     in_dim: int
     alpha: float = 0.2
     name: str = "prelu"
+    n_ref_param_tensors = 1
+    n_ref_hyper_scalars = 1
 
     @property
     def has_hypers(self) -> bool:
@@ -243,6 +315,18 @@ class Prelu(LayerSpec):
         return prob + torch.sum(exponential_logprob(
             hypers["rate"], params["slopes"].abs()))
 
+    def ref_param_tensors(self, params):
+        return [np.asarray(params["slopes"])[..., None]]
+
+    def params_from_ref(self, tensors):
+        return {"slopes": np.asarray(tensors[0])[..., 0]}
+
+    def ref_hyper_values(self, hypers):
+        return [np.asarray(hypers["rate"])]
+
+    def hypers_from_ref(self, values):
+        return {"rate": np.asarray(values[0])}
+
 
 @dataclasses.dataclass(frozen=True)
 class SquarePrelu(LayerSpec):
@@ -254,6 +338,8 @@ class SquarePrelu(LayerSpec):
     in_dim: int
     alpha: float = 0.2
     name: str = "squareprelu"
+    n_ref_param_tensors = 1
+    n_ref_hyper_scalars = 2
 
     @property
     def has_hypers(self) -> bool:
@@ -279,3 +365,35 @@ class SquarePrelu(LayerSpec):
                                 params["slopes"] ** 2)
         prob = prob + normal_logprob(hypers["loc"], 0.0, 0.3)
         return prob + normal_logprob(hypers["scale"], 0.3, 0.1)
+
+    def ref_param_tensors(self, params):
+        return [np.asarray(params["slopes"])[..., None]]
+
+    def params_from_ref(self, tensors):
+        return {"slopes": np.asarray(tensors[0])[..., 0]}
+
+    def ref_hyper_values(self, hypers):
+        return [np.asarray(hypers["loc"]), np.asarray(hypers["scale"])]
+
+    def hypers_from_ref(self, values):
+        return {"loc": np.asarray(values[0]),
+                "scale": np.asarray(values[1])}
+
+
+#: architecture.txt names to layer constructors (the reference predictor's
+#: layerDict); the Predictor rebuilds a stored model from it
+LAYER_REGISTRY = {
+    "Exp": lambda **kw: Exp(),
+    "relu": lambda **kw: Relu(),
+    "sigmoid": lambda **kw: Sigmoid(),
+    "tanh": lambda **kw: Tanh(),
+    "elu": lambda **kw: Elu(),
+    "softmax": lambda **kw: Softmax(),
+    "leakyrelu": lambda **kw: LeakyRelu(**kw),
+    "prelu": lambda in_dim=1, **kw: Prelu(in_dim=in_dim, **kw),
+    "squareprelu": lambda in_dim=1, **kw: SquarePrelu(in_dim=in_dim, **kw),
+    "dense": lambda in_dim=1, out_dim=1, **kw: CauchyDenseLayer(
+        in_dim=in_dim, out_dim=out_dim, **kw),
+    "denseGaussian": lambda in_dim=1, out_dim=1, **kw: GaussianDenseLayer(
+        in_dim=in_dim, out_dim=out_dim, **kw),
+}

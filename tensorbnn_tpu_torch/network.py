@@ -10,7 +10,7 @@ another device (the tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,7 +43,7 @@ _REF_KWARGS = {
     "randomSteps": "random_steps",
 }
 
-#: reference train() kwarg -> sample_posterior keyword
+#: reference train() kwarg -> train() keyword
 _REF_TRAIN_KWARGS = {
     "metricList": "metric_list",
     "adjustHypers": "adjust_hypers",
@@ -131,13 +131,29 @@ class Network:
         return tuple(params), hypers
 
     def train(self, epochs: int, sampling_step: int, likelihood: Likelihood,
-              adjust_hypers: bool = True, display_skip: int = 0,
-              verbose: bool = True, n_chains: int = 1, n_adapters: int = 1,
+              metric_list: Sequence = (), adjust_hypers: bool = True,
+              folder_name: Optional[str] = None,
+              networks_per_file: int = 1000,
+              display_skip: int = 0, verbose: bool = True,
+              n_chains: int = 1, n_adapters: int = 1,
               chain_jitter: float = 0.0, use_fused="auto",
               tempering: int = 1, tempering_beta_min: float = 0.1,
-              **kwargs) -> RunResult:
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 0, tracer=None,
+              keep_samples="auto", **kwargs) -> RunResult:
         """Runs the sampler; options the port does not carry raise
         NotImplementedError naming them.
+
+        ``folder_name`` writes the posterior in the reference text store
+        (``networks_per_file`` networks a file) and the npz store, which
+        ``Predictor`` reads; ``keep_samples`` ("auto", True or False)
+        decides whether the samples are buffered and written at the end or
+        streamed there chunk by chunk. ``checkpoint_dir`` saves the whole
+        sampler state every ``checkpoint_every`` chunks and at the end, and
+        a later call with the same configuration (a fresh ``Network`` of
+        the same seed) resumes from it. ``metric_list`` (``metrics.py``) is
+        displayed with the likelihood's hypers every ``display_skip``
+        epochs; ``tracer`` (``utils/tracing.RunTracer``) times each chunk.
 
         ``tempering=K`` (K > 1) runs parallel tempering: ``K * n_chains``
         replicas on a geometric ladder of inverse temperatures from 1 down
@@ -159,7 +175,11 @@ class Network:
         """
         options = {_REF_TRAIN_KWARGS.get(k, k): v for k, v in kwargs.items()}
         options.pop("scaleExp", None)
+        metric_list = options.pop("metric_list", metric_list)
         adjust_hypers = options.pop("adjust_hypers", adjust_hypers)
+        folder_name = options.pop("folder_name", folder_name)
+        networks_per_file = options.pop("networks_per_file",
+                                        networks_per_file)
         display_skip = options.pop("display_skip", display_skip)
         if self.config is None:
             raise RuntimeError("call setup_mcmc() before train()")
@@ -175,8 +195,20 @@ class Network:
             n_chains=n_chains, n_adapters=n_adapters,
             chain_jitter=chain_jitter, use_fused=use_fused,
             verbose=verbose, tempering=tempering,
-            tempering_beta_min=tempering_beta_min, **options)
+            tempering_beta_min=tempering_beta_min, metric_list=metric_list,
+            x_validate=self.validate_x, y_validate=self.validate_y,
+            folder_name=folder_name, networks_per_file=networks_per_file,
+            keep_samples=keep_samples, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, tracer=tracer, **options)
         return self.results
+
+    def predict(self, train: bool = True, params: Optional[tuple] = None):
+        """Forward pass on the train or validation split, at ``params`` or
+        (as the JAX package does) at a fresh initial state."""
+        if params is None:
+            params, _ = self.init_state()
+        x = self.train_x if train else self.validate_x
+        return self.model.apply(params, x)
 
 
 # lowercase alias matching the reference class name

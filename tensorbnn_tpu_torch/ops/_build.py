@@ -3,9 +3,10 @@
 Every ``tensorbnn_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into
 one shared library with a plain C interface, at first use, into
 ``tensorbnn_tpu_torch/_build/``, keyed by a hash of the sources and the
-flags, and loaded with ``ctypes``. No PyTorch header is included, so a
-build takes seconds. A missing ``nvcc`` raises: the kernels have no
-fallback.
+flags, and loaded with ``ctypes``. The sources compile in parallel, one
+``nvcc -c`` each, all started together, and are then linked. No PyTorch
+header is included, so a build takes seconds. A missing ``nvcc`` raises:
+the kernels have no fallback.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream, and returns ``cudaGetLastError()``
@@ -92,22 +93,46 @@ def build(verbose: bool = False) -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
+    # compile into a private directory and link to a private name, then
+    # rename: a concurrent build never loads a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
+    jobs = []
+    try:
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *compile_flags, "-Xptxas", "-v", "-c", "-o",
+                   str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            logs.append(stderr.strip())
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{stdout}\n{stderr}")
+        tmp = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        build_seconds = time.perf_counter() - t0
+        if verbose:
+            print("\n".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -35,11 +35,22 @@ plain main block), and no K2 when the likelihood couples into the hypers.
 The JAX package's TPU gates (its VMEM budget and measured profitability)
 are not carried over.
 
-Memory policy (as the JAX driver's): with ``keep_samples="auto"`` the
-recorded samples stay in memory while their projected size is under
-2 GiB; above it the run raises before any epoch, since streaming to disk
-(``folder_name``) is not carried yet. ``keep_samples=True`` buffers
-whatever the size.
+The sample store and resume (as the JAX driver's): with ``folder_name`` the
+run writes the reference text store (``io/reference_format.py``) and the
+npz store (``io/checkpoint.py``), both with each network's chain id. With
+``keep_samples="auto"`` the recorded samples stay in memory while their
+projected size is under 2 GiB and are written at the end; above it (or
+with ``keep_samples=False``) they stream to ``folder_name`` chunk by
+chunk, time-major with chain ids; without a folder such a run raises
+before any epoch. With ``checkpoint_dir`` the whole sampler state (the
+carry, the run generator's state, the adapters, the samples recorded so
+far as segments, the streaming writer's position) is saved every
+``checkpoint_every`` chunks and at the end, under a fingerprint of the
+run's configuration, and a later call with the same configuration resumes
+from it bit for bit. ``metric_list`` and the likelihood's hypers are
+displayed at display epochs on chain 0's sample; a ``tracer``
+(``utils/tracing.RunTracer``) times each chunk. None of these changes what
+a run without them enqueues.
 
 Options of the JAX driver that this port does not carry yet raise
 ``NotImplementedError`` naming them (see ``NOT_CARRIED``).
@@ -49,16 +60,18 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from tensorbnn_tpu_torch.io import checkpoint, reference_format
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
     make_multichain_chunk_runner
 from tensorbnn_tpu_torch.sampler.adapter import ParamAdapter
+from tensorbnn_tpu_torch.sampler.gibbs import ChainState
 from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
     host_unraveler
 from tensorbnn_tpu_torch.sampler.tempering import make_ladder
@@ -68,24 +81,17 @@ from tensorbnn_tpu_torch.sampler.uturn import UTurnAdapter
 #: "off" (any other value raises NotImplementedError)
 NOT_CARRIED = {
     "mesh": (None,),
-    "checkpoint_dir": (None,),
-    "checkpoint_every": (0,),
-    "folder_name": (None,),
     "precondition": (False, None),
     "compensated": (False,),
     "numerics": ("default",),
     "data_chunk": (None,),
     "state_layout": ("auto", "flat"),
     "max_dispatch_seconds": (None,),
-    "tracer": (None,),
-    "metric_list": ((), [], None),
-    "keep_samples": ("auto", True),
     "donate": (False,),
 }
 #: JAX-driver options that only qualify a not-carried option; accepted and
 #: unused
-INERT = ("networks_per_file", "precondition_clip", "precondition_windows",
-         "x_validate", "y_validate")
+INERT = ("precondition_clip", "precondition_windows")
 
 
 def _is(value, off) -> bool:
@@ -201,6 +207,16 @@ class RunResult:
     #: (the rest were censored), shape (epochs,); None unless
     #: ``trajectory="uturn"``
     uturn_turned: np.ndarray = None
+    #: the epoch this call resumed from (0 for a fresh run): the per-epoch
+    #: arrays cover epochs ``resume_epoch + 1 .. n_epochs`` (the samples
+    #: cover the whole run)
+    resume_epoch: int = 0
+
+    def after_epoch(self, values, epoch: int) -> np.ndarray:
+        """The entries of a per-epoch array (``main_accept``, ``sjd``, ...)
+        for the epochs after ``epoch`` (e.g. the burn-in), counted from the
+        run's start also when this call resumed it."""
+        return np.asarray(values)[max(0, epoch - self.resume_epoch):]
 
     @property
     def theta_pooled(self) -> np.ndarray:
@@ -249,6 +265,15 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      tempering_beta_min: float = 0.1,
                      trajectory: str = "adapter",
                      uturn_probe: str = "alternate",
+                     metric_list: Sequence = (),
+                     x_validate: Optional[torch.Tensor] = None,
+                     y_validate: Optional[torch.Tensor] = None,
+                     folder_name: Optional[str] = None,
+                     networks_per_file: int = 1000,
+                     keep_samples="auto",
+                     checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 0,
+                     tracer=None,
                      **options) -> RunResult:
     """Runs the two-block adaptive HMC sampler on the device of
     ``x_train`` (``params``, ``hypers`` and ``generator`` live there too).
@@ -264,6 +289,13 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     the ``UTurnAdapter`` (see the module docstring; one adapter, no
     tempering); ``uturn_probe`` is its burn-in probe schedule, "alternate"
     or "always".
+
+    ``folder_name``, ``networks_per_file``, ``keep_samples``,
+    ``checkpoint_dir``, ``checkpoint_every``, ``metric_list`` (with
+    ``x_validate`` / ``y_validate``) and ``tracer`` are the JAX driver's
+    (see the module docstring). A resumed run's ``RunResult`` holds every
+    sample of the run but the per-epoch arrays from ``resume_epoch`` on
+    (``RunResult.after_epoch`` slices them by the run's epoch).
     """
     t_start = time.time()
     if n_adapters < 1 or n_chains % n_adapters:
@@ -316,19 +348,30 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     flat = flatten_state(params, hypers, lik_hypers)
     eta_dim = flat.eta.numel()
 
-    # memory policy: refuse a run whose samples would not fit in memory
-    # before it spends any time (JAX driver.py:786-800)
+    # memory policy (JAX driver.py:786-805): "auto" keeps the samples in
+    # memory below ~2 GB projected, else streams them to folder_name; a
+    # run that would keep them nowhere raises before it spends any time
     n_expected = max(0, epochs // sampling_step
                      - config.burnin // sampling_step)
     projected = n_expected * n_chains * (flat.theta.numel() + eta_dim) * 4
-    if options.get("keep_samples", "auto") == "auto" and \
-            projected >= (2 << 30):
+    if keep_samples == "auto":
+        keep_samples = projected < (2 << 30)
+    if not keep_samples and folder_name is None and n_expected > 0:
         raise ValueError(
-            f"keep_samples='auto' with a ~{projected / 1e9:.1f}GB projected "
-            f"posterior ({n_expected} recorded epochs x {n_chains} chains) "
-            f"and no folder_name would not fit in memory; pass "
-            f"keep_samples=True to buffer it anyway, or record fewer "
-            f"epochs (sampling_step)")
+            f"keep_samples=False (or 'auto' with a ~{projected / 1e9:.1f}GB "
+            f"projected posterior) with folder_name=None would discard "
+            f"every sampled network; pass folder_name= to stream to disk "
+            f"or keep_samples=True to buffer in memory")
+    streaming = folder_name is not None and not keep_samples
+    if checkpoint_dir:
+        fingerprint = _run_fingerprint(
+            config, model, likelihood, flat.theta.numel(), eta_dim,
+            n_chains, sampling_step, dtype, n_adapters=n_adapters,
+            trajectory=(f"{trajectory}:{uturn_probe}"
+                        if traj_uturn and uturn_probe != "always"
+                        else trajectory),
+            tempering=(f"{tempering}@{tempering_beta_min:g}"
+                       if tempering > 1 else None))
 
     tempered = tempering_beta is not None
     main_traj = main_vg = hyper_traj = None
@@ -393,10 +436,98 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     step_sizes = np.full(n_grp, config.step_size_start, np.float64)
     leapfrogs = np.full(n_grp, config.leapfrog_start, np.int64)
 
+    # recorded cold-chain rows: on the device since the last checkpoint
+    # (theta_rows), on the host before it (saved_theta)
     theta_rows, eta_rows = [], []
+    saved_theta, saved_eta = [], []
     sjds, main_accepts, hyper_accepts, leaps = [], [], [], []
     swap_accepts, swap_rung_accepts, turned = [], [], []
     iter_ = 0
+    n_segments = 0
+    writer = None
+    unravel_theta_np = host_unraveler(params)
+    unravel_eta_np = host_unraveler((hypers, lik_hypers))
+
+    # -- resume from a checkpoint if one exists (JAX driver.py:843-931) ----
+    resumed = checkpoint.load_resume(checkpoint_dir) if checkpoint_dir \
+        else None
+    if resumed is not None:
+        arrays, host = resumed
+        if "generator_state" not in arrays:
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} was written by the JAX "
+                f"package (tensorbnn_tpu): it carries a threefry key and no "
+                f"torch generator state, and a threefry key cannot seed a "
+                f"torch.Generator; resume it with tensorbnn_tpu, or delete "
+                f"the checkpoint to start fresh")
+        saved_fp = host.get("fingerprint", {})
+        if saved_fp != fingerprint:
+            diffs = sorted(k for k in set(fingerprint) | set(saved_fp)
+                           if saved_fp.get(k) != fingerprint.get(k))
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir} was written by a run with "
+                f"a different {', '.join(diffs)}; resuming it under this "
+                f"configuration would produce a wrong trajectory (delete "
+                f"the checkpoint to start fresh)")
+        carry = ChainState(*(
+            torch.as_tensor(arrays[k], dtype=dtype).to(device)
+            for k in ChainState._fields))
+        generator.set_state(torch.from_numpy(arrays["generator_state"]))
+        for a, st in zip(adapters, host["adapter"]):
+            a.load_state_dict(st)
+        if traj_uturn:
+            uturn_ad.load_state_dict(host["uturn_adapter"])
+        iter_ = int(host["iter"])
+        step_sizes = np.asarray(host["step_size"], np.float64)
+        leapfrogs = np.asarray(host["leapfrog"], np.int64)
+        n_segments = int(host["n_segments"])
+        if n_segments:
+            th, et = checkpoint.load_sample_segments(checkpoint_dir,
+                                                     n_segments)
+            saved_theta.append(np.stack(th))
+            saved_eta.append(np.stack(et))
+        if streaming:
+            writer = reference_format.RunWriter(
+                folder_name, model, likelihood, networks_per_file,
+                resume_state=host["writer"])
+        if verbose:
+            print(f"resumed from {checkpoint_dir} at epoch {iter_}")
+    resume_epoch = iter_
+    if streaming and writer is None:
+        writer = reference_format.RunWriter(
+            folder_name, model, likelihood, networks_per_file)
+        if verbose:
+            print(f"streaming samples to {folder_name} (multichain disk "
+                  f"order is time-major with per-network chain ids in "
+                  f"chains.txt; the Predictor reorders to chain-major)")
+
+    def save_checkpoint():
+        # the rows recorded since the last checkpoint go to a segment of
+        # their own, written before resume.json references it
+        nonlocal n_segments
+        if theta_rows:
+            saved_theta.append(torch.cat(theta_rows).cpu().numpy())
+            saved_eta.append(torch.cat(eta_rows).cpu().numpy())
+            theta_rows.clear()
+            eta_rows.clear()
+            checkpoint.save_sample_segment(checkpoint_dir, n_segments,
+                                           saved_theta[-1], saved_eta[-1])
+            n_segments += 1
+        arrays = {k: getattr(carry, k).cpu().numpy()
+                  for k in ChainState._fields}
+        arrays["generator_state"] = generator.get_state().numpy()
+        checkpoint.save_resume(checkpoint_dir, carry_arrays=arrays,
+                               host_state={
+            "n_segments": n_segments,
+            "adapter": [a.state_dict() for a in adapters],
+            "iter": iter_,
+            "step_size": step_sizes.tolist(),
+            "leapfrog": leapfrogs.tolist(),
+            "writer": writer.state_dict() if writer is not None else None,
+            "uturn_adapter": uturn_ad.state_dict() if traj_uturn else None,
+            "fingerprint": fingerprint})
+
+    chunks_done = 0
     while iter_ < epochs:
         if traj_uturn:
             # burn-in chunks keep the step-size updates frequent and end on
@@ -417,6 +548,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                 eps_arg = np.repeat(step_sizes, grp_chains).astype(
                     np.float32)
                 leap_arg = np.repeat(leapfrogs, grp_chains)
+        if tracer is not None:
+            tracer.start_chunk()
         carry, trace = run_chunk(carry, eps_arg, leap_arg, chunk, generator)
         leaps.append(np.asarray(leap_arg, np.float64) if traj_uturn
                      else np.full(chunk, leapfrogs.mean()))
@@ -424,10 +557,20 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         rows = [j for j in range(chunk)
                 if iter_ + j + 1 > config.burnin
                 and (iter_ + j + 1) % sampling_step == 0]
-        if rows:
+        if rows and keep_samples:
             # the cold chains only: hot replicas sample flattened targets
             theta_rows.append(trace.theta[rows, :n_chains])
             eta_rows.append(trace.eta[rows, :n_chains])
+        if rows and writer is not None:
+            # streamed runs append each recorded epoch's networks, chain
+            # by chain, to the text store (one transfer per chunk)
+            th_rows = trace.theta[rows, :n_chains].cpu().numpy()
+            et_rows = trace.eta[rows, :n_chains].cpu().numpy()
+            for th_j, et_j in zip(th_rows, et_rows):
+                for c in range(n_chains):
+                    h_c, lh_c = unravel_eta_np(et_j[c])
+                    writer.append(unravel_theta_np(th_j[c]), h_c, lh_c,
+                                  chain=c)
         # one device-to-host transfer of the chunk's diagnostics
         fields = [trace.sjd, trace.main_accept, trace.hyper_accept]
         if tempered:
@@ -437,6 +580,15 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             fields.append(trace.uturn.to(trace.sjd.dtype))
         sjd, m_acc, h_acc, *extra = torch.stack(fields).cpu().numpy()
         swap = extra if tempered else []
+        if tracer is not None:
+            # executed kicks per chain: the group-size-weighted mean L, and
+            # the straggler-paid max L (JAX driver.py:1258-1268)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            leap_now = np.asarray(leap_arg if traj_uturn else leapfrogs,
+                                  np.float64)
+            tracer.end_chunk(chunk, float(leap_now.mean()), n_chains,
+                             float(leap_now.max()))
         # each group's (each rung's) mean SJD feeds its adapter; the
         # recorded diagnostics cover the cold chains
         sjd_grp = sjd.reshape(chunk, n_grp, grp_chains).mean(axis=2)
@@ -472,10 +624,26 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                       f"{h_acc[j, :n_chains].mean():.4f}"
                       + (f", swap rate {swap[0][j].mean():.4f}" if swap
                          else ""))
+                _display_metrics(model, likelihood, flat, trace, j,
+                                 metric_list, x_train, y_train, x_validate,
+                                 y_validate)
 
+        chunks_done += 1
+        if checkpoint_dir and checkpoint_every and \
+                chunks_done % checkpoint_every == 0:
+            save_checkpoint()
+
+    if checkpoint_dir:
+        save_checkpoint()
     if theta_rows:
-        theta_stack = torch.cat(theta_rows).cpu().numpy()   # (S, C, D)
-        eta_stack = torch.cat(eta_rows).cpu().numpy()
+        saved_theta.append(torch.cat(theta_rows).cpu().numpy())
+        saved_eta.append(torch.cat(eta_rows).cpu().numpy())
+
+    if saved_theta:
+        theta_stack = (saved_theta[0] if len(saved_theta) == 1
+                       else np.concatenate(saved_theta))     # (S, C, D)
+        eta_stack = (saved_eta[0] if len(saved_eta) == 1
+                     else np.concatenate(saved_eta))
         s, c, d = theta_stack.shape
         pooled_theta = np.transpose(theta_stack, (1, 0, 2)).reshape(s * c, d)
         pooled_eta = np.transpose(eta_stack, (1, 0, 2)).reshape(s * c, -1)
@@ -488,6 +656,18 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         param_samples = tuple({} for _ in model.layers)
         hyper_samples = tuple({} for _ in model.layers)
         lik_hyper_samples = {}
+
+    if writer is not None:
+        writer.close()
+    elif folder_name is not None and saved_theta:
+        # the reference text store and the npz store, both chain-major
+        # with each network's chain id
+        chain_ids = np.repeat(np.arange(n_chains), s)
+        reference_format.save_run(
+            folder_name, model, likelihood, param_samples, hyper_samples,
+            lik_hyper_samples, networks_per_file, chain_ids=chain_ids)
+        checkpoint.save_samples(folder_name, param_samples, hyper_samples,
+                                lik_hyper_samples, chain_index=chain_ids)
 
     return RunResult(
         param_samples=param_samples,
@@ -514,4 +694,54 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         eta_samples=eta_stack,
         fused_main=main_path != "plain",
         fused_hyper=hyper_traj is not None,
-        main_path=main_path)
+        main_path=main_path,
+        resume_epoch=resume_epoch)
+
+
+def _display_metrics(model, likelihood, flat, trace, j, metric_list,
+                     x_train, y_train, x_validate, y_validate) -> None:
+    """Prints each metric and the likelihood's hypers on chain 0's sample
+    of chunk row ``j`` (JAX driver.py:1333-1348)."""
+    if metric_list:
+        p = flat.unravel_theta(trace.theta[j, 0])
+        preds_train = model.apply(p, x_train)
+        preds_val = (model.apply(p, x_validate) if x_validate is not None
+                     else preds_train)
+        real_val = y_validate if y_validate is not None else y_train
+        for metric in metric_list:
+            metric.calculate(preds_train, preds_val, y_train, real_val)
+            print(metric.display())
+    _, lik_hypers = flat.unravel_eta(trace.eta[j, 0])
+    msg = likelihood.display(lik_hypers)
+    if msg:
+        print(msg)
+
+
+def _run_fingerprint(config: MCMCConfig, model, likelihood, theta_dim: int,
+                     eta_dim: int, n_chains: int, sampling_step: int, dtype,
+                     n_adapters: int = 1, trajectory: str = "adapter",
+                     tempering: Optional[str] = None) -> dict:
+    """JSON-safe identity of a sampling run, for resume validation: the
+    JAX driver's keys (``_run_fingerprint``, driver.py:1470-1513), the
+    dtype under its numpy name."""
+    layers = []
+    for layer in model.layers:
+        desc = type(layer).__name__
+        if hasattr(layer, "in_dim") and hasattr(layer, "out_dim"):
+            desc += f"({layer.in_dim},{layer.out_dim})"
+        layers.append(desc)
+    fp = {} if n_adapters == 1 else {"n_adapters": int(n_adapters)}
+    if trajectory != "adapter":
+        fp = fp | {"trajectory": trajectory}
+    if tempering is not None:
+        fp = fp | {"tempering": tempering}
+    return fp | {
+        "config": dataclasses.asdict(config),
+        "layers": layers,
+        "likelihood": type(likelihood).__name__,
+        "theta_dim": int(theta_dim),
+        "eta_dim": int(eta_dim),
+        "n_chains": int(n_chains),
+        "sampling_step": int(sampling_step),
+        "dtype": str(dtype).removeprefix("torch."),
+    }

@@ -191,7 +191,11 @@ def test_import_loads_no_jax():
             "tensorbnn_tpu_torch.ops.fused_hyper, "
             "tensorbnn_tpu_torch.sampler.tempering, "
             "tensorbnn_tpu_torch.utils.autocorr, "
-            "tensorbnn_tpu_torch.utils.diagnostics; "
+            "tensorbnn_tpu_torch.utils.diagnostics, "
+            "tensorbnn_tpu_torch.utils.tracing, tensorbnn_tpu_torch.metrics, "
+            "tensorbnn_tpu_torch.predictor, tensorbnn_tpu_torch.models.mlp, "
+            "tensorbnn_tpu_torch.io.checkpoint, "
+            "tensorbnn_tpu_torch.io.reference_format; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tensorbnn_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -225,12 +225,11 @@ def test_network_train_runs_on_cpu(n_chains, n_adapters):
 def test_network_train_rejects_what_the_port_does_not_carry():
     net = _small_network()
     lik = T.FixedGaussianLikelihood(sd=0.1)
-    for option in (dict(folder_name="run"), dict(numerics="exact"),
+    for option in (dict(max_dispatch_seconds=25.0), dict(numerics="exact"),
                    dict(compensated=True), dict(precondition=0),
                    dict(state_layout="tree"), dict(data_chunk=4),
-                   dict(mesh=object()), dict(metricList=[object()])):
-        with pytest.raises(NotImplementedError, match=next(iter(option))
-                           .replace("metricList", "metric_list")):
+                   dict(mesh=object()), dict(donate=True)):
+        with pytest.raises(NotImplementedError, match=next(iter(option))):
             net.train(2, 1, lik, verbose=False, **option)
     with pytest.raises(TypeError, match="no_such_option"):
         net.train(2, 1, lik, verbose=False, no_such_option=1)
@@ -442,8 +441,8 @@ class _Ran(Exception):
 
 def test_memory_policy_raises_before_any_epoch(monkeypatch):
     """keep_samples="auto" refuses a run whose recorded samples project
-    past 2 GiB before any epoch runs (JAX driver.py:786-800);
-    keep_samples=True buffers them."""
+    past 2 GiB, and that has no folder to stream them to, before any epoch
+    runs (JAX driver.py:786-805); keep_samples=True buffers them."""
     from tensorbnn_tpu_torch.sampler import driver
 
     def runner(*args, **kwargs):
