@@ -57,11 +57,12 @@ import time
 
 import torch
 
+from chip_smoke import device_events
+
 #: kernel-name substrings of each hand-written kernel
 GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
           ("K3", ("gemm_kernel", "tail_kernel", "slope_grad_kernel",
                   "slice_sum_kernel")))
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: kernels listed by name, the most expensive first
 TOP_KERNELS = 8
 
@@ -92,7 +93,7 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
     def chunk():
         state[0], _ = run(state[0], eps, steps, epochs, gen)
 
-    events = profiled_events(chunk, 1)
+    events = device_events(chunk, 1)
     carry = state[0]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in events)
@@ -118,27 +119,6 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
     return carry, busy / 1e3 / epochs, group_rows, top
 
 
-def profiled_events(fn, reps):
-    """Device events (kernels and copies) of ``reps`` calls of ``fn``,
-    from a chrome trace of ``torch.profiler``."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
-        trace_path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace_path)
-        with open(trace_path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") in DEVICE_CATS and "dur" in e]
-    if not events:
-        raise RuntimeError("the profiler recorded no device activity")
-    return events
-
-
 def glue_breakdown(glue, reps=50):
     """Enqueue ms, wall ms, device ms and launches per call of ``glue``."""
     glue()
@@ -149,7 +129,7 @@ def glue_breakdown(glue, reps=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    events = profiled_events(glue, reps)
+    events = device_events(glue, reps)
     return {"enqueue_ms": 1e3 * (t1 - t0) / reps,
             "wall_ms": 1e3 * (t2 - t0) / reps,
             "device_ms": sum(float(e["dur"]) for e in events) / 1e3 / reps,
@@ -291,7 +271,7 @@ def predict_breakdown(dev, card, reps=10):
         call_ms[label] = 1e3 * (time.perf_counter() - t0) / reps
         del got
     rows = {}
-    for e in profiled_events(lambda: pred.predict(x), reps):
+    for e in device_events(lambda: pred.predict(x), reps):
         key = e["name"][:80] if e["cat"] == "kernel" else e["cat"]
         ms, n = rows.get(key, (0.0, 0))
         rows[key] = (ms + float(e["dur"]) / 1e3, n + 1)
@@ -319,7 +299,7 @@ def k3_call_breakdown(dev, gen, card, reps=5):
     x, y = net.train_x, net.train_y
     vg(thetas, 1.0, x, y)
     rows = {}
-    for e in profiled_events(lambda: vg(thetas, 1.0, x, y), reps):
+    for e in device_events(lambda: vg(thetas, 1.0, x, y), reps):
         if e["cat"] == "kernel":
             ms, n = rows.get(e["name"][:80], (0.0, 0))
             rows[e["name"][:80]] = (ms + float(e["dur"]) / 1e3, n + 1)

@@ -83,7 +83,19 @@ script exits non-zero:
    K2 at its phase 4 shapes (each also in device time), K3 at the
    tutorial and digits
    shapes, the steady 64-chain leapfrog rates of the flagship at (eps, L)
-   = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20).
+   = (1e-3, 100) and of ``wide_deep`` at (1e-5, 20);
+9. MAP pretraining, the tensorBNN shim and the examples on the card, from
+   generators of their own: pretraining at the JAX bench's surrogate shape
+   (1M x 8 points, 2 x 64 tanh, batch 8,192, 4 epochs) and at the
+   tutorial's (784-20-20-1 with trained slopes over the tutorial-shaped
+   rows, batch 32, 3 cycles x 10 epochs), each with its seconds an epoch,
+   optimizer steps a second, launches a step and idle share, the
+   tutorial's first cycle held against the same call on the CPU;
+   ``extended_regression --smoke`` (K1 + K2) and ``classification
+   --smoke`` (K1) through their ``main``, held to the JAX examples'
+   figures; the tutorial-shaped BNN warm-started from its pretraining, on
+   K3; the reference-style shim script and its ``predictor``, as a
+   ``{"pretrain": ...}`` line.
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -194,6 +206,33 @@ PREDICT_NETS, PREDICT_POINTS, PREDICT_MACS = 2000, 4096, 220
 # some are censored (from the flagship's own prior, the trajectories that
 # turn within 200 steps are those that diverge, where float32 orders drift)
 UTURN_PRIOR_SD = (0.02, 0.06)
+# phase 9 (a): the JAX bench's surrogate pretraining
+# (benchmarks/run_benchmarks.py:893-907): 1M x 8 N(0, 1) points from
+# default_rng(1), y = sin(sum x) + 0.1 N(0, 1), 8-64-64-1 tanh, batch 8,192,
+# one cycle of 4 epochs without callbacks, validation on the first 4,096
+# rows
+SURROGATE_POINTS, SURROGATE_IN, SURROGATE_WIDTH = 1_000_000, 8, 64
+SURROGATE_BATCH, SURROGATE_EPOCHS = 8192, 4
+# the tutorial's pretraining (examples/digits_classification.py:78-84 at
+# MNIST width): 784-20-20-1 leaky relu with trained slopes over
+# tutorial_data(), batch 32, 3 cycles x 10 epochs, patience 10; validation
+# on MNIST's other 20% of 3s and 8s (2,397 rows, default_rng(15)),
+# labelled by the same plane
+TUTORIAL_VAL_ROWS, TUTORIAL_CYCLES, TUTORIAL_EPOCHS = 2397, 3, 10
+# the card's tutorial pretraining against the CPU's over the first cycle,
+# from the same init and batches: the final train and validation losses
+# (float64 on the host) within this relative tolerance: the two differ only
+# in float32 summation orders, which this cycle does not amplify (~1e-7 on
+# an H100 80GB HBM3)
+PRETRAIN_LOSS_RTOL = 1e-3
+# the JAX examples' own figures at --smoke (`JAX_PLATFORMS=cpu python3
+# jax_reference_stats.py examples`, which runs examples/<name>.py --cpu
+# --smoke, on a CPU): extended_regression's grid RMSE and classification's
+# posterior-ensemble validation accuracy; statistics of the sampler, not
+# of the chip. The port's runs must reach a grid RMSE of at most 1.5x the
+# first and an accuracy of at least the second less 0.05
+JAX_EXAMPLE_REF = {"extended_regression": 0.0549, "classification": 0.990}
+EXAMPLE_RMSE_FACTOR, EXAMPLE_ACCURACY_DROP = 1.5, 0.05
 
 
 def phase(name):
@@ -299,24 +338,44 @@ def multiclass_network(device, seed=0):
     return net, CategoricalLikelihood()
 
 
-def tutorial_network(device, seed=0):
+def tutorial_data():
+    """``TUTORIAL_ROWS`` rows of uniform [0, 1) pixels (``default_rng(5)``;
+    MNIST is not in the repository) labelled by a fixed random hyperplane
+    through the pixels' mean; returns the rows, labels and the plane's
+    normal."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(TUTORIAL_ROWS, 784)).astype(np.float32)
+    plane = rng.normal(size=784)
+    y = ((x - 0.5) @ plane > 0).astype(np.float32)
+    return x, y, plane
+
+
+def tutorial_network(device, seed=0, warm=None):
     """The reference's classification tutorial stack at MNIST 3-vs-8 width
     (examples/digits_classification.py:18-20, :81-103 with 784 inputs):
     GaussianDense(784, 20), SquarePrelu(20, alpha=sqrt(0.1)),
     GaussianDense(20, 20), SquarePrelu(20), GaussianDense(20, 1), Sigmoid,
-    Bernoulli, over ``TUTORIAL_ROWS`` rows of uniform [0, 1) pixels
-    (``default_rng(5)``; MNIST is not in the repository) labelled by a
-    fixed random hyperplane through the pixels' mean."""
+    Bernoulli, over ``tutorial_data()``. ``warm``, pretraining's
+    ``(weights, biases, activations)``, warm-starts the dense layers and
+    the slopes, as the tutorial does."""
     from tensorbnn_tpu_torch import BernoulliLikelihood, GaussianDenseLayer, \
         Network, Sigmoid, SquarePrelu
-    rng = np.random.default_rng(5)
-    x = rng.uniform(size=(TUTORIAL_ROWS, 784)).astype(np.float32)
-    y = ((x - 0.5) @ rng.normal(size=784) > 0).astype(np.float32)
+    from tensorbnn_tpu_torch.training.pretrain import dense_warm_start, \
+        squareprelu_warm_start
+
+    starts = [None] * 5
+    if warm is not None:
+        w, b, a = warm
+        starts = [dense_warm_start(w, b, 0), squareprelu_warm_start(a, 0),
+                  dense_warm_start(w, b, 1), squareprelu_warm_start(a, 1),
+                  dense_warm_start(w, b, 2)]
+    x, y, _ = tutorial_data()
     net = Network(torch.float32, 784, x, y, x, y, seed=seed, device=device)
-    net.add(GaussianDenseLayer(784, 20))
-    net.add(SquarePrelu(20, alpha=math.sqrt(0.1)))
-    net.add(GaussianDenseLayer(20, 20)).add(SquarePrelu(20))
-    net.add(GaussianDenseLayer(20, 1)).add(Sigmoid())
+    net.add(GaussianDenseLayer(784, 20), parameters=starts[0])
+    net.add(SquarePrelu(20, alpha=math.sqrt(0.1)), parameters=starts[1])
+    net.add(GaussianDenseLayer(20, 20), parameters=starts[2])
+    net.add(SquarePrelu(20), parameters=starts[3])
+    net.add(GaussianDenseLayer(20, 1), parameters=starts[4]).add(Sigmoid())
     return net, BernoulliLikelihood()
 
 
@@ -647,6 +706,30 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(fn, reps=1):
+    """Device events (kernels and copies) of ``reps`` calls of ``fn``,
+    from a chrome trace of ``torch.profiler``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    return events
+
+
 def device_ms(fn, reps=10):
     """Mean milliseconds per call on the card with the host's time taken
     out: the stream is held by a sleeping kernel while the host enqueues
@@ -920,6 +1003,313 @@ def store_phase(dev, reset_counts, read_counts) -> dict:
         del preds, pred, ens, ens64, want, y_dev, pinned
     print(json.dumps({"store": out}), flush=True)
     return out
+
+
+def host_loss(out, x, y, classification, tanh=False):
+    """The pretraining loss of returned parameters ``(weights, biases,
+    activations)`` (leaky relu at the activations' slopes, or tanh) over
+    ``(x, y)``, in float64 on the host."""
+    w, b, a = out
+    h = np.asarray(x, np.float64)
+    for i in range(len(w)):
+        h = h @ np.asarray(w[i], np.float64).T + np.asarray(
+            b[i], np.float64).reshape(-1)
+        if i < len(w) - 1:
+            h = np.tanh(h) if tanh else np.where(
+                h < 0, np.asarray(a[i], np.float64) * h, h)
+    y = np.asarray(y, np.float64).reshape(h.shape)
+    if not classification:
+        return float(np.mean((h - y) ** 2))
+    p = np.clip(1.0 / (1.0 + np.exp(-h)), 1e-7, 1 - 1e-7)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log1p(-p)))
+
+
+def pretrain_cell(label, run, cycles, epochs, n_batches, card) -> tuple:
+    """Times pretraining at one shape on the card. ``run(cycles, epochs)``
+    calls the entry point with the shape's configuration at ``cycles``
+    cycles of ``epochs`` epochs and returns its result. An epoch's wall is
+    that of the configured call less that of the same call with no epoch
+    (data to the card, init); launches a step and device time an epoch
+    come from ``torch.profiler`` over a one-epoch call less a no-epoch
+    call. Returns the configured call's result and the statistics."""
+    def wall(c, e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(c, e)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, total_s = wall(cycles, epochs)
+    _, setup_s = wall(cycles, 0)
+    epoch_s = (total_s - setup_s) / (cycles * epochs)
+    one, none = (device_events(lambda e=e: run(1, e)) for e in (1, 0))
+    busy_s = (sum(float(e["dur"]) for e in one)
+              - sum(float(e["dur"]) for e in none)) / 1e6
+    # the epoch's device time by kernel (the set-up's few launches in)
+    kernels = {}
+    for e in one:
+        ms, n = kernels.get(e["name"][:60], (0.0, 0))
+        kernels[e["name"][:60]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    top = [[name, ms, n / n_batches] for name, (ms, n) in sorted(
+        kernels.items(), key=lambda kv: -kv[1][0])[:6]]
+    stats = {"epoch_s": epoch_s, "steps_per_sec": n_batches / epoch_s,
+             "launches_per_step": (len(one) - len(none)) / n_batches,
+             "device_ms_per_epoch": 1e3 * busy_s,
+             "idle_share": 1.0 - busy_s / epoch_s, "call_s": total_s,
+             "setup_s": setup_s, "steps_per_epoch": n_batches,
+             "top_kernels_ms_per_epoch_and_launches_per_step": top}
+    print(f"pretraining, {label}: {epoch_s:.4f} s an epoch, "
+          f"{stats['steps_per_sec']:,.1f} optimizer steps/sec, "
+          f"{stats['launches_per_step']:.2f} launches a step "
+          f"(torch.profiler over one epoch), device "
+          f"{stats['device_ms_per_epoch']:.3f} ms an epoch, idle share "
+          f"{stats['idle_share']:.4f}; the call {total_s:.3f} s "
+          f"({cycles} x {epochs} epochs of {n_batches} steps, set-up "
+          f"{setup_s:.3f} s) ({card})", flush=True)
+    return out, stats
+
+
+def pretrain_phase(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 9: MAP pretraining, the tensorBNN shim and the examples on the
+    card, from generators of its own. (a) pretraining at the JAX bench's
+    surrogate shape and at the tutorial's, each timed (seconds an epoch,
+    optimizer steps a second, launches a step, idle share), the
+    tutorial's first cycle held against the same call on the CPU (same
+    init, same batches); (b) ``extended_regression --smoke`` and
+    ``classification --smoke`` through their ``main`` on the card, their
+    launches counted and their figures held against the JAX examples'; (c)
+    the tutorial-shaped BNN warm-started from (a)'s weights and slopes, on
+    K3; (d) the reference-style shim script (the JAX shim's test script
+    with its import prefix changed) and its ``predictor`` on the card."""
+    from tensorbnn_tpu_torch.examples import classification, \
+        extended_regression
+    from tensorbnn_tpu_torch.ops import _build
+    from tensorbnn_tpu_torch.training import pretrain
+
+    out = {"card": card}
+    # (a) the surrogate's pretraining
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(SURROGATE_POINTS, SURROGATE_IN)).astype(np.float32)
+    y = (np.sin(x.sum(axis=1)) + 0.1 * rng.normal(
+        size=SURROGATE_POINTS)).astype(np.float32)
+
+    def surrogate(cycles, epochs):
+        return pretrain.train_basic_regression(
+            2, SURROGATE_IN, 1, SURROGATE_WIDTH, cycles=cycles,
+            epochs=epochs, alpha=0.1, train_in=x, train_out=y,
+            val_in=x[:4096], val_out=y[:4096], batch_size=SURROGATE_BATCH,
+            callbacks=False, hidden_activation="tanh", device=dev)
+
+    res, out["surrogate"] = pretrain_cell(
+        f"surrogate {SURROGATE_POINTS:,} x {SURROGATE_IN}, 2 x "
+        f"{SURROGATE_WIDTH} tanh, batch {SURROGATE_BATCH}", surrogate, 1,
+        SURROGATE_EPOCHS, SURROGATE_POINTS // SURROGATE_BATCH, card)
+    # the fit against the data's noise floor (sd 0.1: an MSE of 0.01)
+    out["surrogate"]["val_mse"] = host_loss(res, x[:4096], y[:4096], False,
+                                            tanh=True)
+    print(f"surrogate pretraining: validation MSE "
+          f"{out['surrogate']['val_mse']:.5f} ({card})")
+    del x, y
+
+    # the tutorial's pretraining
+    tx, ty, plane = tutorial_data()
+    vx = np.random.default_rng(15).uniform(
+        size=(TUTORIAL_VAL_ROWS, 784)).astype(np.float32)
+    vy = ((vx - 0.5) @ plane > 0).astype(np.float32)
+
+    def tutorial(cycles, epochs, device=dev):
+        # the init is drawn on the host from the seed: the same on every
+        # device
+        return pretrain.train_basic_classification(
+            2, 784, 1, 20, cycles, epochs, 0.1, tx, ty, vx, vy,
+            patience=10, train_slopes=True, device=device)
+
+    warm, out["tutorial"] = pretrain_cell(
+        f"tutorial {TUTORIAL_ROWS:,} x 784, 20-20 leaky relu with slopes, "
+        f"batch 32", tutorial, TUTORIAL_CYCLES, TUTORIAL_EPOCHS,
+        TUTORIAL_ROWS // 32, card)
+    # the first cycle on the card and on the CPU
+    first = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        res = tutorial(1, TUTORIAL_EPOCHS, device=device)
+        wall_s = time.perf_counter() - t0
+        first[label] = {
+            "train_loss": host_loss(res, tx, ty, True),
+            "val_loss": host_loss(res, vx, vy, True), "wall_s": wall_s}
+        assert all(np.isfinite(a).all() for part in res for a in part)
+    card_first, cpu_first = first["card"], first["cpu"]
+    rel = {k: abs(card_first[k] - cpu_first[k]) / abs(cpu_first[k])
+           for k in ("train_loss", "val_loss")}
+    out["tutorial_first_cycle"] = {"card": card_first, "cpu": cpu_first,
+                                   "rel_diff": rel}
+    print(f"tutorial pretraining, first cycle ({TUTORIAL_EPOCHS} epochs) "
+          f"from the same init and batches: train / validation loss card "
+          f"{card_first['train_loss']:.8f} / {card_first['val_loss']:.8f} "
+          f"({card_first['wall_s']:.2f} s), CPU "
+          f"{cpu_first['train_loss']:.8f} / {cpu_first['val_loss']:.8f} "
+          f"({cpu_first['wall_s']:.2f} s); relative differences "
+          f"{rel['train_loss']:.3e} / {rel['val_loss']:.3e} (tolerance "
+          f"{PRETRAIN_LOSS_RTOL}) ({card})", flush=True)
+    if max(rel.values()) > PRETRAIN_LOSS_RTOL:
+        raise AssertionError(f"tutorial pretraining: the card's losses are "
+                             f"off the CPU's: {first}")
+    out["tutorial"].update(train_loss=host_loss(warm, tx, ty, True),
+                           val_loss=host_loss(warm, vx, vy, True))
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        # (b) the two examples through their main on the card
+        examples = {}
+        for name, module, want in (
+                ("extended_regression", extended_regression,
+                 {"K1": 800, "K2": 800, "K3": 0}),
+                ("classification", classification,
+                 {"K1": 500, "K2": 0, "K3": 0})):
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = module.main(["--smoke", "--folder",
+                                 os.path.join(tmp, name)])
+            torch.cuda.synchronize()
+            stats["main_wall_s"] = time.perf_counter() - t0
+            stats["launches"] = read_counts(f"{name} --smoke")
+            examples[name] = stats
+            if stats["main_path"] != "K1" or stats["launches"] != want:
+                raise AssertionError(f"{name} --smoke did not run on "
+                                     f"{want} launches: {stats}")
+        rmse = examples["extended_regression"]["grid_rmse"]
+        acc = examples["classification"]["accuracy"]
+        rmse_max = EXAMPLE_RMSE_FACTOR * JAX_EXAMPLE_REF[
+            "extended_regression"]
+        acc_min = JAX_EXAMPLE_REF["classification"] - EXAMPLE_ACCURACY_DROP
+        print(f"examples --smoke on the card: extended_regression grid RMSE "
+              f"{rmse:.4f} (JAX example {JAX_EXAMPLE_REF['extended_regression']}"
+              f", gate <= {rmse_max:.4f}), "
+              f"{examples['extended_regression']['main_wall_s']:.2f} s; "
+              f"classification posterior-ensemble validation accuracy "
+              f"{acc:.3f} (JAX example {JAX_EXAMPLE_REF['classification']}, "
+              f"gate >= {acc_min:.3f}), "
+              f"{examples['classification']['main_wall_s']:.2f} s ({card})",
+              flush=True)
+        out["examples"] = examples
+        if rmse > rmse_max or acc < acc_min:
+            raise AssertionError(f"examples off the JAX examples' figures: "
+                                 f"{examples}")
+
+        # (c) the tutorial-shaped BNN warm-started from (a)
+        tnet, tlik = tutorial_network(dev, warm=warm)
+        params, _ = tnet.init_state()
+        np.testing.assert_array_equal(params[0]["w"].cpu().numpy(),
+                                      warm[0][0].T)
+        tnet.setup_mcmc(burnin=3, step_size_start=1e-3, step_size_min=1e-3,
+                        step_size_max=1e-3, leapfrog_start=20,
+                        leapfrog_min=20, leapfrog_max=20, hyper_leapfrog=30,
+                        hyper_step_size=1e-5, averaging_steps=10)
+        reset_counts()
+        tres = tnet.train(6, 1, tlik, n_chains=64, chain_jitter=0.01,
+                          verbose=False)
+        counts = read_counts("warm-started tutorial-shaped model (K3)")
+        out["warm_tutorial"] = {
+            "main_path": tres.main_path, "launches": counts,
+            "main_accept": tres.main_accept.tolist(),
+            "train_accuracy": train_accuracy(tnet, tres),
+            "wall_s": tres.wall_time}
+        print(f"warm-started tutorial-shaped BNN: main_path "
+              f"{tres.main_path!r}, K3 launches {counts['K3']}, main "
+              f"acceptance {np.round(tres.main_accept, 4).tolist()}, "
+              f"training accuracy of the posterior mean "
+              f"{out['warm_tutorial']['train_accuracy']:.4f}, "
+              f"{tres.wall_time:.2f} s ({card})", flush=True)
+        if (tres.main_path != "K3" or counts["K3"] != 6 * 21
+                or counts["K1"] or counts["K2"]):
+            raise AssertionError(f"warm-started tutorial: expected K3 "
+                                 f"alone, 126 launches: {out['warm_tutorial']}")
+        assert np.isfinite(tres.theta_samples).all()
+        del tnet, tres
+
+        # (d) the reference-style shim script, its import prefix changed
+        folder = os.path.join(tmp, "TrigRegression")
+        reset_counts()
+        net = reference_shim_script(folder)
+        shim_counts = read_counts("reference-style shim script")
+        from tensorbnn_tpu_torch.tensorBNN.likelihood import \
+            FixedGaussianLikelihood
+        from tensorbnn_tpu_torch.tensorBNN.predictor import predictor
+        pred = predictor(folder + "/", likelihood=FixedGaussianLikelihood(
+            sd=0.1))
+        train_in = np.linspace(-2, 2, num=11)
+        results = pred.predict(train_in[:, None], n=1)
+        assert isinstance(results, list) and all(
+            r.shape == (1, 11) for r in results), [r.shape for r in results]
+        assert np.isfinite(np.stack(results)).all()
+        tau = pred.autoCorrelationLength(train_in[:, None], 50)
+        assert np.isfinite(tau), tau
+        mats = pred.extractParameters()
+        own = net.results.param_samples
+        dense = [i for i, p in enumerate(own) if "w" in p]
+        assert len(mats) == 2 * len(dense)
+        for j, i in enumerate(dense):
+            np.testing.assert_array_equal(mats[2 * j],
+                                          np.swapaxes(own[i]["w"], -1, -2))
+            np.testing.assert_array_equal(mats[2 * j + 1],
+                                          own[i]["b"][..., None])
+        out["shim"] = {"networks": len(results), "tau": tau,
+                       "launches": shim_counts,
+                       "main_path": net.results.main_path}
+        print(f"reference-style shim script on the card: {len(results)} "
+              f"networks, predict -> list of {results[0].shape} arrays, "
+              f"autoCorrelationLength {tau:.4f}, extractParameters equal "
+              f"to the run's samples bit for bit; launches {shim_counts} "
+              f"({card})", flush=True)
+        if shim_counts["K1"] != 120 or shim_counts["K3"]:
+            raise AssertionError(f"shim script: expected K1 once an epoch: "
+                                 f"{shim_counts}")
+        del pred, net
+    print(json.dumps({"pretrain": out}), flush=True)
+    return out
+
+
+def reference_shim_script(folder):
+    """The reference-style script of tests/test_compat_shim.py:11-59 with
+    its import prefix changed to ``tensorbnn_tpu_torch.``; runs on the card
+    (the shim's default device). Returns its network."""
+    from tensorbnn_tpu_torch.tensorBNN.activationFunctions import Tanh
+    from tensorbnn_tpu_torch.tensorBNN.layer import GaussianDenseLayer
+    from tensorbnn_tpu_torch.tensorBNN.networkFinal import network
+    from tensorbnn_tpu_torch.tensorBNN.likelihood import \
+        FixedGaussianLikelihood
+    from tensorbnn_tpu_torch.tensorBNN.metrics import SquaredError, \
+        PercentError
+
+    trainIn = np.linspace(-2, 2, num=11)
+    valIn = np.linspace(-2 + 2 / 30, 2.0 - 2 / 30, num=30)
+    trainOut = np.sin(trainIn * math.pi * 2) * trainIn \
+        - np.cos(trainIn * math.pi)
+    valOut = np.sin(valIn * math.pi * 2) * valIn - np.cos(valIn * math.pi)
+    dtype = np.float32
+
+    likelihood = FixedGaussianLikelihood(sd=0.1)
+    metricList = [SquaredError(mean=0, sd=1), PercentError(mean=0, sd=1)]
+
+    neuralNet = network(dtype, 1, trainIn, trainOut.T, valIn, valOut.T)
+    seed = 1000
+    neuralNet.add(GaussianDenseLayer(1, 10, seed=seed, dtype=dtype))
+    neuralNet.add(Tanh())
+    neuralNet.add(GaussianDenseLayer(10, 10, seed=seed + 1000, dtype=dtype))
+    neuralNet.add(Tanh())
+    neuralNet.add(GaussianDenseLayer(10, 1, seed=seed + 2000, dtype=dtype))
+
+    neuralNet.setupMCMC(
+        stepSizeStart=1e-3, stepSizeMin=1e-4, stepSizeMax=1e-2,
+        stepSizeOptions=20, leapfrogStart=30, leapfogMin=10,
+        leapFrogMax=60, leapfrogIncrement=2, hyperStepSize=0.001,
+        hyperLeapfrog=15, burnin=40, cores=4, averagingSteps=5,
+        randomSteps=3)
+
+    neuralNet.train(
+        120, 4, likelihood, metricList=metricList, adjustHypers=True,
+        folderName=folder, networksPerFile=10, displaySkip=60)
+    return neuralNet
 
 
 def main() -> int:
@@ -2046,6 +2436,10 @@ def main() -> int:
          "plan": k3_shapes[tut_label][0].args[0].plan(64).layers,
          "he_init_grad_err": he_err},
     ]
+
+    phase("9 pretraining, the shim and the examples on the card")
+    pretrain_phase(dev, card, reset_counts, read_counts)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

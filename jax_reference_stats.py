@@ -11,6 +11,15 @@ jitter 0.01, hyper step 1e-4, one warm-up chunk of 10 epochs and five more
 chunk (epochs 51-60); the hyper acceptance of the same chunk is read from
 the traces its chunk runner returns. These are statistics of the sampler,
 not of any chip. Prints one JSON line per cell.
+
+``JAX_PLATFORMS=cpu python3 jax_reference_stats.py examples`` prints
+instead the JAX examples' figures at ``--smoke`` that ``chip_smoke.py``'s
+phase 9 holds the port's examples to: ``examples/extended_regression.py``'s
+grid RMSE and ``examples/classification.py``'s posterior-ensemble
+validation accuracy, each through its ``main`` at the example's own
+seeds, then ``extended_regression``'s grid RMSE with its pretraining and
+``Network`` seeds both moved to 1000 + k, k = 1..6 (the spread over
+initial weights). One JSON line per run (~30 s each).
 """
 
 import json
@@ -20,7 +29,63 @@ import time
 import numpy as np
 
 
+def example_figure(name, pattern, seed=None) -> float:
+    """The figure ``pattern`` ("<label>: <number>") that the JAX example
+    ``name`` prints at ``--cpu --smoke``; with ``seed``, its pretraining
+    and ``Network`` seeds are both ``seed``."""
+    import contextlib
+    import functools
+    import importlib.util
+    import io
+    import re
+    import tempfile
+
+    import tensorbnn_tpu.network as net_mod
+    import tensorbnn_tpu.training.pretrain as pre_mod
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", f"examples/{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    saved = (net_mod.Network, pre_mod.train_basic_regression, sys.argv)
+    if seed is not None:
+        class Seeded(saved[0]):
+            def __init__(self, *args, **kwargs):
+                kwargs["seed"] = seed
+                super().__init__(*args, **kwargs)
+        net_mod.Network = Seeded
+        pre_mod.train_basic_regression = functools.partial(saved[1],
+                                                           seed=seed)
+    out = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            sys.argv = [name, "--cpu", "--smoke", "--folder", f"{tmp}/run"]
+            with contextlib.redirect_stdout(out):
+                module.main()
+    finally:
+        net_mod.Network, pre_mod.train_basic_regression, sys.argv = saved
+    return float(re.search(pattern + r": ([0-9.]+)", out.getvalue())[1])
+
+
+def examples() -> int:
+    runs = [("extended_regression", "grid RMSE", None),
+            ("classification", "posterior-ensemble validation accuracy",
+             None)]
+    runs += [("extended_regression", "grid RMSE", 1000 + k)
+             for k in range(1, 7)]
+    for name, pattern, seed in runs:
+        t0 = time.perf_counter()
+        value = example_figure(name, pattern, seed)
+        print(json.dumps({"example": name, "flags": "--cpu --smoke",
+                          "seed": seed or "the example's", pattern: value,
+                          "cpu_seconds": time.perf_counter() - t0}),
+              flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["examples"]:
+        return examples()
     from benchmarks import run_benchmarks as rb
     from tensorbnn_tpu import BernoulliLikelihood, CategoricalLikelihood, \
         GaussianDenseLayer, Sigmoid, Softmax, SquarePrelu, Tanh

@@ -16,7 +16,10 @@ module), and the hyper block's trajectory in a third (K2,
 another device. Runs keep their posterior in the reference text store and
 an npz store (``folder_name``), resume from a checkpoint
 (``checkpoint_dir``), and ``Predictor`` runs the saved ensemble on the
-card (``predictor.py``).
+card (``predictor.py``). MAP pretraining for warm starts is
+``training/pretrain.py``; ``tensorbnn_tpu_torch.tensorBNN`` is the
+reference's import surface over this package, and ``examples/`` holds the
+JAX package's examples (``python -m tensorbnn_tpu_torch.examples.<name>``).
 """
 
 from tensorbnn_tpu_torch import distributions
