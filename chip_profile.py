@@ -25,7 +25,20 @@ picks:
   (SquarePrelu + sigmoid + Bernoulli, 10-16-16-1 over 64 rows), 128
   chains at its (eps, L) = (5e-4, 50), 10 hyper steps from 1e-4: K1
   variant (d), and the plain hyper block (no stats layout for
-  SquarePrelu).
+  SquarePrelu);
+- ``surrogate``: the JAX bench's 1M-point ``surrogate_quality_exact``
+  (``chip_smoke.surrogate_network``: 8-64-64-1 tanh over 1M x 8 points,
+  MAP warm start, learned sd) at 32 chains on the plain path that
+  ``numerics="exact"`` and ``data_chunk=125,000`` take, at (eps, L) =
+  (3.2e-5, 15) (where the JAX package's full-length run settled), 5
+  hyper steps from 1e-6: the plain main and hyper blocks.
+
+``python3 chip_profile.py surrogate`` profiles the ``surrogate`` cell
+alone; with ``--full`` it then runs the bench's whole schedule through
+``Network.train`` (600 epochs, burn-in 200, every second epoch recorded)
+and prints its quality line (post-burn-in acceptance, the settled (eps,
+L), ESS of the predictive mean at the first input row per second of the
+run's wall) beside the TPU capture's statistics.
 
 Then ``K3 tutorial call``: one K3 call (value and gradient) at the
 tutorial-shaped classifier (784-20-20-1 with SquarePrelu, sigmoid and
@@ -55,6 +68,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import device_events
@@ -159,11 +173,53 @@ def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
     return out
 
 
-def main() -> int:
+def surrogate_cell(dev, gen, card, full=False):
+    """The ``surrogate`` cell (see the module docstring); with ``full`` the
+    bench's 600-epoch run after it."""
+    import chip_smoke as cs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    x, y = cs.surrogate_data()
+    warm = cs.surrogate_pretrain(dev, x, y)
+    net, lik = cs.surrogate_network(dev, x, y, warm, 200)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    run = cs.surrogate_runner(net, lik, flat, exact_numerics_model(
+        net.model), cs.SURR_CHUNK, True)
+    carry = init_multichain_state(flat.theta, flat.eta,
+                                  cs.SURR_MCMC["hyper_step_size"],
+                                  cs.SURR_CHAINS, gen)
+    cell("surrogate 32 x 1M, exact, chunk 125,000", run, carry, 3.2e-5, 15,
+         1, 2, 1, gen, card)
+    del run, carry
+    torch.cuda.empty_cache()
+    if not full:
+        return
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = net.train(600, 2, lik, n_chains=cs.SURR_CHAINS, chain_jitter=0.0,
+                    data_chunk=cs.SURR_CHUNK, numerics="exact",
+                    display_skip=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(res.theta_samples).all():
+        raise AssertionError("surrogate: non-finite samples")
+    cs.quality("surrogate 600 epochs", net, res, wall, 200, xq=x[:1],
+               card=card, main_path=res.main_path,
+               peak_memory_bytes=torch.cuda.max_memory_allocated() - held,
+               held_before_bytes=held,
+               learned_sd=float(np.mean(res.eta_samples[:, :, -1] ** 2)),
+               tpu_capture=cs.TPU_SURROGATE_REF)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device is available", file=sys.stderr)
         return 2
-    import numpy as np
 
     from chip_smoke import card_line, chunk_runner, \
         classification_network, flagship_network, wide_network
@@ -178,6 +234,9 @@ def main() -> int:
     print(card)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+    if argv[:1] == ["surrogate"]:
+        surrogate_cell(dev, gen, card, full=argv[1:] == ["--full"])
+        return 0
 
     n_rungs, n_cold = 4, 512
     ladder = make_ladder(n_rungs, 0.5)
@@ -223,6 +282,7 @@ def main() -> int:
         cell(name, run, carry, eps, steps, *sizes, gen, card, glue)
         del run, carry, net
         torch.cuda.empty_cache()
+    surrogate_cell(dev, gen, card)
     k3_call_breakdown(dev, gen, card)
     predict_breakdown(dev, card)
     return 0

@@ -95,7 +95,19 @@ script exits non-zero:
    --smoke`` (K1) through their ``main``, held to the JAX examples'
    figures; the tutorial-shaped BNN warm-started from its pretraining, on
    K3; the reference-style shim script and its ``predictor``, as a
-   ``{"pretrain": ...}`` line.
+   ``{"pretrain": ...}`` line;
+10. the 1M-point surrogate (the JAX bench's ``surrogate_quality_exact``,
+   32 chains, ``data_chunk=125,000``, ``numerics="exact"``, 40 epochs, from
+   phase 9's MAP warm start) through ``Network.train`` on the plain path,
+   with no kernel launched: its epochs' wall, the main block's ms an
+   evaluation, an epoch's busy time and idle share, peak memory and
+   acceptance; the chunked potential against the unchunked one and
+   float64 at 4 chains; the ``potential_noise`` walk at the MAP under
+   precision None, "high" (TF32) and "highest"; ``surrogate_regression
+   --smoke`` held to the JAX example's figures; the same model under
+   default numerics (K3 + K2), K3 held against the plain path, as a
+   ``{"surrogate": ...}`` line (``--surrogate-only`` runs phases 1, 2 and
+   10 alone).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -233,6 +245,40 @@ PRETRAIN_LOSS_RTOL = 1e-3
 # first and an accuracy of at least the second less 0.05
 JAX_EXAMPLE_REF = {"extended_regression": 0.0549, "classification": 0.990}
 EXAMPLE_RMSE_FACTOR, EXAMPLE_ACCURACY_DROP = 1.5, 0.05
+# phase 10: the JAX bench's surrogate_quality_exact
+# (benchmarks/run_benchmarks.py:380-640) at full width: phase 9 (a)'s data
+# and MAP warm start, 8-64-64-1 tanh Gaussian dense layers,
+# GaussianLikelihood(sd=0.1) with a learned sd, 32 chains without jitter,
+# data_chunk=125,000, numerics="exact", the exact-numerics grid; only the
+# epochs are cut (600 -> 40, burn-in 200 -> 20) to fit this script's time
+SURR_CHAINS, SURR_CHUNK = 32, 125_000
+SURR_EPOCHS, SURR_BURNIN, SURR_SAMPLING = 40, 20, 2
+SURR_MCMC = dict(step_size_start=5e-7, step_size_min=1e-8,
+                 step_size_max=5e-5, step_size_options=40, leapfrog_start=10,
+                 leapfrog_min=5, leapfrog_max=15, leapfrog_increment=5,
+                 hyper_step_size=1e-6, hyper_leapfrog=5, averaging_steps=10,
+                 random_steps=5)
+# (b) the chunked potential at 4 chains against the float64 unchunked one:
+# the value's relative error and the gradient's largest error over its
+# largest entry (float32 sums over 1M rows in two orders: ~1e-7 on an H100)
+SURR_VALUE_RTOL, SURR_GRAD_TOL = 1e-5, 1e-4
+# (c) the potential_noise walk (run_benchmarks.py:859-960): displacements
+# t along one N(0, 1) direction (numpy seed 7)
+NOISE_TS = [0.0] + [float(t) for t in np.logspace(-8, -4.5, 15)]
+# (d) examples/surrogate_regression.py --cpu --smoke's figures from the JAX
+# package (`JAX_PLATFORMS=cpu python3 jax_reference_stats.py examples` on
+# a CPU): statistics of the sampler, not of the chip. The port's --smoke on
+# the card must record the same sample count, a main acceptance within
+# 0.05 and a learned sd within 10% (the port gives 0.999 / 1.3898 on a
+# CPU, the JAX example 0.998 / 1.3733)
+JAX_SURROGATE_SMOKE = {"samples": 8, "main_accept": 0.998,
+                       "learned_sd": 1.3733}
+SURR_SMOKE_ACCEPT_TOL, SURR_SMOKE_SD_RTOL = 0.05, 0.10
+# the TPU capture of the same configuration at full length (600 epochs,
+# benchmarks/captures r5_surr_grid_exact_np): a sampler statistic to
+# match, not a speed
+TPU_SURROGATE_REF = {"main_accept": (0.70, 0.76), "step_size": 3.2e-5,
+                     "leapfrog": 15}
 
 
 def phase(name):
@@ -483,9 +529,10 @@ def rung_groups(c, n_rungs=4):
     return groups[:, 0].astype(np.float32), groups[:, 1].astype(np.int32)
 
 
-def quality(label, net, res, wall, burnin, **extra):
+def quality(label, net, res, wall, burnin, xq=None, **extra):
     """The quality figures of ``ess_run``: total ESS of the predictive mean
-    at x = 0.5 (``effective_sample_size_batch`` over chains), the worst
+    at x = 0.5 (or at the input row ``xq``;
+    ``effective_sample_size_batch`` over chains), the worst
     parameter's pooled ESS, both per second of ``wall``, and the
     post-burn-in main and hyper acceptance (and the swap rate per rung of
     a tempered run, and ``extra``). Prints them as one JSON line."""
@@ -496,7 +543,7 @@ def quality(label, net, res, wall, burnin, **extra):
     params, hypers = net.init_state()
     unravel = flatten_state(params, hypers, {}).unravel_theta
     s, c, d = res.theta_samples.shape
-    xq = torch.tensor([[0.5]], device=net.device)
+    xq = torch.tensor([[0.5]] if xq is None else xq, device=net.device)
     thetas = torch.tensor(res.theta_samples.reshape(s * c, d),
                           device=net.device)
     series = torch.func.vmap(
@@ -1069,7 +1116,7 @@ def pretrain_cell(label, run, cycles, epochs, n_batches, card) -> tuple:
     return out, stats
 
 
-def pretrain_phase(dev, card, reset_counts, read_counts) -> dict:
+def pretrain_phase(dev, card, x, y, reset_counts, read_counts) -> tuple:
     """Phase 9: MAP pretraining, the tensorBNN shim and the examples on the
     card, from generators of its own. (a) pretraining at the JAX bench's
     surrogate shape and at the tutorial's, each timed (seconds an epoch,
@@ -1080,25 +1127,20 @@ def pretrain_phase(dev, card, reset_counts, read_counts) -> dict:
     launches counted and their figures held against the JAX examples'; (c)
     the tutorial-shaped BNN warm-started from (a)'s weights and slopes, on
     K3; (d) the reference-style shim script (the JAX shim's test script
-    with its import prefix changed) and its ``predictor`` on the card."""
+    with its import prefix changed) and its ``predictor`` on the card.
+    ``(x, y)`` is the surrogate's data (``surrogate_data``). Returns the
+    statistics and the surrogate's pretrained ``(weights, biases,
+    activations)``, phase 10's warm start."""
     from tensorbnn_tpu_torch.examples import classification, \
         extended_regression
     from tensorbnn_tpu_torch.ops import _build
     from tensorbnn_tpu_torch.training import pretrain
 
     out = {"card": card}
-    # (a) the surrogate's pretraining
-    rng = np.random.default_rng(1)
-    x = rng.normal(size=(SURROGATE_POINTS, SURROGATE_IN)).astype(np.float32)
-    y = (np.sin(x.sum(axis=1)) + 0.1 * rng.normal(
-        size=SURROGATE_POINTS)).astype(np.float32)
 
+    # (a) the surrogate's pretraining
     def surrogate(cycles, epochs):
-        return pretrain.train_basic_regression(
-            2, SURROGATE_IN, 1, SURROGATE_WIDTH, cycles=cycles,
-            epochs=epochs, alpha=0.1, train_in=x, train_out=y,
-            val_in=x[:4096], val_out=y[:4096], batch_size=SURROGATE_BATCH,
-            callbacks=False, hidden_activation="tanh", device=dev)
+        return surrogate_pretrain(dev, x, y, cycles, epochs)
 
     res, out["surrogate"] = pretrain_cell(
         f"surrogate {SURROGATE_POINTS:,} x {SURROGATE_IN}, 2 x "
@@ -1109,7 +1151,7 @@ def pretrain_phase(dev, card, reset_counts, read_counts) -> dict:
                                             tanh=True)
     print(f"surrogate pretraining: validation MSE "
           f"{out['surrogate']['val_mse']:.5f} ({card})")
-    del x, y
+    surrogate_warm = res
 
     # the tutorial's pretraining
     tx, ty, plane = tutorial_data()
@@ -1266,7 +1308,7 @@ def pretrain_phase(dev, card, reset_counts, read_counts) -> dict:
                                  f"{shim_counts}")
         del pred, net
     print(json.dumps({"pretrain": out}), flush=True)
-    return out
+    return out, surrogate_warm
 
 
 def reference_shim_script(folder):
@@ -1312,7 +1354,343 @@ def reference_shim_script(folder):
     return neuralNet
 
 
-def main() -> int:
+def surrogate_data():
+    """The JAX bench's surrogate data (benchmarks/run_benchmarks.py:406-
+    410): 1M x 8 N(0, 1) points from default_rng(1), y = sin(sum x) + 0.1
+    N(0, 1)."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(SURROGATE_POINTS, SURROGATE_IN)).astype(np.float32)
+    y = (np.sin(x.sum(axis=1)) + 0.1 * rng.normal(
+        size=SURROGATE_POINTS)).astype(np.float32)
+    return x, y
+
+
+def surrogate_pretrain(dev, x, y, cycles=1, epochs=SURROGATE_EPOCHS):
+    """The surrogate's MAP pretraining (phase 9 (a)'s configuration):
+    ``(weights, biases, activations)``."""
+    from tensorbnn_tpu_torch.training import pretrain
+    return pretrain.train_basic_regression(
+        2, SURROGATE_IN, 1, SURROGATE_WIDTH, cycles=cycles, epochs=epochs,
+        alpha=0.1, train_in=x, train_out=y, val_in=x[:4096],
+        val_out=y[:4096], batch_size=SURROGATE_BATCH, callbacks=False,
+        hidden_activation="tanh", device=dev)
+
+
+def surrogate_network(dev, x, y, warm, burnin, precision=None):
+    """The bench's ``_surrogate_net`` (run_benchmarks.py:445-455) on
+    ``dev``: 8-64-64-1 tanh Gaussian dense layers warm-started from
+    ``warm``, seed 3, the first 256 rows as validation, ``SURR_MCMC`` with
+    ``burnin``; with the learned-sd ``GaussianLikelihood(sd=0.1)``."""
+    from tensorbnn_tpu_torch import GaussianDenseLayer, GaussianLikelihood, \
+        Network, Tanh
+    from tensorbnn_tpu_torch.training.pretrain import dense_warm_start
+
+    w, b, _ = warm
+    net = Network(torch.float32, SURROGATE_IN, x, y, x[:256], y[:256],
+                  seed=3, device=dev)
+    dims = [SURROGATE_IN, SURROGATE_WIDTH, SURROGATE_WIDTH, 1]
+    for i in range(3):
+        net.add(GaussianDenseLayer(dims[i], dims[i + 1],
+                                   matmul_precision=precision),
+                parameters=dense_warm_start(w, b, i))
+        if i < 2:
+            net.add(Tanh())
+    net.setup_mcmc(burnin=burnin, **SURR_MCMC)
+    return net, GaussianLikelihood(sd=0.1)
+
+
+def surrogate_runner(net, lik, flat, model, data_chunk, compensated):
+    """The chunk runner ``sample_posterior`` builds for the surrogate on
+    the plain path (``model`` with the preset's precisions)."""
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+    return make_multichain_chunk_runner(
+        model, lik, net.train_x, net.train_y, flat.unravel_theta,
+        flat.unravel_eta, adjust_hypers=True,
+        hyper_leapfrog=SURR_MCMC["hyper_leapfrog"],
+        burnin=float(net.config.burnin),
+        hyper_step_size_init=SURR_MCMC["hyper_step_size"],
+        eta_dim=flat.eta.numel(), data_chunk=data_chunk,
+        compensated=compensated)
+
+
+def last_state(res, dev, c=None):
+    """The last recorded ``(thetas (c, D), etas (c, H))`` of a run."""
+    c = c or res.theta_samples.shape[1]
+    return (torch.tensor(res.theta_samples[-1, :c], device=dev),
+            torch.tensor(res.eta_samples[-1, :c], device=dev))
+
+
+def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
+    """Phase 10: the 1M-point surrogate (the JAX bench's
+    ``surrogate_quality_exact``) on the card. (a) ``Network.train`` at full
+    width under ``numerics="exact"`` with ``data_chunk``, on the plain path
+    (no kernel launches); its pretraining MSE, its epochs' wall, the main
+    block's ms an evaluation (CUDA events), an epoch's device busy ms,
+    idle share and top kernels (``chip_profile.cell``), the peak of
+    ``torch.cuda.max_memory_allocated``, post-burn-in acceptance and finite
+    samples; (b) the chunked value and gradient at 4 chains against the
+    unchunked one in float32 and float64; (c) the ``potential_noise`` walk
+    at the MAP under precision None, "high" and "highest", with each
+    precision's value-and-gradient ms at 32 chains; (d)
+    ``surrogate_regression --smoke`` through its ``main``, held to the JAX
+    example's figures; (e) the same model under default numerics through
+    ``Network.train``: the path that takes its main block, and K3 against
+    the plain path at the surrogate's shape (value, gradient, ms an
+    evaluation, workspace bytes). Prints a ``{"surrogate": ...}`` line and
+    returns its dict."""
+    import dataclasses
+
+    import chip_profile
+    from tensorbnn_tpu_torch.examples import surrogate_regression
+    from tensorbnn_tpu_torch.ops import fused_mlp
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+    from tensorbnn_tpu_torch.sampler.gibbs import ChainState
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
+        make_potentials, tree_leaves
+
+    out = {"card": card, "points": SURROGATE_POINTS,
+           "chains": SURR_CHAINS, "data_chunk": SURR_CHUNK,
+           "epochs": SURR_EPOCHS, "burnin": SURR_BURNIN,
+           "pretrain_mse": host_loss(warm, x, y, False, tanh=True)}
+    print(f"surrogate pretraining (phase 9 (a)'s): MSE over the "
+          f"{SURROGATE_POINTS:,} rows {out['pretrain_mse']:.5f} (the "
+          f"noise floor 0.01) ({card})", flush=True)
+
+    # (a) the full-width run on the plain path
+    net, lik = surrogate_network(dev, x, y, warm, SURR_BURNIN)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    exact = exact_numerics_model(net.model)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # the run's own peak: what earlier phases still hold is taken out
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = net.train(SURR_EPOCHS, SURR_SAMPLING, lik, n_chains=SURR_CHAINS,
+                    chain_jitter=0.0, data_chunk=SURR_CHUNK,
+                    numerics="exact", display_skip=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts("surrogate, numerics='exact' (plain)")
+    peak = torch.cuda.max_memory_allocated() - held
+    main_acc = float(res.main_accept[SURR_BURNIN:].mean())
+    hyper_acc = float(res.hyper_accept[SURR_BURNIN:].mean())
+    thetas, etas = last_state(res, dev)
+    pots = make_potentials(exact, lik, net.train_x, net.train_y,
+                           flat.unravel_theta, flat.unravel_eta,
+                           data_chunk=SURR_CHUNK)
+    eval_ms = cuda_ms(lambda: pots.main_vg(thetas, etas), reps=3)
+    # the flat layout's own cost an evaluation: unravelling theta into the
+    # layers' views and assembling the flat gradient, under the same
+    # vmap(grad_and_value) (what the JAX package's state_layout="tree"
+    # exists to avoid)
+    layout_vg = torch.func.vmap(torch.func.grad_and_value(
+        lambda th: sum(leaf.sum() for leaf in tree_leaves(
+            flat.unravel_theta(th)))))
+    layout_ms = cuda_ms(lambda: layout_vg(thetas), reps=3)
+    # an epoch at the run's last (eps, L) and state, profiled
+    run = surrogate_runner(net, lik, flat, exact, SURR_CHUNK, True)
+    carry = ChainState(thetas, etas, torch.full_like(
+        thetas[:, 0], res.final_hyper_step), *(torch.full_like(
+            thetas[:, 0], v) for v in (0.0, 0.0, float(SURR_EPOCHS))))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cell = chip_profile.cell(
+        f"surrogate {SURR_CHAINS} x {SURROGATE_POINTS:,}, exact, chunk "
+        f"{SURR_CHUNK:,}", run, carry, res.final_step_size,
+        res.final_leapfrog, 1, 1, 1, gen, card)
+    evals = res.final_leapfrog + 1
+    flops = SURR_CHAINS * product_flops(fused_mlp._model_program(
+        net.model, lik)[0], SURROGATE_POINTS)
+    eval_bound = bound(flops, 4 * (SURROGATE_POINTS * (SURROGATE_IN + 1)
+                                   + 2 * thetas.numel()))
+    out["exact"] = {
+        "main_path": res.main_path, "fused_hyper": res.fused_hyper,
+        "launches": counts, "train_wall_s": wall,
+        "epoch_wall_s": wall / SURR_EPOCHS, "eval_ms": eval_ms,
+        "eval_bound_ms": eval_bound[0], "eval_bound_by": eval_bound[1],
+        "flat_layout_ms": layout_ms,
+        "evals_per_epoch": evals, "profiled_epoch": {
+            k: cell[k] for k in ("wall_ms_per_epoch",
+                                 "device_busy_ms_per_epoch", "idle_share",
+                                 "top_kernels")},
+        "peak_memory_bytes": peak, "held_before_bytes": held,
+        "main_accept": main_acc,
+        "hyper_accept": hyper_acc, "final_step_size": res.final_step_size,
+        "final_leapfrog": res.final_leapfrog,
+        "learned_sd": float(np.mean(res.eta_samples[:, :, -1] ** 2)),
+        "samples": list(res.theta_samples.shape)}
+    print(f"surrogate, numerics='exact', {SURR_CHAINS} chains x "
+          f"{SURROGATE_POINTS:,} points, data_chunk {SURR_CHUNK:,}: main_path "
+          f"{res.main_path!r}, K2 {res.fused_hyper}, launches {counts}; "
+          f"{wall:.2f} s for {SURR_EPOCHS} epochs ({wall / SURR_EPOCHS:.3f} s "
+          f"an epoch); main block {eval_ms:.3f} ms an evaluation at C="
+          f"{SURR_CHAINS} (bound {eval_bound[0]:.3f} ms, "
+          f"{eval_bound[1]}; the flat layout's unravel and gradient "
+          f"assembly {layout_ms:.4f} ms of it); profiled epoch at (eps, L) = "
+          f"({res.final_step_size:.3g}, {res.final_leapfrog}): busy "
+          f"{cell['device_busy_ms_per_epoch']:.2f} ms, idle share "
+          f"{cell['idle_share']:.4f}; peak memory {peak / 2**30:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held before; "
+          f"post-burn-in acceptance main {main_acc:.4f} / hyper "
+          f"{hyper_acc:.4f} ({card})", flush=True)
+    if (res.main_path != "plain" or res.fused_hyper or any(counts.values())
+            or not np.isfinite(res.theta_samples).all()
+            or not 0.0 < main_acc <= 1.0):
+        raise AssertionError(f"surrogate (exact): {out['exact']}")
+    del run, carry, cell
+
+    # (b) chunked against unchunked at 4 chains, both against float64
+    th4, et4 = thetas[:4].contiguous(), etas[:4].contiguous()
+    got = {}
+    for label, chunk, dt in (("chunked", SURR_CHUNK, torch.float32),
+                             ("unchunked", None, torch.float32),
+                             ("float64", None, torch.float64)):
+        p = make_potentials(exact, lik, net.train_x.to(dt),
+                            net.train_y.to(dt), flat.unravel_theta,
+                            flat.unravel_eta, data_chunk=chunk)
+        v, g = p.main_vg(th4.to(dt), et4.to(dt))
+        got[label] = (v.double(), g.double())
+        del p
+    v64, g64 = got.pop("float64")
+    gmax = float(g64.abs().max())
+    errs = {label: {"value_rel": float(((v - v64).abs() / v64.abs()).max()),
+                    "grad_over_max": float((g - g64).abs().max()) / gmax}
+            for label, (v, g) in got.items()}
+    errs["chunked_vs_unchunked"] = {
+        "value_rel": float(((got["chunked"][0] - got["unchunked"][0]).abs()
+                            / v64.abs()).max()),
+        "grad_over_max": float((got["chunked"][1] - got["unchunked"][1])
+                               .abs().max()) / gmax}
+    out["chunked_c4"] = errs
+    print(f"chunked ({SURR_CHUNK:,} rows) against unchunked value and "
+          f"gradient at C=4 over {SURROGATE_POINTS:,} rows, each against "
+          f"float64: {errs} (gates {SURR_VALUE_RTOL} / {SURR_GRAD_TOL}) "
+          f"({card})", flush=True)
+    if any(e["value_rel"] > SURR_VALUE_RTOL or e["grad_over_max"]
+           > SURR_GRAD_TOL for e in errs.values()):
+        raise AssertionError(f"chunked potential off: {errs}")
+    del got
+
+    # (c) the potential_noise walk at the MAP, and each precision's cost
+    theta0, eta0 = flat.theta, flat.eta
+    u = torch.tensor(np.random.default_rng(7).normal(
+        size=theta0.numel()).astype(np.float32), device=dev)
+    walk, costs = {}, {}
+    for prec in (None, "high", "highest"):
+        model = net.model if prec is None else type(net.model)([
+            dataclasses.replace(layer, matmul_precision=prec)
+            if hasattr(layer, "matmul_precision") else layer
+            for layer in net.model.layers])
+        p = make_potentials(model, lik, net.train_x, net.train_y,
+                            flat.unravel_theta, flat.unravel_eta,
+                            data_chunk=SURR_CHUNK)
+        walk[str(prec)] = [float(p.main(theta0 + t * u, eta0))
+                           for t in NOISE_TS]
+        if prec == "highest":
+            slope = float(p.main_vg(theta0[None], eta0[None])[1][0] @ u)
+        thb = theta0.expand(SURR_CHAINS, -1).contiguous()
+        etb = eta0.expand(SURR_CHAINS, -1).contiguous()
+        costs[str(prec)] = cuda_ms(lambda: p.main_vg(thb, etb), reps=3)
+        del p
+    rows = [{"t": t, **{f"dlp_{k}": v[i] - v[0] for k, v in walk.items()},
+             "dlp_linear": slope * t}
+            for i, t in enumerate(NOISE_TS) if t > 0]
+    small = [r for r in rows if r["t"] <= 1e-6]
+    stair = [abs(r["dlp_high"] - r["dlp_highest"]) for r in small]
+    out["potential_noise"] = {
+        "staircase_high_median_nats": float(np.median(stair)),
+        "staircase_high_max_nats": float(np.max(stair)),
+        "none_vs_highest_max_nats": max(
+            abs(r["dlp_None"] - r["dlp_highest"]) for r in rows),
+        "highest_residual_max_nats": max(
+            abs(r["dlp_highest"] - r["dlp_linear"]) for r in small),
+        "directional_slope": slope, "lp0": {k: v[0] for k, v in walk.items()},
+        "curves": rows, "vg_ms_c32": costs}
+    print(f"potential_noise at the MAP ({card}): " + json.dumps(
+        {k: v for k, v in out["potential_noise"].items() if k != "curves"}),
+        flush=True)
+    if not all(np.isfinite(v).all() for v in walk.values()):
+        raise AssertionError("potential_noise: a non-finite value")
+
+    # (d) surrogate_regression --smoke through its main
+    reset_counts()
+    smoke = surrogate_regression.main(["--smoke"])
+    smoke["launches"] = read_counts("surrogate_regression --smoke")
+    out["example_smoke"] = smoke
+    ref = JAX_SURROGATE_SMOKE
+    print(f"surrogate_regression --smoke on the card: {smoke['samples']} "
+          f"samples, main acceptance {smoke['main_accept']:.4f}, learned sd "
+          f"{smoke['learned_sd']:.4f}, {smoke['wall_s']:.2f} s (JAX example "
+          f"{ref}; gates: the same count, acceptance within "
+          f"{SURR_SMOKE_ACCEPT_TOL}, sd within {SURR_SMOKE_SD_RTOL:.0%}) "
+          f"({card})", flush=True)
+    if (smoke["samples"] != ref["samples"] or smoke["main_path"] != "plain"
+            or any(smoke["launches"].values())
+            or abs(smoke["main_accept"] - ref["main_accept"])
+            > SURR_SMOKE_ACCEPT_TOL
+            or abs(smoke["learned_sd"] - ref["learned_sd"])
+            > SURR_SMOKE_SD_RTOL * ref["learned_sd"]):
+        raise AssertionError(f"surrogate_regression --smoke off the JAX "
+                             f"example's figures: {smoke}")
+
+    # (e) default numerics: which path takes the main block
+    net_d, lik_d = surrogate_network(dev, x, y, warm, 2)
+    reset_counts()
+    res_d = net_d.train(4, 2, lik_d, n_chains=SURR_CHAINS, chain_jitter=0.0,
+                        data_chunk=SURR_CHUNK, verbose=True)
+    counts_d = read_counts(f"surrogate, default numerics "
+                           f"({res_d.main_path})")
+    default = {"main_path": res_d.main_path, "fused_hyper":
+               res_d.fused_hyper, "launches": counts_d,
+               "main_accept": res_d.main_accept.tolist(),
+               "wall_s": res_d.wall_time}
+    assert np.isfinite(res_d.theta_samples).all()
+    th_d, et_d = last_state(res_d, dev)
+    plain = make_potentials(net_d.model, lik_d, net_d.train_x,
+                            net_d.train_y, flat.unravel_theta,
+                            flat.unravel_eta, data_chunk=SURR_CHUNK)
+    default["plain_ms"] = cuda_ms(lambda: plain.main_vg(th_d, et_d), reps=3)
+    if res_d.main_path == "K3":
+        vg = fused_mlp.try_build_fused_main_vg(
+            net_d.model, lik_d, flat.unravel_theta, flat.unravel_eta,
+            net_d.train_x, net_d.train_y, flat.eta.numel())
+        want = plain.main_vg(th_d, et_d)
+        k3 = vg(th_d, et_d, net_d.train_x, net_d.train_y)
+        ops, tail = fused_mlp._model_program(net_d.model, lik_d)
+        program = fused_mlp.make_fused_potential_vg(
+            ops, SURROGATE_POINTS, tail).args[0]
+        gmax = float(want[1].abs().max())
+        default.update(
+            k3_value_rel=float(((k3[0] - want[0]).abs()
+                                / want[0].abs()).max()),
+            k3_grad_over_max=float((k3[1] - want[1]).abs().max()) / gmax,
+            k3_ms=cuda_ms(lambda: vg(th_d, et_d, net_d.train_x,
+                                     net_d.train_y), reps=3),
+            k3_workspace_bytes=4 * program.workspace_floats(SURR_CHAINS))
+        del want, k3
+        if (default["k3_value_rel"] > SURR_VALUE_RTOL
+                or default["k3_grad_over_max"] > SURR_GRAD_TOL
+                or counts_d["K3"] == 0):
+            raise AssertionError(f"K3 at the surrogate's shape: {default}")
+    out["default_numerics"] = default
+    print(f"surrogate, default numerics: {json.dumps(default)} ({card})",
+          flush=True)
+    del plain, net_d, res_d
+    torch.cuda.empty_cache()
+    print(json.dumps({"surrogate": out}), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # --surrogate-only: phases 1, 2 and 10 alone (a quick check of phase
+    # 10; no kernels line)
+    surrogate_only = argv == ["--surrogate-only"]
+    if argv and not surrogate_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     phase("1 card")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1344,6 +1722,32 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s); native text store "
           f"{native_text}")
+
+    counted = {"K1": fused_mlp.fused_trajectory,
+               "K2": fused_hyper.fused_hyper_trajectory,
+               "K3": fused_mlp.fused_potential}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.LAUNCHES = 0
+
+    def read_counts(path):
+        torch.cuda.synchronize()
+        got = {name: fn.LAUNCHES for name, fn in counted.items()}
+        print(f"launches during the {path} path: {got}")
+        return got
+
+    if surrogate_only:
+        phase("10 the 1M-point surrogate on the card")
+        x, y = surrogate_data()
+        warm = surrogate_pretrain(dev, x, y)
+        surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     net, lik = flagship_network(dev)
     params, hypers = net.init_state()
@@ -1785,20 +2189,6 @@ def main() -> int:
           f"1e-3, atol 1e-4), swap rates per rung "
           f"{short_t[True].swap_accept_rung.tolist()} on both")
 
-    counted = {"K1": fused_mlp.fused_trajectory,
-               "K2": fused_hyper.fused_hyper_trajectory,
-               "K3": fused_mlp.fused_potential}
-
-    def reset_counts():
-        torch.cuda.synchronize()
-        for fn in counted.values():
-            fn.LAUNCHES = 0
-
-    def read_counts(path):
-        torch.cuda.synchronize()
-        got = {name: fn.LAUNCHES for name, fn in counted.items()}
-        print(f"launches during the {path} path: {got}")
-        return got
 
     # (b) the flagship on K1 + K2: 64 chains at the verify recipe, and the
     # 512-chain, G = 4 quality block at ess_run's settings; launches
@@ -2438,7 +2828,14 @@ def main() -> int:
     ]
 
     phase("9 pretraining, the shim and the examples on the card")
-    pretrain_phase(dev, card, reset_counts, read_counts)
+    x, y = surrogate_data()
+    _, warm = pretrain_phase(dev, card, x, y, reset_counts, read_counts)
+
+    phase("10 the 1M-point surrogate on the card")
+    surr = surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
+    del x, y
+    # K3 at the surrogate's shape under default numerics: (e)'s figures
+    kernels[2]["surrogate_default_numerics"] = surr["default_numerics"]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,7 +19,10 @@ grid RMSE and ``examples/classification.py``'s posterior-ensemble
 validation accuracy, each through its ``main`` at the example's own
 seeds, then ``extended_regression``'s grid RMSE with its pretraining and
 ``Network`` seeds both moved to 1000 + k, k = 1..6 (the spread over
-initial weights). One JSON line per run (~30 s each).
+initial weights), then ``examples/surrogate_regression.py --cpu --smoke``'s
+sample count, main acceptance and learned sd (100,000 points, one chain,
+60 epochs under ``numerics="exact"``). One JSON line per run (~30 s
+each; the surrogate a few minutes).
 """
 
 import json
@@ -67,6 +70,31 @@ def example_figure(name, pattern, seed=None) -> float:
     return float(re.search(pattern + r": ([0-9.]+)", out.getvalue())[1])
 
 
+def surrogate_figures() -> dict:
+    """``examples/surrogate_regression.py --cpu --smoke``'s printed figures:
+    the sample count, the mean main acceptance and the learned sd."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "example_surrogate_regression", "examples/surrogate_regression.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    saved, out = sys.argv, io.StringIO()
+    try:
+        sys.argv = ["surrogate_regression", "--cpu", "--smoke"]
+        with contextlib.redirect_stdout(out):
+            module.main()
+    finally:
+        sys.argv = saved
+    m = re.search(r"(\d+) samples, main accept ([0-9.]+), learned sd ~ "
+                  r"([0-9.]+)", out.getvalue())
+    return {"samples": int(m[1]), "main_accept": float(m[2]),
+            "learned_sd": float(m[3])}
+
+
 def examples() -> int:
     runs = [("extended_regression", "grid RMSE", None),
             ("classification", "posterior-ensemble validation accuracy",
@@ -80,6 +108,11 @@ def examples() -> int:
                           "seed": seed or "the example's", pattern: value,
                           "cpu_seconds": time.perf_counter() - t0}),
               flush=True)
+    t0 = time.perf_counter()
+    figures = surrogate_figures()
+    print(json.dumps({"example": "surrogate_regression",
+                      "flags": "--cpu --smoke", **figures,
+                      "cpu_seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
 

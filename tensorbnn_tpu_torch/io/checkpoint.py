@@ -12,7 +12,8 @@ mid-run. This store keeps:
 * ``resume.npz`` + ``resume.json`` — the full device carry (flat
   theta/eta, dual-averaging state, epoch counter) and the run generator's
   state, plus host state (adapters, step size, leapfrog, epoch
-  bookkeeping), for a bit-exact continuation of an interrupted run;
+  bookkeeping, the diagonal metric's step scale and how many of its
+  windows have fired), for a bit-exact continuation of an interrupted run;
 * ``resume_seg{i}.npz`` — the samples recorded between two checkpoints.
 
 Tree leaves are keyed by ``layer{i}/{name}`` paths so files are

@@ -21,13 +21,21 @@ an optional leading sample axis, to and from the reference text store's
 layout (dense ``W (out, in)``, ``b (out, 1)``; hypers as scalars in
 declaration order). They work on numpy arrays on the host, where the
 store's writer and reader run.
+
+The dense layers take the JAX package's ``compute_dtype`` and
+``matmul_precision`` fields (``_DenseCompute``). On the card the
+precisions map to TF32: ``"highest"`` runs the product, and both of its
+gradient products, with TF32 off, ``"high"`` with TF32 on (JAX's own
+meaning of ``HIGH`` on a GPU), None under whatever the process has set
+(torch's default is TF32 off).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +95,97 @@ class LayerSpec:
         return {}
 
 
+@contextlib.contextmanager
+def _matmul_tf32(allow: bool):
+    """Runs the enclosed float32 CUDA products with TF32 ``allow``ed or not,
+    restoring the process's setting after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+#: ``matmul_precision`` -> TF32 allowed for the dense product
+_PRECISION_TF32 = {"highest": False, "high": True}
+
+
+class _PrecisionMatmul(torch.autograd.Function):
+    """``x @ w`` whose forward and both backward products run under one TF32
+    setting, so a layer's precision reaches its gradient as JAX's
+    ``precision=`` does. ``setup_context`` and the generated vmap rule let
+    the plain path run it under ``torch.func.vmap`` and
+    ``grad_and_value``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, tf32):
+        with _matmul_tf32(tf32):
+            return x @ w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, tf32 = inputs
+        ctx.save_for_backward(x, w)
+        ctx.tf32 = tf32
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _matmul_tf32(ctx.tf32):
+            # the first layer's input is the data: no gradient to form
+            if ctx.needs_input_grad[0]:
+                gx = g @ w.transpose(-1, -2)
+            if ctx.needs_input_grad[1]:
+                gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g.reshape(
+                    -1, g.shape[-1])
+        return gx, gw, None
+
+
+class _DenseCompute:
+    """The dense forward pass with an optional precision or operand dtype
+    (the JAX package's ``_DenseCompute``, ``models/layers.py:118-170``).
+
+    ``compute_dtype="bfloat16"`` rounds both operands to bf16, forms the
+    product and adds the bias in float32, and casts the output to bf16, so
+    a stack of such layers keeps its activations in bf16. The product runs
+    on the bf16-rounded operands upcast to float32: products of bf16 values
+    are exact in float32, and bf16 values are exact in TF32, so under either
+    TF32 setting it is the bf16 product with float32 accumulation.
+
+    ``matmul_precision`` ("high" or "highest") sets the product's TF32 use
+    instead (see the module docstring). The two are mutually exclusive:
+    one asks for bf16 operands, the other for exact float32 products."""
+
+    def __post_init__(self):
+        if (getattr(self, "compute_dtype", None)
+                and getattr(self, "matmul_precision", None)):
+            raise ValueError(
+                "compute_dtype and matmul_precision are mutually "
+                "exclusive: one asks for bf16 operands, the other for "
+                "exact-f32 matmuls")
+        prec = getattr(self, "matmul_precision", None)
+        if prec is not None and prec not in _PRECISION_TF32:
+            raise ValueError(f"matmul_precision must be None, 'high' or "
+                             f"'highest', got {prec!r}")
+
+    def _dense_apply(self, params, x):
+        cd = getattr(self, "compute_dtype", None)
+        if cd is not None:
+            dt = getattr(torch, cd)
+            y = x.to(dt).to(torch.float32) @ params["w"].to(dt).to(
+                torch.float32)
+            return (y + params["b"]).to(dt)
+        prec = getattr(self, "matmul_precision", None)
+        if prec is not None:
+            return _PrecisionMatmul.apply(x, params["w"],
+                                          _PRECISION_TF32[prec]) + params["b"]
+        return x @ params["w"] + params["b"]
+
+
 class _DenseRefIO:
     """Reference-format conversions of both dense layers: ``(..., in,
     out)`` weights and ``(..., out)`` biases against the reference's
@@ -115,18 +214,21 @@ class _DenseRefIO:
 
 
 @dataclasses.dataclass(frozen=True)
-class GaussianDenseLayer(_DenseRefIO, LayerSpec):
+class GaussianDenseLayer(_DenseCompute, _DenseRefIO, LayerSpec):
     """Dense layer with Gaussian priors on weights and biases.
 
     Four scalar hypers (``w_loc``, ``w_scale``, ``b_loc``, ``b_scale``);
     the conditional prior is the reference-exact ``gaussian_logprob`` with
     sd = scale ** 2; hyperpriors are N(0, 0.1) on the locations and
-    N(1, 0.1) on the squared scales.
+    N(1, 0.1) on the squared scales. ``compute_dtype`` and
+    ``matmul_precision``: see ``_DenseCompute``.
     """
 
     in_dim: int
     out_dim: int
     name: str = "denseGaussian"
+    compute_dtype: Optional[str] = None  # e.g. "bfloat16"
+    matmul_precision: Optional[str] = None  # "high" / "highest"
 
     @property
     def has_hypers(self) -> bool:
@@ -148,7 +250,7 @@ class GaussianDenseLayer(_DenseRefIO, LayerSpec):
         return params, hypers
 
     def apply(self, params, x):
-        return x @ params["w"] + params["b"]
+        return self._dense_apply(params, x)
 
     def log_prior(self, hypers, params):
         w_sd = hypers["w_scale"] ** 2
@@ -167,17 +269,20 @@ class GaussianDenseLayer(_DenseRefIO, LayerSpec):
 
 
 @dataclasses.dataclass(frozen=True)
-class CauchyDenseLayer(_DenseRefIO, LayerSpec):
+class CauchyDenseLayer(_DenseCompute, _DenseRefIO, LayerSpec):
     """Dense layer with Cauchy priors (gamma = scale ** 2); hyperpriors
     N(0, 0.2) on the locations and N(sqrt(0.5), 0.5) on the squared
     scales. Uses the reference's sign-flipped Cauchy "log prob" unless
     ``proper=True``. K1 and K3 take its prior in closed form; its hyper
-    block runs on the plain path (outside K2's stats layout)."""
+    block runs on the plain path (outside K2's stats layout).
+    ``compute_dtype`` and ``matmul_precision``: see ``_DenseCompute``."""
 
     in_dim: int
     out_dim: int
     proper: bool = False
     name: str = "dense"
+    compute_dtype: Optional[str] = None  # e.g. "bfloat16"
+    matmul_precision: Optional[str] = None  # "high" / "highest"
 
     @property
     def has_hypers(self) -> bool:
@@ -197,7 +302,7 @@ class CauchyDenseLayer(_DenseRefIO, LayerSpec):
         return params, hypers
 
     def apply(self, params, x):
-        return x @ params["w"] + params["b"]
+        return self._dense_apply(params, x)
 
     def log_prior(self, hypers, params):
         return (self._cauchy(hypers["w_scale"] ** 2, hypers["w_loc"],

@@ -140,7 +140,10 @@ class Network:
               tempering: int = 1, tempering_beta_min: float = 0.1,
               checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0, tracer=None,
-              keep_samples="auto", **kwargs) -> RunResult:
+              keep_samples="auto", data_chunk: Optional[int] = None,
+              precondition=False, precondition_clip=(1e-2, 1e2),
+              precondition_windows: int = 1, compensated: bool = False,
+              numerics: str = "default", **kwargs) -> RunResult:
         """Runs the sampler; options the port does not carry raise
         NotImplementedError naming them.
 
@@ -172,6 +175,19 @@ class Network:
         (default) or "always", is the burn-in probe schedule: "always"
         runs every burn-in chunk at ``ceil(1.5 * l_hat)``, "alternate"
         interleaves such probe chunks with chunks at ``l_hat``.
+
+        The big-data options, each on the plain path as in the JAX
+        package: ``data_chunk`` sums the likelihood's value and gradient
+        over row chunks of that many rows (a divisor of the rows), which
+        bounds the activations to ``chains x data_chunk x width``;
+        ``compensated=True`` runs the main block's leapfrog as Kahan sums,
+        for step sizes within a few ulps of the parameters;
+        ``numerics="exact"`` is ``compensated`` plus
+        ``matmul_precision="highest"`` (TF32 off) on every dense layer;
+        ``precondition`` (True for half the burn-in, or an epoch; needs
+        ``n_chains >= 8``) estimates a diagonal metric from the fleet's
+        spread, clipped to ``precondition_clip``, re-estimated at
+        ``precondition_windows`` epochs up to the burn-in.
         """
         options = {_REF_TRAIN_KWARGS.get(k, k): v for k, v in kwargs.items()}
         options.pop("scaleExp", None)
@@ -199,7 +215,11 @@ class Network:
             x_validate=self.validate_x, y_validate=self.validate_y,
             folder_name=folder_name, networks_per_file=networks_per_file,
             keep_samples=keep_samples, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, tracer=tracer, **options)
+            checkpoint_every=checkpoint_every, tracer=tracer,
+            data_chunk=data_chunk, precondition=precondition,
+            precondition_clip=precondition_clip,
+            precondition_windows=precondition_windows,
+            compensated=compensated, numerics=numerics, **options)
         return self.results
 
     def predict(self, train: bool = True, params: Optional[tuple] = None):

@@ -158,7 +158,10 @@ def _model_program(model, likelihood) -> Optional[Tuple[tuple, str]]:
     trailing ``Softmax`` under ``CategoricalLikelihood`` folds into the
     categorical tail, so the program ends at the logits; a softmax anywhere
     else, or without that likelihood, is out of scope (as
-    tensorbnn_tpu/ops/fused_mlp.py:1046-1110)."""
+    tensorbnn_tpu/ops/fused_mlp.py:1046-1110). A dense layer with a
+    ``compute_dtype`` is out of scope too (the kernels compute in float32);
+    ``matmul_precision`` is not: both kernels' products are float32 FFMA
+    already, which is what "highest" asks for."""
     from tensorbnn_tpu_torch.likelihoods import BernoulliLikelihood, \
         CategoricalLikelihood, FixedGaussianLikelihood, GaussianLikelihood
     from tensorbnn_tpu_torch.models.layers import Activation, \
@@ -176,7 +179,7 @@ def _model_program(model, likelihood) -> Optional[Tuple[tuple, str]]:
     d = None
     for layer in model.layers:
         if isinstance(layer, (GaussianDenseLayer, CauchyDenseLayer)):
-            if d is not None and d != layer.in_dim:
+            if (d is not None and d != layer.in_dim) or layer.compute_dtype:
                 return None
             ops.append(("dense", int(layer.in_dim), int(layer.out_dim)))
             d = int(layer.out_dim)

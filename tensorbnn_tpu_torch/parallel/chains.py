@@ -53,11 +53,14 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  batched_hyper_traj=None,
                                  tempering_beta=None,
                                  record_uturn: bool = False,
-                                 per_epoch_leapfrog: bool = False):
-    """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator)
-    -> (carry, trace)``, the trace's fields stacked ``(n_epochs, C, ...)``
-    (``swap_accept`` None unless ``tempering_beta``, which the epoch takes
-    as ``(n_rungs, per-chain betas)``; each epoch's swap parity comes from
+                                 per_epoch_leapfrog: bool = False,
+                                 data_chunk: Optional[int] = None,
+                                 compensated: bool = False):
+    """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
+    step_scale=None) -> (carry, trace)``, the trace's fields stacked
+    ``(n_epochs, C, ...)`` (``swap_accept`` None unless
+    ``tempering_beta``, which the epoch takes as ``(n_rungs, per-chain
+    betas)``; each epoch's swap parity comes from
     the carry's epoch counter on the device; ``uturn`` None unless
     ``record_uturn``).
 
@@ -66,6 +69,13 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     the chains' device once per chunk. With ``per_epoch_leapfrog``
     (``trajectory="uturn"``) ``leapfrog`` is instead a host ``(n_epochs,)``
     vector and epoch j runs the shared count ``leapfrog[j]``.
+
+    ``data_chunk`` and ``compensated`` go to the epoch (the chunked
+    likelihood, the Kahan leapfrog). ``step_scale``, the ``(D,)``
+    diagonal-metric step multiplier on the chains' device, is an argument
+    of each chunk, so the driver's windowed re-estimates swap in from one
+    chunk to the next (the JAX runner's ``traced_step_scale`` exists to
+    avoid a retrace, which eager torch does not have).
     """
     mu = math.log(100.0 * hyper_step_size_init)
     epoch_fn = make_epoch_fn(
@@ -74,10 +84,12 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
         burnin=burnin, mu=mu, batched_main_vg=batched_main_vg,
         batched_main_traj=batched_main_traj,
         batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim,
-        tempering_beta=tempering_beta, record_uturn=record_uturn)
+        tempering_beta=tempering_beta, record_uturn=record_uturn,
+        data_chunk=data_chunk, compensated=compensated)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
-                  generator: torch.Generator):
+                  generator: torch.Generator,
+                  step_scale: Optional[torch.Tensor] = None):
         device = carry.theta.device
         leapfrog_dev = None
         if np.ndim(step_size) > 0:
@@ -95,7 +107,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
         traces = []
         for leap in leaps:
             carry, trace = epoch_fn(carry, step_size, leap, generator,
-                                    leapfrog_dev=leapfrog_dev)
+                                    leapfrog_dev=leapfrog_dev,
+                                    step_scale=step_scale)
             traces.append(trace)
         return carry, EpochTrace(*(None if f[0] is None else torch.stack(f)
                                    for f in zip(*traces)))

@@ -35,6 +35,20 @@ plain main block), and no K2 when the likelihood couples into the hypers.
 The JAX package's TPU gates (its VMEM budget and measured profitability)
 are not carried over.
 
+The big-data options (the JAX driver's, on its plain path):
+``data_chunk`` sums the likelihood over row chunks (sampler/potential.py);
+``compensated`` runs the main block's leapfrog as Kahan sums
+(sampler/hmc.py); ``numerics="exact"`` is ``compensated`` plus
+``matmul_precision="highest"`` on every dense layer
+(``exact_numerics_model``); ``precondition`` estimates a diagonal metric
+from the fleet's spread (``estimate_step_scale``) at one or more burn-in
+chunk boundaries and applies it as per-coordinate step multipliers.
+``compensated`` and ``precondition`` refuse ``use_fused=True`` and turn
+"auto" off: K1 integrates without the compensation carries and takes a
+scalar step, and K2 follows (the JAX driver builds it only with
+``use_fused``). A run whose step size falls within 16 ulps of its
+parameters' magnitude without ``compensated`` is warned once.
+
 The sample store and resume (as the JAX driver's): with ``folder_name`` the
 run writes the reference text store (``io/reference_format.py``) and the
 npz store (``io/checkpoint.py``), both with each network's chain id. With
@@ -60,7 +74,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Sequence
+import warnings
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -81,17 +96,10 @@ from tensorbnn_tpu_torch.sampler.uturn import UTurnAdapter
 #: "off" (any other value raises NotImplementedError)
 NOT_CARRIED = {
     "mesh": (None,),
-    "precondition": (False, None),
-    "compensated": (False,),
-    "numerics": ("default",),
-    "data_chunk": (None,),
     "state_layout": ("auto", "flat"),
     "max_dispatch_seconds": (None,),
     "donate": (False,),
 }
-#: JAX-driver options that only qualify a not-carried option; accepted and
-#: unused
-INERT = ("precondition_clip", "precondition_windows")
 
 
 def _is(value, off) -> bool:
@@ -112,9 +120,57 @@ def check_options(options: dict) -> None:
                 raise NotImplementedError(
                     f"{name}={value!r} is not carried by tensorbnn_tpu_torch "
                     f"yet (supported: {', '.join(map(repr, off))})")
-        elif name not in INERT:
+        else:
             raise TypeError(f"sample_posterior() got an unexpected keyword "
                             f"argument {name!r}")
+
+
+def exact_numerics_model(model: Sequential) -> Sequential:
+    """The ``numerics="exact"`` preset's model half: every dense layer
+    without a ``matmul_precision`` gets ``"highest"`` (TF32 off on the card,
+    exact float32 products); activations and layers that already ask for a
+    precision pass through. A layer with a ``compute_dtype`` raises: it asks
+    for the opposite (the JAX driver's ``exact_numerics_model``)."""
+    new_layers = []
+    for layer in model.layers:
+        if getattr(layer, "compute_dtype", None):
+            raise ValueError(
+                f"numerics='exact' conflicts with layer {layer.name!r} "
+                f"compute_dtype={layer.compute_dtype!r}: exact numerics "
+                "needs exact-f32 matmuls, bf16 compute asks for the "
+                "opposite")
+        if (hasattr(layer, "matmul_precision")
+                and layer.matmul_precision is None):
+            layer = dataclasses.replace(layer, matmul_precision="highest")
+        new_layers.append(layer)
+    return Sequential(new_layers)
+
+
+def estimate_step_scale(theta: torch.Tensor, clip_lo: float = 1e-2,
+                        clip_hi: float = 1e2) -> np.ndarray:
+    """The diagonal metric's per-coordinate step scale: the fleet's
+    cross-chain standard deviation (computed on the chains' device, so only
+    the ``(D,)`` vector comes back), divided by its median over the
+    coordinates that moved and clipped to ``[clip_lo, clip_hi]``;
+    coordinates with no spread get 1. Copied from the JAX driver without a
+    guard: the estimate can upweight a coordinate past its stability
+    limit, which is why ``precondition`` stays opt-in."""
+    sd = theta.std(dim=0, correction=0).cpu().numpy().astype(np.float64)
+    pos = sd[sd > 0]
+    med = float(np.median(pos)) if pos.size else 1.0
+    scale = np.where(sd > 0, sd / max(med, 1e-12), 1.0)
+    return np.clip(scale, clip_lo, clip_hi).astype(np.float32)
+
+
+def precondition_epochs(precond_at: int, burnin: int,
+                        windows: int) -> List[int]:
+    """The epochs at whose first chunk boundary the metric is
+    (re-)estimated: ``windows`` evenly spaced from ``precond_at`` to the
+    burn-in, never past it (a threshold past the burn-in gives one estimate
+    there)."""
+    span = max(burnin - precond_at, 0)
+    return sorted({precond_at + (k * span) // windows
+                   for k in range(windows)})
 
 
 @dataclasses.dataclass
@@ -274,6 +330,12 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                      checkpoint_dir: Optional[str] = None,
                      checkpoint_every: int = 0,
                      tracer=None,
+                     data_chunk: Optional[int] = None,
+                     precondition=False,
+                     precondition_clip=(1e-2, 1e2),
+                     precondition_windows: int = 1,
+                     compensated: bool = False,
+                     numerics: str = "default",
                      **options) -> RunResult:
     """Runs the two-block adaptive HMC sampler on the device of
     ``x_train`` (``params``, ``hypers`` and ``generator`` live there too).
@@ -296,8 +358,21 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     (see the module docstring). A resumed run's ``RunResult`` holds every
     sample of the run but the per-epoch arrays from ``resume_epoch`` on
     (``RunResult.after_epoch`` slices them by the run's epoch).
+
+    ``data_chunk`` (a divisor of the rows), ``compensated``, ``numerics``
+    ("default" or "exact"), ``precondition`` (True for the burn-in's half,
+    or an epoch; needs ``n_chains >= 8``), ``precondition_clip`` and
+    ``precondition_windows`` are the JAX driver's big-data options (see the
+    module docstring); a run with any of the last four takes the plain
+    path.
     """
     t_start = time.time()
+    if numerics not in ("default", "exact"):
+        raise ValueError(
+            f"numerics must be 'default' or 'exact', got {numerics!r}")
+    if numerics == "exact":
+        compensated = True
+        model = exact_numerics_model(model)
     if n_adapters < 1 or n_chains % n_adapters:
         raise ValueError(f"n_adapters ({n_adapters}) must be >= 1 and "
                          f"divide n_chains ({n_chains})")
@@ -328,7 +403,6 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             raise ValueError(
                 "tempering assigns one adapter group per rung; it is "
                 "incompatible with an explicit n_adapters > 1")
-        precondition = options.get("precondition", False)
         if precondition is not False and precondition is not None:
             raise ValueError(
                 "tempering is incompatible with precondition: the "
@@ -343,6 +417,44 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     if use_fused not in ("auto", True, False):
         raise ValueError(f"use_fused must be 'auto', True or False, got "
                          f"{use_fused!r}")
+    # the diagonal metric and the Kahan leapfrog run on the plain path, with
+    # the JAX driver's guards (tensorbnn_tpu/sampler/driver.py:574-619)
+    precond_at = None
+    if precondition is not False and precondition is not None:
+        # precondition=0 is an epoch: estimate at the first chunk boundary
+        if n_chains < 8:
+            raise ValueError(
+                f"precondition needs n_chains >= 8 to estimate "
+                f"per-coordinate scales from the cross-chain spread "
+                f"(got {n_chains})")
+        precond_at = (config.burnin // 2 if precondition is True
+                      else int(precondition))
+        if use_fused is True:
+            raise ValueError(
+                "precondition is incompatible with use_fused=True (the "
+                "fused kernels take a scalar step size); use "
+                "use_fused='auto' or False")
+        use_fused = False
+    if compensated:
+        if use_fused is True:
+            raise ValueError(
+                "compensated is incompatible with use_fused=True (the "
+                "fused kernels integrate in-program without the "
+                "compensation carries); use use_fused='auto' or False")
+        use_fused = False
+    clip_lo, clip_hi = (float(precondition_clip[0]),
+                        float(precondition_clip[1]))
+    if not 0 < clip_lo <= clip_hi:
+        raise ValueError(
+            f"precondition_clip must satisfy 0 < lo <= hi, got "
+            f"({clip_lo}, {clip_hi})")
+    if precondition_windows < 1:
+        raise ValueError(
+            f"precondition_windows must be >= 1, got "
+            f"{precondition_windows}")
+    precond_epochs = ([] if precond_at is None else precondition_epochs(
+        precond_at, config.burnin, precondition_windows))
+    windows_fired = 0
     device, dtype = x_train.device, x_train.dtype
     lik_hypers = likelihood.init_hypers(dtype, device)
     flat = flatten_state(params, hypers, lik_hypers)
@@ -364,12 +476,21 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             f"or keep_samples=True to buffer in memory")
     streaming = folder_name is not None and not keep_samples
     if checkpoint_dir:
+        # windows and clip at their defaults keep the plain epoch number,
+        # as the JAX driver's fingerprint does
+        fp_precond = precond_at
+        if precond_at is not None and (precondition_windows != 1 or (
+                clip_lo, clip_hi) != (1e-2, 1e2)):
+            fp_precond = (f"{precond_at}/w{precondition_windows}"
+                          f"/clip{clip_lo:g},{clip_hi:g}")
         fingerprint = _run_fingerprint(
             config, model, likelihood, flat.theta.numel(), eta_dim,
             n_chains, sampling_step, dtype, n_adapters=n_adapters,
-            trajectory=(f"{trajectory}:{uturn_probe}"
-                        if traj_uturn and uturn_probe != "always"
-                        else trajectory),
+            precondition=fp_precond,
+            trajectory=((f"{trajectory}:{uturn_probe}"
+                         if traj_uturn and uturn_probe != "always"
+                         else trajectory)
+                        + ("+kahan" if compensated else "")),
             tempering=(f"{tempering}@{tempering_beta_min:g}"
                        if tempering > 1 else None))
 
@@ -411,7 +532,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         hyper_step_size_init=config.hyper_step_size, eta_dim=eta_dim,
         batched_main_vg=main_vg, batched_main_traj=main_traj,
         batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta,
-        record_uturn=traj_uturn, per_epoch_leapfrog=traj_uturn)
+        record_uturn=traj_uturn, per_epoch_leapfrog=traj_uturn,
+        data_chunk=data_chunk, compensated=compensated)
     carry = init_multichain_state(flat.theta, flat.eta,
                                   config.hyper_step_size, fleet_chains,
                                   generator, jitter=chain_jitter)
@@ -445,6 +567,12 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
     iter_ = 0
     n_segments = 0
     writer = None
+    # the diagonal metric's step scale once estimated or restored (numpy,
+    # for the checkpoint) and the runner's device copy (ones before the
+    # first estimate, as the JAX driver passes them)
+    step_scale = None
+    scale_dev = (None if precond_at is None else torch.ones(
+        flat.theta.numel(), dtype=dtype, device=device))
     unravel_theta_np = host_unraveler(params)
     unravel_eta_np = host_unraveler((hypers, lik_hypers))
 
@@ -481,6 +609,12 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         step_sizes = np.asarray(host["step_size"], np.float64)
         leapfrogs = np.asarray(host["leapfrog"], np.int64)
         n_segments = int(host["n_segments"])
+        if host.get("step_scale") is not None:
+            step_scale = np.asarray(host["step_scale"], np.float32)
+            scale_dev = torch.as_tensor(step_scale, dtype=dtype,
+                                        device=device)
+        windows_fired = int(host.get("precond_windows_fired",
+                                     0 if step_scale is None else 1))
         if n_segments:
             th, et = checkpoint.load_sample_segments(checkpoint_dir,
                                                      n_segments)
@@ -524,11 +658,31 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
             "step_size": step_sizes.tolist(),
             "leapfrog": leapfrogs.tolist(),
             "writer": writer.state_dict() if writer is not None else None,
+            "step_scale": (None if step_scale is None
+                           else [float(v) for v in step_scale]),
+            "precond_windows_fired": windows_fired,
             "uturn_adapter": uturn_ad.state_dict() if traj_uturn else None,
             "fingerprint": fingerprint})
 
     chunks_done = 0
+    # the one-shot float32 advisory (JAX driver.py:1360-1377) has nothing
+    # to say to a compensated run
+    numerics_advised = compensated
     while iter_ < epochs:
+        if (precond_at is not None and windows_fired < len(precond_epochs)
+                and iter_ >= precond_epochs[windows_fired]):
+            # (re-)estimate the metric from the fleet's spread; one estimate
+            # covers every window whose epoch has passed
+            step_scale = estimate_step_scale(carry.theta, clip_lo, clip_hi)
+            scale_dev = torch.as_tensor(step_scale, dtype=dtype,
+                                        device=device)
+            windows_fired = max(windows_fired + 1,
+                                sum(1 for e in precond_epochs if e <= iter_))
+            if verbose:
+                print(f"preconditioner estimate "
+                      f"{windows_fired}/{len(precond_epochs)} at epoch "
+                      f"{iter_}: scale range [{step_scale.min():.3g}, "
+                      f"{step_scale.max():.3g}]")
         if traj_uturn:
             # burn-in chunks keep the step-size updates frequent and end on
             # the burn-in boundary; sampling chunks are long (JAX
@@ -550,7 +704,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                 leap_arg = np.repeat(leapfrogs, grp_chains)
         if tracer is not None:
             tracer.start_chunk()
-        carry, trace = run_chunk(carry, eps_arg, leap_arg, chunk, generator)
+        carry, trace = run_chunk(carry, eps_arg, leap_arg, chunk, generator,
+                                 step_scale=scale_dev)
         leaps.append(np.asarray(leap_arg, np.float64) if traj_uturn
                      else np.full(chunk, leapfrogs.mean()))
 
@@ -629,6 +784,9 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
                                  y_validate)
 
         chunks_done += 1
+        if not numerics_advised and float(np.min(step_sizes)) < 1e-4:
+            numerics_advised = _advise_numerics(carry.theta,
+                                                float(np.min(step_sizes)))
         if checkpoint_dir and checkpoint_every and \
                 chunks_done % checkpoint_every == 0:
             save_checkpoint()
@@ -698,6 +856,26 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         resume_epoch=resume_epoch)
 
 
+def _advise_numerics(theta: torch.Tensor, step: float) -> bool:
+    """Warns (and returns True) when ``step`` is within 16 ulps of the
+    parameters' rms magnitude, where a plain float32 drift ``q + eps * v``
+    quantizes or freezes and acceptance statistics stop meaning anything
+    (the JAX driver's one-shot advisory; the eps pre-check in the caller
+    keeps ordinary runs free of this device read)."""
+    rms = float(torch.sqrt(torch.mean(theta * theta)))
+    ulp = float(torch.finfo(theta.dtype).eps) * rms
+    if step >= 16.0 * ulp:
+        return False
+    warnings.warn(
+        f"step size {step:.3g} is within 16 ulps of the parameter "
+        f"magnitude (rms |theta| {rms:.3g}, ulp {ulp:.3g}): plain f32 "
+        "leapfrog drifts quantize or freeze in this regime and acceptance "
+        "statistics become meaningless. Pass numerics='exact' (the "
+        "big-data preset: Kahan-compensated integrator + exact-f32 "
+        "matmuls, TF32 off on the card).", RuntimeWarning, stacklevel=3)
+    return True
+
+
 def _display_metrics(model, likelihood, flat, trace, j, metric_list,
                      x_train, y_train, x_validate, y_validate) -> None:
     """Prints each metric and the likelihood's hypers on chain 0's sample
@@ -719,20 +897,31 @@ def _display_metrics(model, likelihood, flat, trace, j, metric_list,
 
 def _run_fingerprint(config: MCMCConfig, model, likelihood, theta_dim: int,
                      eta_dim: int, n_chains: int, sampling_step: int, dtype,
-                     n_adapters: int = 1, trajectory: str = "adapter",
+                     n_adapters: int = 1, precondition=None,
+                     trajectory: str = "adapter",
                      tempering: Optional[str] = None) -> dict:
     """JSON-safe identity of a sampling run, for resume validation: the
     JAX driver's keys (``_run_fingerprint``, driver.py:1470-1513), the
-    dtype under its numpy name."""
+    dtype under its numpy name. Each key or marker appears only off its
+    default: a layer's ``@<compute_dtype>`` and ``@prec=<precision>``, the
+    trajectory's ``+kahan``, ``precondition`` (an epoch, or
+    ``"<epoch>/w<windows>/clip<lo>,<hi>"``)."""
     layers = []
     for layer in model.layers:
         desc = type(layer).__name__
         if hasattr(layer, "in_dim") and hasattr(layer, "out_dim"):
             desc += f"({layer.in_dim},{layer.out_dim})"
+        if getattr(layer, "compute_dtype", None):
+            desc += f"@{layer.compute_dtype}"
+        if getattr(layer, "matmul_precision", None):
+            desc += f"@prec={layer.matmul_precision}"
         layers.append(desc)
     fp = {} if n_adapters == 1 else {"n_adapters": int(n_adapters)}
     if trajectory != "adapter":
         fp = fp | {"trajectory": trajectory}
+    if precondition is not None:
+        fp = fp | {"precondition": precondition
+                   if isinstance(precondition, str) else int(precondition)}
     if tempering is not None:
         fp = fp | {"tempering": tempering}
     return fp | {

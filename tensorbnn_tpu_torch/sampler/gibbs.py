@@ -89,9 +89,11 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   batched_hyper_traj: Optional[Callable] = None,
                   eta_dim: Optional[int] = None,
                   tempering_beta=None,
-                  record_uturn: bool = False) -> Callable:
+                  record_uturn: bool = False,
+                  data_chunk: Optional[int] = None,
+                  compensated: bool = False) -> Callable:
     """Builds ``epoch_fn(carry, step_size, leapfrog, generator, draws=None,
-    leapfrog_dev=None) -> (carry, trace)``.
+    leapfrog_dev=None, step_scale=None) -> (carry, trace)``.
 
     ``step_size`` is a float or a ``(C,)`` tensor on the chains' device.
     ``leapfrog`` is an int, or a ``(C,)`` host integer array in the
@@ -119,14 +121,27 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     U-turn step (``trajectory="uturn"``): from K1's trailing output (the
     driver builds it with ``record_uturn=True``) or ``HMCResult.uturn``.
     It draws nothing more.
+
+    ``data_chunk`` sums the plain path's likelihood (and the stats
+    potential's residual power) over row chunks (sampler/potential.py).
+    ``compensated`` runs the plain main block's leapfrog as Kahan sums
+    (sampler/hmc.py); the hyper chain's O(1) state keeps the plain
+    integrator. K1 integrates in its own program without the compensation
+    carries, so the two together raise. ``step_scale`` ``(D,)``, an
+    argument of each epoch, is the main block's diagonal-metric step
+    multiplier (plain path only).
     """
+    if compensated and batched_main_traj is not None:
+        raise ValueError("compensated leapfrog is handled by the plain "
+                         "path; build without batched_main_traj")
     potentials = make_potentials(model, likelihood, x, y, unravel_theta,
-                                 unravel_eta)
+                                 unravel_eta, data_chunk=data_chunk)
     stats_pair = None
     if adjust_hypers and eta_dim is not None:
         from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
         stats_pair = make_stats_hyper(model, likelihood, x, y,
-                                      unravel_theta, unravel_eta, eta_dim)
+                                      unravel_theta, unravel_eta, eta_dim,
+                                      data_chunk=data_chunk)
     tempered = tempering_beta is not None
     tempered_coupled = tempered and likelihood.main_probs_in_hypers
     if tempered:
@@ -138,7 +153,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                             dtype=x.dtype, device=x.device), n_rungs)
 
     def epoch_fn(carry: ChainState, step_size, leapfrog, generator,
-                 draws: Optional[EpochDraws] = None, leapfrog_dev=None):
+                 draws: Optional[EpochDraws] = None, leapfrog_dev=None,
+                 step_scale: Optional[torch.Tensor] = None):
         theta0, eta = carry.theta, carry.eta
         if leapfrog_dev is None and np.ndim(leapfrog) > 0:
             leapfrog_dev = torch.as_tensor(np.asarray(leapfrog),
@@ -171,7 +187,9 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                 main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
             main = hmc_step_batched(generator, theta0, main_vg, step_size,
                                     leapfrog, momenta=momenta, log_u=log_u,
-                                    record_uturn=record_uturn)
+                                    step_scale=step_scale,
+                                    record_uturn=record_uturn,
+                                    compensated=compensated)
             theta, main_accept, uturn = (main.position, main.accept_prob,
                                          main.uturn)
 

@@ -23,7 +23,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from tensorbnn_tpu_torch.sampler.potential import eta_index_probe
+from tensorbnn_tpu_torch.sampler.potential import eta_index_probe, \
+    row_chunks
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -71,7 +72,8 @@ def probe_stats_layout(model, likelihood, unravel_eta, eta_dim: int):
 
 
 def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
-                     eta_dim: int) -> Optional[Tuple[Callable, Callable]]:
+                     eta_dim: int, data_chunk: Optional[int] = None
+                     ) -> Optional[Tuple[Callable, Callable]]:
     """Builds ``(stats_fn, hyper_vg, hyper_vg_t)`` or None when out of
     scope.
 
@@ -79,6 +81,10 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
       main block;
     * ``hyper_vg(etas (C, H), stats (C, S)) -> ((C,), (C, H))``, value and
       grad of the hyper potential, equal to ``Potentials.hyper_vg``;
+      with ``data_chunk`` the coupled likelihood's residual power ``R`` is
+      summed over row chunks (forward only: nothing is differentiated
+      through ``stats_fn``), as the chunked potential bounds its
+      activations;
     * ``hyper_vg_t(etas, stats, betas (C,))``, the tempered variant (the
       power posterior: beta scales only the coupled likelihood term, so for
       an uncoupled likelihood it equals ``hyper_vg`` for any beta), equal to
@@ -89,6 +95,16 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
         return None
     dense_layers, coupled, sd_idx = layout
     n_events = int(x.shape[0]) * int(model.layers[dense_layers[-1][0]].out_dim)
+    chunks = row_chunks(x, y, data_chunk) or [(x, y)]
+
+    def resid_sq(thetas):
+        total = None
+        for xc, yc in chunks:
+            preds = vmap(lambda th: model.apply(unravel_theta(th), xc))(thetas)
+            resid = yc.reshape(preds.shape[1:]) - preds
+            part = (resid * resid).flatten(1).sum(1)
+            total = part if total is None else total + part
+        return total
 
     def stats_fn(thetas):
         params = unravel_theta(thetas)                 # leaves (C, ...)
@@ -98,9 +114,7 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
             b = params[i]["b"]
             cols += [w.sum(1), (w * w).sum(1), b.sum(1), (b * b).sum(1)]
         if coupled:
-            preds = vmap(lambda th: model.apply(unravel_theta(th), x))(thetas)
-            resid = y.reshape(preds.shape[1:]) - preds
-            cols += [(resid * resid).flatten(1).sum(1),
+            cols += [resid_sq(thetas),
                      torch.full_like(cols[0], float(n_events))]
         return torch.stack(cols, dim=1)
 

@@ -12,13 +12,15 @@ two packages as plain arrays.
 oracles batched over chains (``torch.func.vmap`` of
 ``torch.func.grad_and_value``), and the tempered variants that parallel
 tempering runs (the power posterior ``prior + beta * loglik``, priors
-untempered). The data-parallel ``axis_name`` and the chunked likelihood of
-the JAX package are not ported yet.
+untempered). With ``data_chunk`` the likelihood's value and gradient
+accumulate over row chunks (``_chunked_loglik``), which bounds the
+activations a call holds to ``chains x data_chunk x width``. The JAX
+package's data-parallel ``axis_name`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, NamedTuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from torch.func import grad_and_value, vmap
 
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
+from tensorbnn_tpu_torch.sampler.hmc import _kahan_add
 
 
 def tree_leaves(tree) -> list:
@@ -131,12 +134,74 @@ def _batched_value_and_grad(fn: Callable) -> Callable:
     return value_and_grad
 
 
+def row_chunks(x, y, data_chunk: Optional[int]) -> Optional[list]:
+    """``[(x_c, y_c), ...]``, views of ``data_chunk`` rows each, or None
+    when chunking is off (no ``data_chunk``, or one chunk). Raises when
+    ``data_chunk`` does not divide the rows, with the JAX package's
+    message."""
+    if not data_chunk:
+        return None
+    n_rows = int(x.shape[0])
+    if n_rows % data_chunk:
+        raise ValueError(
+            f"data_chunk ({data_chunk}) must divide the (local) training "
+            f"rows ({n_rows}); pad the dataset or pick a divisor")
+    if n_rows // data_chunk == 1:
+        return None
+    return [(x[i:i + data_chunk], y[i:i + data_chunk])
+            for i in range(0, n_rows, data_chunk)]
+
+
+def _chunked_loglik(loglik_chunk: Callable, chunks: list,
+                    argnums: int) -> Tuple[Callable, Callable]:
+    """Batched ``(value, value_and_grad)`` of the row-additive likelihood
+    ``sum_c loglik_chunk(theta, eta, x_c, y_c)`` over ``(C, ...)`` blocks;
+    the gradient is taken with respect to argument ``argnums`` (0: theta,
+    1: eta).
+
+    Each chunk's value and gradient are computed in turn (the JAX package
+    rematerializes each chunk under ``jax.checkpoint``; one autograd graph
+    over every chunk would hold every chunk's activations at once). The
+    values accumulate with the Kahan carry of ``_kahan_add``, as the JAX
+    package's scan carry does: a plain float32 carry loses ``ulp(|total|) /
+    2`` a chunk, nats at a 1M-row log-likelihood. The gradients sum
+    plainly (their compensation's derivative cancels exactly in JAX)."""
+    value_b = vmap(loglik_chunk, in_dims=(0, 0, None, None))
+    vg_b = vmap(grad_and_value(loglik_chunk, argnums=argnums),
+                in_dims=(0, 0, None, None))
+
+    def value(thetas, etas):
+        acc = comp = torch.zeros(thetas.shape[0], dtype=thetas.dtype,
+                                 device=thetas.device)
+        for xc, yc in chunks:
+            acc, comp = _kahan_add(acc, comp, value_b(thetas, etas, xc, yc))
+        return acc
+
+    def value_and_grad(thetas, etas):
+        acc = comp = torch.zeros(thetas.shape[0], dtype=thetas.dtype,
+                                 device=thetas.device)
+        grad = None
+        for xc, yc in chunks:
+            g, v = vg_b(thetas, etas, xc, yc)
+            acc, comp = _kahan_add(acc, comp, v)
+            grad = g if grad is None else grad + g
+        return acc, grad
+
+    return value, value_and_grad
+
+
 def make_potentials(model: Sequential, likelihood: Likelihood,
                     x: torch.Tensor, y: torch.Tensor,
                     unravel_theta: Callable,
-                    unravel_eta: Callable) -> Potentials:
+                    unravel_eta: Callable,
+                    data_chunk: Optional[int] = None) -> Potentials:
     """Builds the two log-posterior targets over flat vectors, closing
-    over the data ``x (N, d0)`` and ``y``."""
+    over the data ``x (N, d0)`` and ``y``. With ``data_chunk`` (a divisor
+    of N, more than one chunk) the batched oracles take the likelihood's
+    value and gradient chunk by chunk (``_chunked_loglik``), apart from the
+    priors, as the JAX package's ``_combine`` does; the single-chain
+    ``main`` and ``hyper`` sum the chunks' values likewise."""
+    chunks = row_chunks(x, y, data_chunk)
 
     def loglik(params, lik_hypers):
         preds = model.apply(params, x)
@@ -170,11 +235,48 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
         hypers, _ = unravel_eta(eta)
         return model.log_hyper_prior(hypers, unravel_theta(theta))
 
-    lik_vg = _batched_value_and_grad(loglik_main)
     prior_vg = _batched_value_and_grad(prior_main)
     hyper_rep_vg = _batched_value_and_grad(hyper_rep)
-    hyper_lik_vg = _batched_value_and_grad(
-        lambda eta, theta: loglik_main(theta, eta))
+    main_vg = _batched_value_and_grad(main)
+    hyper_vg = _batched_value_and_grad(hyper)
+    if chunks is None:
+        lik_vg = _batched_value_and_grad(loglik_main)
+        hyper_lik_vg = _batched_value_and_grad(
+            lambda eta, theta: loglik_main(theta, eta))
+        lik_value = vmap(loglik_main)
+    else:
+        def loglik_chunk(theta, eta, xc, yc):
+            _, lik_hypers = unravel_eta(eta)
+            preds = model.apply(unravel_theta(theta), xc)
+            return likelihood.log_likelihood(preds, yc, lik_hypers)
+
+        lik_value, lik_vg = _chunked_loglik(loglik_chunk, chunks, 0)
+        _, lik_vg_eta = _chunked_loglik(loglik_chunk, chunks, 1)
+
+        def hyper_lik_vg(etas, thetas):
+            return lik_vg_eta(thetas, etas)
+
+        def main(theta, eta):
+            return (lik_value(theta[None], eta[None])[0]
+                    + prior_main(theta, eta))
+
+        def hyper(eta, theta):
+            value = hyper_rep(eta, theta)
+            if likelihood.main_probs_in_hypers:
+                value = value + lik_value(theta[None], eta[None])[0]
+            return value
+
+        def main_vg(thetas, etas):
+            lv, lg = lik_vg(thetas, etas)
+            rv, rg = prior_vg(thetas, etas)
+            return lv + rv, lg + rg
+
+        def hyper_vg(etas, thetas):
+            rv, rg = hyper_rep_vg(etas, thetas)
+            if likelihood.main_probs_in_hypers:
+                lv, lg = hyper_lik_vg(etas, thetas)
+                rv, rg = lv + rv, lg + rg
+            return rv, rg
 
     def main_vg_t(thetas, etas, betas):
         lv, lg = lik_vg(thetas, etas)
@@ -188,6 +290,5 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
             rv, rg = rv + betas * lv, rg + betas[:, None] * lg
         return rv, rg
 
-    return Potentials(main, hyper, _batched_value_and_grad(main),
-                      _batched_value_and_grad(hyper), main_vg_t, hyper_vg_t,
-                      vmap(loglik_main))
+    return Potentials(main, hyper, main_vg, hyper_vg, main_vg_t, hyper_vg_t,
+                      lik_value)

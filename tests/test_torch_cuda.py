@@ -4,7 +4,10 @@ widest item tables) and K3
 (with its Bernoulli and categorical tails, slope ops, packed first layer
 and split row sums) on an NVIDIA card against their plain twins on the same
 card, K1's, K2's and K3's repeats bit-equal, and K1's and K2's entry
-points refusing tables that cannot hold.
+points refusing tables that cannot hold; and, with no kernel, the dense
+layers' ``matmul_precision`` on the card ("highest" gives the float32
+bits with TF32 switched on, "high" differs within TF32's tolerance) and
+the chunked likelihood on the card against the CPU in float64.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -554,3 +557,81 @@ def test_k1_entry_point_refuses_flags_that_cannot_hold(device, case):
             torch.zeros((c, d), device=device), net.train_x, net.train_y)
     with pytest.raises(RuntimeError, match="fused_trajectory launch failed"):
         fused_mlp.fused_trajectory(program, *args, 1e-3, 3)
+
+
+def _dense_stack(**kw):
+    return Sequential([GaussianDenseLayer(8, 64, **kw), Tanh(),
+                       GaussianDenseLayer(64, 64, **kw), Tanh(),
+                       GaussianDenseLayer(64, 1, **kw)])
+
+
+def _stack_value_and_grad(model, params, x, dev):
+    """The stack's output sum and its gradient with respect to every
+    parameter, on ``dev``."""
+    leaves = [{k: v.to(dev).requires_grad_() for k, v in p.items()}
+              for p in params]
+    out = model.apply(tuple(leaves), x.to(dev)).sum()
+    grads = torch.autograd.grad(out, [t for p in leaves for t in p.values()])
+    return [out.detach()] + [g.detach() for g in grads]
+
+
+@pytest.mark.cuda
+def test_highest_precision_gives_float32_bits_with_tf32_on(device):
+    """``matmul_precision="highest"`` with the process's TF32 switched on
+    gives the float32 products' bits (TF32 off) in the value and in every
+    gradient; ``"high"`` differs from them within TF32's tolerance (rtol
+    1e-2 of the largest entry: 10-bit operands over 64-wide sums)."""
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(4096, 8)), dtype=torch.float32)
+    params, _ = _dense_stack().init(torch.Generator().manual_seed(0))
+    want = _stack_value_and_grad(_dense_stack(), params, x, device)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = _stack_value_and_grad(_dense_stack(matmul_precision="highest"),
+                                    params, x, device)
+        high = _stack_value_and_grad(_dense_stack(matmul_precision="high"),
+                                     params, x, device)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert any(not torch.equal(h, w) for h, w in zip(high, want))
+    for h, w in zip(high, want):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(h, w, rtol=0, atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+def test_chunked_value_and_grad_match_the_cpu_in_float64(device):
+    """The chunked likelihood's value and gradient (8 chunks of 512 rows,
+    8 chains, a learned sd, "highest" products) on the card against the
+    same oracle on the CPU in float64, at the same float32 states: relative
+    1e-5 on the value, 1e-5 of the largest entry on the gradient."""
+    v32, g32 = _chunked_main_vg(device, torch.float32)
+    v64, g64 = _chunked_main_vg("cpu", torch.float64)
+    torch.testing.assert_close(v32.double(), v64, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g32.double(), g64, rtol=0,
+                               atol=1e-5 * float(g64.abs().max()))
+
+
+def _chunked_main_vg(dev, dt):
+    """``main_vg`` of the chunked surrogate-shaped potential at 8 float32
+    states, evaluated on ``dev`` in ``dt``; returned on the CPU."""
+    from tensorbnn_tpu_torch.sampler.potential import make_potentials
+    lik = GaussianLikelihood(sd=0.1)
+    model = _dense_stack(matmul_precision="highest")
+    params, hypers = model.init(torch.Generator().manual_seed(1))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    rng = np.random.default_rng(1)
+    thetas = flat.theta + 0.01 * torch.tensor(
+        rng.normal(size=(8, flat.theta.numel())), dtype=torch.float32)
+    x = rng.normal(size=(4096, 8))
+    y = np.sin(x.sum(axis=1)) + 0.1 * rng.normal(size=4096)
+    pots = make_potentials(
+        model, lik, torch.tensor(x, dtype=torch.float32).to(dev, dt),
+        torch.tensor(y, dtype=torch.float32).to(dev, dt),
+        flat.unravel_theta, flat.unravel_eta, data_chunk=512)
+    v, g = pots.main_vg(thetas.to(dev, dt),
+                        flat.eta.expand(8, -1).to(dev, dt))
+    return v.cpu(), g.cpu()

@@ -26,7 +26,19 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ("extended_regression", "classification", "train_regression",
-            "tempering_bimodal", "digits_classification")
+            "tempering_bimodal", "digits_classification",
+            "surrogate_regression")
+
+
+def _argv(name, tmp_path):
+    """The example's ``--cpu --smoke`` flags here: a folder for those that
+    write one, 4,096 points for the 1M-point surrogate."""
+    argv = ["--cpu", "--smoke"]
+    if name == "surrogate_regression":
+        return argv + ["--points", "4096"]
+    if name != "tempering_bimodal":
+        argv += ["--folder", str(tmp_path / name)]
+    return argv
 
 
 class _Stop(Exception):
@@ -125,9 +137,8 @@ def _record(monkeypatch, name, argv, package):
 
 
 def _same_layer(got, want):
-    """The same class with the same fields (the JAX dense layers have two
-    more, ``compute_dtype`` and ``matmul_precision``, which the port does
-    not carry: they must be at their defaults)."""
+    """The same class with the same fields (a field the port's layer lacks
+    must be at the JAX layer's default)."""
     assert type(got).__name__ == type(want).__name__
     fields = {k: v for k, v in vars(got).items() if not k.startswith("_")}
     for k, v in fields.items():
@@ -144,9 +155,7 @@ def test_example_builds_what_the_jax_example_builds(name, monkeypatch,
                                                     tmp_path):
     if name == "digits_classification":
         pytest.importorskip("sklearn")
-    argv = ["--cpu", "--smoke"]
-    if name != "tempering_bimodal":
-        argv += ["--folder", str(tmp_path / name)]
+    argv = _argv(name, tmp_path)
     want = _record(monkeypatch, name, argv, "jax")
     got = _record(monkeypatch, name, argv, "torch")
     assert got["device"] == "cpu"
@@ -204,15 +213,15 @@ def _short_train(monkeypatch, epochs=3):
 
 @pytest.mark.parametrize("name,path", [
     ("extended_regression", "K1"), ("classification", "K1"),
-    ("train_regression", "K1"), ("digits_classification", "K3")])
+    ("train_regression", "K1"), ("digits_classification", "K3"),
+    ("surrogate_regression", "plain")])
 def test_example_runs_its_build_and_first_epochs_on_the_cpu(
         name, path, monkeypatch, tmp_path):
     if name == "digits_classification":
         pytest.importorskip("sklearn")
     runs = _short_train(monkeypatch)
     with pytest.raises(_Stop):
-        _torch_example(name).main(["--cpu", "--smoke", "--folder",
-                                   str(tmp_path / name)])
+        _torch_example(name).main(_argv(name, tmp_path))
     res = runs[0]
     assert res.main_path == path, res.main_path
     assert res.main_accept.shape == (3,)
@@ -229,6 +238,23 @@ def test_tempering_example_runs_on_the_cpu(capsys):
     # the warm start's mirrored mode: the plain chains stay where they start
     assert out["plain_negative"] == 0.0
     assert 0.0 <= out["tempered_negative"] <= 1.0
+
+
+def test_surrogate_example_runs_on_the_cpu():
+    """``surrogate_regression --cpu --smoke --points 4096`` in full (60
+    epochs, one chain, the plain path under ``numerics="exact"``): 8
+    samples, acceptance in (0, 1], a finite learned sd. Its 100,000-point
+    ``--smoke`` runs on the card in ``chip_smoke.py``, held against the
+    JAX example's figures. ``--data-devices`` above 1 raises, naming the
+    mesh's place in ROADMAP.md."""
+    module = _torch_example("surrogate_regression")
+    out = module.main(["--cpu", "--smoke", "--points", "4096"])
+    assert out["samples"] == 8 and out["main_path"] == "plain"
+    assert not out["fused_hyper"]
+    assert 0.0 < out["main_accept"] <= 1.0
+    assert np.isfinite(out["learned_sd"]) and out["learned_sd"] > 0
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        module.main(["--cpu", "--smoke", "--data-devices", "2"])
 
 
 def test_digits_example_exits_with_the_jax_message_without_sklearn(

@@ -151,7 +151,6 @@ def test_store_options_are_carried():
     lifted = ("folder_name", "networks_per_file", "keep_samples",
               "checkpoint_dir", "checkpoint_every", "metric_list", "tracer")
     assert not set(lifted) & set(driver.NOT_CARRIED)
-    assert not set(lifted) & set(driver.INERT)
     net, lik = _net()
     with pytest.raises(ValueError, match="keep_samples=False"):
         net.train(20, 2, lik, verbose=False, keep_samples=False)
