@@ -33,8 +33,9 @@ picks:
   (3.2e-5, 15) (where the JAX package's full-length run settled), 5
   hyper steps from 1e-6: the plain main and hyper blocks.
 
-``python3 chip_profile.py surrogate`` profiles the ``surrogate`` cell
-alone; with ``--full`` it then runs the bench's whole schedule through
+``python3 chip_profile.py <cell>`` profiles one of the cells above alone
+(``flagship``, ``wide_deep``, ...), ``python3 chip_profile.py surrogate``
+the ``surrogate`` cell; with ``--full`` it then runs the bench's whole schedule through
 ``Network.train`` (600 epochs, burn-in 200, every second epoch recorded)
 and prints its quality line (post-burn-in acceptance, the settled (eps,
 L), ESS of the predictive mean at the first input row per second of the
@@ -242,6 +243,7 @@ def main(argv=None) -> int:
     ladder = make_ladder(n_rungs, 0.5)
     tempering_beta = (n_rungs, np.repeat(ladder, n_cold))
     fleet = n_rungs * n_cold
+    only = argv[0] if argv else None
     for name, build, eps, steps, hyper_steps, hyper_eps, sizes, temper, \
             chains, uturn in (
             ("flagship", flagship_network, 1e-3, 100, 100, 1e-3,
@@ -255,6 +257,8 @@ def main(argv=None) -> int:
              (10, 50, 20), False, 512, True),
             ("classification 128", classification_network, 5e-4, 50, 10,
              1e-4, (10, 50, 20), False, 128, False)):
+        if only not in (None, name):
+            continue
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
@@ -282,6 +286,8 @@ def main(argv=None) -> int:
         cell(name, run, carry, eps, steps, *sizes, gen, card, glue)
         del run, carry, net
         torch.cuda.empty_cache()
+    if only is not None:
+        return 0
     surrogate_cell(dev, gen, card)
     k3_call_breakdown(dev, gen, card)
     predict_breakdown(dev, card)

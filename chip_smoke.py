@@ -107,7 +107,19 @@ script exits non-zero:
    --smoke`` held to the JAX example's figures; the same model under
    default numerics (K3 + K2), K3 held against the plain path, as a
    ``{"surrogate": ...}`` line (``--surrogate-only`` runs phases 1, 2 and
-   10 alone).
+   10 alone);
+11. the ``(chains, data)`` mesh on a virtual mesh whose entries are all
+   this card: the flagship at 64 chains on 4x1 (K1 and K2 on each chain
+   shard) against the mesh-less run, then 200 epochs of each (walls and
+   launches an epoch); ``wide_deep`` on 2x2 (K3 and the coupled K2)
+   against the mesh-less run, with the stats' R and K summed over the data
+   peers (and the flagship's 11 rows refused there); the 1M-point
+   surrogate on 1x4: K3 on four 250,000-row shards against the mesh-less
+   K3 and the plain path, and 10 epochs under ``numerics="exact"``; a
+   tempered ``multiclass`` block on 1x2 (the plain main block) against the
+   mesh-less swap decisions; the predict cell on 2x2 against the unsharded
+   ``predict``; as a ``{"mesh": ...}`` line (``--mesh-only`` runs phases
+   1, 2 and 11 alone).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -279,6 +291,30 @@ SURR_SMOKE_ACCEPT_TOL, SURR_SMOKE_SD_RTOL = 0.05, 0.10
 # match, not a speed
 TPU_SURROGATE_REF = {"main_accept": (0.70, 0.76), "step_size": 3.2e-5,
                      "leapfrog": 15}
+# phase 11: the (chains, data) mesh on a virtual mesh of this card. (a) the
+# flagship on 4x1 against the mesh-less run: the same MH decisions and
+# samples within this fraction of their largest entry (a chain shard's 16
+# chains run K1's and K2's per-chain arithmetic as the fleet's 64 do; only
+# the glue's row sums, such as the kinetic energies, may take another
+# order for a smaller batch)
+MESH_FLAGSHIP_ATOL = 1e-6
+# (b) wide_deep on 2x2 against the mesh-less K3 run: the same main and
+# hyper MH decisions and theta within this fraction of its largest entry
+# (the likelihood summed in two halves, K3 planned for 64 rows and 32
+# chains: 2.4e-7 apart at 3 epochs), the main block's move over the run
+# above MESH_MOVE_OVER_TOL times that tolerance (so a frozen main block
+# or a wrong gradient leaves it), the stats' R within this relative
+# tolerance at the final state, and K exactly 128
+MESH_DATA_ATOL = 1e-5
+MESH_MOVE_OVER_TOL = 10.0
+MESH_STATS_RTOL = 1e-6
+# (c) the exact-numerics surrogate on 1x4 against the same 10 epochs
+# without the mesh: mean main and hyper acceptance within this distance
+# (the two sum the likelihood in other orders, so the chains part by ulps)
+MESH_ACCEPT_TOL = 0.05
+# (e) the predict cell on 2x2 against the unsharded predict: each block's
+# batched products have other shapes, which may sum in another order
+MESH_PREDICT_TOL = 1e-6
 
 
 def phase(name):
@@ -1683,12 +1719,371 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     return out
 
 
+def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
+    """Phase 11: the ``(chains, data)`` mesh on a virtual mesh whose entries
+    are all this card (``make_mesh(..., devices=[dev] * n)``), which runs
+    the code that would run over distinct cards. (a) the flagship at 64
+    chains on 4x1 through ``Network.train`` (K1 and K2 on each chain
+    shard): 3 epochs against the mesh-less run from the same seed (the MH
+    decisions and the samples), then 200 epochs of each, their walls and
+    launches an epoch (the host's cost of four shards on one thread); (b)
+    the flagship refused on 2x2 (11 rows), ``wide_deep`` on 2x2 (K3 and
+    the coupled K2): 3 epochs against the mesh-less K3 run, and the stats
+    columns R and K at the final state against the mesh-less ones; (c)
+    the 1M-point surrogate at full width on 1x4: under default numerics
+    one main-block evaluation (K3 on four 250,000-row shards and the sum)
+    against the mesh-less K3 evaluation and the plain path in float64
+    (the float32 plain path's own distance from it reported beside), its
+    ms and peak memory; under ``numerics="exact"`` with
+    ``data_chunk=125,000`` (two chunks a shard) 10 epochs, the ms an
+    evaluation and the acceptance against the same epochs without the
+    mesh; (d) ``multiclass`` tempered (64 chains x 4 rungs, beta_min
+    0.5) on 1x2, 3 epochs on the plain path against the mesh-less run (the
+    swap decisions), and with the kernels the driver picks there (the
+    plain main block, K2); (e) the predict cell on 2x2 against the
+    unsharded ``predict``, the host-ms of a call. Prints a ``{"mesh":
+    ...}`` line and returns its dict."""
+    from tensorbnn_tpu_torch.ops import fused_mlp
+    from tensorbnn_tpu_torch.parallel.mesh import DataPeers, make_mesh
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+    from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
+        make_potentials
+
+    t_phase = time.perf_counter()
+
+    def mesh(n_chain, n_data):
+        return make_mesh(n_chain, n_data, devices=[dev] * (n_chain * n_data))
+
+    def moves(samples):
+        """The MH decisions of epochs 2.. of a run recorded every epoch:
+        (epochs - 1, C), True where the state moved."""
+        return (samples[1:] != samples[:-1]).any(-1)
+
+    def train(label, make, mcmc, epochs, m, **kw):
+        net, lik = make(dev)
+        net.setup_mcmc(**mcmc)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = net.train(epochs, 1, lik, mesh=m, verbose=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, read_counts(label), wall
+
+    out = {"card": card}
+
+    # (a) the flagship on 4x1: K1 + K2 on each chain shard
+    flag = {}
+    for label, m in (("meshless", None), ("4x1", mesh(4, 1))):
+        flag[label] = train(f"flagship 3 epochs, {label}", flagship_network,
+                            RECIPE | dict(burnin=0), 3, m, n_chains=64,
+                            chain_jitter=0.01)
+    (r0, c0, _), (r1, c1, _) = flag["meshless"], flag["4x1"]
+    same_moves = bool(
+        (moves(r1.theta_samples) == moves(r0.theta_samples)).all()
+        and (moves(r1.eta_samples) == moves(r0.eta_samples)).all())
+    scale = float(np.abs(r0.theta_samples).max())
+    diff = float(np.abs(r1.theta_samples - r0.theta_samples).max())
+    out["flagship_4x1"] = {
+        "main_path": r1.main_path, "fused_hyper": r1.fused_hyper,
+        "launches": c1, "meshless_launches": c0,
+        "decisions_equal": same_moves,
+        "samples_bit_equal": bool((r1.theta_samples == r0.theta_samples)
+                                  .all() and (r1.eta_samples
+                                              == r0.eta_samples).all()),
+        "theta_max_abs_diff": diff, "theta_max_abs": scale,
+        "main_accept": r1.main_accept.tolist(),
+        "meshless_main_accept": r0.main_accept.tolist()}
+    if (r1.main_path != "K1" or not r1.fused_hyper or not same_moves
+            or c1 != {"K1": 12, "K2": 12, "K3": 0}
+            or c0 != {"K1": 3, "K2": 3, "K3": 0}
+            or diff > MESH_FLAGSHIP_ATOL * scale):
+        raise AssertionError(f"flagship on 4x1: {out['flagship_4x1']}")
+    steady = {}
+    for label, m in (("meshless", None), ("4x1", mesh(4, 1))):
+        res, counts, wall = train(f"flagship 200 epochs, {label}",
+                                  flagship_network, RECIPE, 200, m,
+                                  n_chains=64, chain_jitter=0.01)
+        assert np.isfinite(res.main_accept).all()
+        steady[label] = {"wall_s": wall, "ms_per_epoch": 5.0 * wall,
+                         "launches_per_epoch": {k: v / 200 for k, v in
+                                                counts.items()},
+                         "final_leapfrog": res.final_leapfrog}
+    out["flagship_4x1"]["steady_200"] = steady
+    print(f"(a) flagship 64 chains on 4x1 ({card}): {r1.main_path} + K2, "
+          f"launches {c1} in 3 epochs (mesh-less {c0}); MH decisions "
+          f"equal {same_moves}, samples bit-equal "
+          f"{out['flagship_4x1']['samples_bit_equal']} (max |diff| "
+          f"{diff:.3g} of {scale:.3g}); 200 epochs: "
+          + "; ".join(f"{k} {v['wall_s']:.3f} s ({v['ms_per_epoch']:.3f} ms "
+                      f"an epoch, launches an epoch "
+                      f"{v['launches_per_epoch']})"
+                      for k, v in steady.items()), flush=True)
+
+    # (b) the flagship's 11 rows refused on 2x2; wide_deep on 2x2
+    fnet, flik = flagship_network(dev)
+    fnet.setup_mcmc(**RECIPE)
+    try:
+        fnet.train(1, 1, flik, n_chains=64, mesh=mesh(2, 2), verbose=False)
+        raise AssertionError("the flagship's 11 rows ran on a data axis "
+                             "of 2")
+    except ValueError as err:
+        refusal = str(err)
+    if refusal != ("training rows 11 must divide the data axis (2); pad "
+                   "the dataset"):
+        raise AssertionError(f"flagship on 2x2: {refusal}")
+    wide_mcmc = dict(burnin=0, step_size_start=1e-5, step_size_min=1e-6,
+                     step_size_max=1e-4, leapfrog_start=20, leapfrog_min=20,
+                     leapfrog_max=20, hyper_leapfrog=5, hyper_step_size=1e-4,
+                     averaging_steps=10)
+    wide = {label: train(f"wide_deep 3 epochs, {label}", wide_network,
+                         wide_mcmc, 3, m, n_chains=64, chain_jitter=0.01)
+            for label, m in (("meshless", None), ("2x2", mesh(2, 2)))}
+    (w0, wc0, _), (w1, wc1, _) = wide["meshless"], wide["2x2"]
+    wnet, wlik = wide_network(dev)
+    params, hypers = wnet.init_state()
+    wflat = flatten_state(params, hypers, wlik.init_hypers(device=dev))
+    h = wflat.eta.numel()
+    thetas = torch.tensor(w1.theta_samples[-1], device=dev)
+    peers = DataPeers.split([dev] * 2, wnet.train_x, wnet.train_y)
+    stats_mesh = make_stats_hyper(
+        wnet.model, wlik, *peers.shards[0], wflat.unravel_theta,
+        wflat.unravel_eta, h, peers=peers)[0](thetas)
+    stats_0 = make_stats_hyper(
+        wnet.model, wlik, wnet.train_x, wnet.train_y, wflat.unravel_theta,
+        wflat.unravel_eta, h)[0](thetas)
+    r_rel = float(((stats_mesh[:, -2] - stats_0[:, -2]).abs()
+                   / stats_0[:, -2].abs()).max())
+    k_vals = sorted(set(stats_mesh[:, -1].tolist()))
+    w_scale = float(np.abs(w0.theta_samples).max())
+    w_diff = float(np.abs(w1.theta_samples - w0.theta_samples).max())
+    w_move = float(np.abs(w0.theta_samples[-1]
+                          - w0.theta_samples[0]).max())
+    theta_ok = w_diff <= MESH_DATA_ATOL * w_scale
+    main_moves = bool((moves(w1.theta_samples)
+                       == moves(w0.theta_samples)).all())
+    hyper_moves = bool((moves(w1.eta_samples)
+                        == moves(w0.eta_samples)).all())
+    want_k3 = 4 * 3 * 21
+    out["wide_deep_2x2"] = {
+        "flagship_refusal": refusal, "main_path": w1.main_path,
+        "fused_hyper": w1.fused_hyper, "launches": wc1,
+        "meshless_launches": wc0, "theta_within_tol": bool(theta_ok),
+        "theta_max_abs_diff": w_diff, "theta_max_abs": w_scale,
+        "theta_max_move": w_move, "main_decisions_equal": main_moves,
+        "hyper_decisions_equal": hyper_moves,
+        "hyper_accept": w1.hyper_accept.tolist(),
+        "meshless_hyper_accept": w0.hyper_accept.tolist(),
+        "main_accept": w1.main_accept.tolist(),
+        "meshless_main_accept": w0.main_accept.tolist(),
+        "r_max_rel_diff": r_rel, "k_values": k_vals,
+        "k_meshless": sorted(set(stats_0[:, -1].tolist()))}
+    print(f"(b) wide_deep 64 chains on 2x2 ({card}): "
+          f"{json.dumps(out['wide_deep_2x2'])}", flush=True)
+    if (w1.main_path != "K3" or not w1.fused_hyper or not theta_ok
+            or not main_moves or not hyper_moves
+            or w_move < MESH_MOVE_OVER_TOL * MESH_DATA_ATOL * w_scale
+            or wc1 != {"K1": 0, "K2": 6, "K3": want_k3}
+            or r_rel > MESH_STATS_RTOL or k_vals != [128.0]
+            or out["wide_deep_2x2"]["k_meshless"] != [128.0]):
+        raise AssertionError(f"wide_deep on 2x2: {out['wide_deep_2x2']}")
+    del wide, stats_mesh, stats_0, peers, thetas
+
+    # (c) the 1M-point surrogate on 1x4: K3 on four 250,000-row shards
+    net_d, lik_d = surrogate_network(dev, x, y, warm, SURR_BURNIN)
+    params, hypers = net_d.init_state()
+    sflat = flatten_state(params, hypers, lik_d.init_hypers(device=dev))
+    h = sflat.eta.numel()
+    g = torch.Generator(device=dev).manual_seed(11)
+    th = (sflat.theta.expand(SURR_CHAINS, -1) + 1e-4 * torch.randn(
+        (SURR_CHAINS, sflat.theta.numel()), generator=g, device=dev))
+    et = sflat.eta.expand(SURR_CHAINS, -1).contiguous()
+    n_local = SURROGATE_POINTS // 4
+    peers = DataPeers.split([dev] * 4, net_d.train_x, net_d.train_y)
+    k3_mesh = fused_mlp.try_build_fused_main_vg(
+        net_d.model, lik_d, sflat.unravel_theta, sflat.unravel_eta,
+        *peers.shards[0], h, n_rows=n_local)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = k3_mesh(th, et, *peers.shards[0], peers=peers)
+    k3_counts = read_counts("surrogate, one K3 evaluation on 1x4")
+    peak = torch.cuda.max_memory_allocated() - held
+    mesh_ms = cuda_ms(lambda: k3_mesh(th, et, *peers.shards[0],
+                                      peers=peers), reps=3)
+    k3_whole = fused_mlp.try_build_fused_main_vg(
+        net_d.model, lik_d, sflat.unravel_theta, sflat.unravel_eta,
+        net_d.train_x, net_d.train_y, h)
+    want = k3_whole(th, et, net_d.train_x, net_d.train_y)
+    whole_ms = cuda_ms(lambda: k3_whole(th, et, net_d.train_x,
+                                        net_d.train_y), reps=3)
+    # the plain path in float32 and in float64 (phase 10 (b)'s reference):
+    # at this state the float32 one is itself ~1e-5 from float64 in value
+    plain = {}
+    for dt in (torch.float32, torch.float64):
+        pots = make_potentials(net_d.model, lik_d, net_d.train_x.to(dt),
+                               net_d.train_y.to(dt), sflat.unravel_theta,
+                               sflat.unravel_eta, data_chunk=SURR_CHUNK)
+        plain[dt] = tuple(t.double() for t in pots.main_vg(th.to(dt),
+                                                           et.to(dt)))
+        del pots
+    ops, tail = fused_mlp._model_program(net_d.model, lik_d)
+    program = fused_mlp.make_fused_potential_vg(ops, n_local, tail).args[0]
+    errs = {}
+    for label, a, b in (
+            ("vs_meshless_k3", got, want),
+            ("vs_float64", got, plain[torch.float64]),
+            ("meshless_k3_vs_float64", want, plain[torch.float64]),
+            ("plain_float32_vs_float64", plain[torch.float32],
+             plain[torch.float64])):
+        gmax = float(b[1].abs().max())
+        errs[label] = {
+            "value_rel": float(((a[0].double() - b[0]).abs()
+                                / b[0].abs()).max()),
+            "grad_over_max": float((a[1].double() - b[1]).abs().max())
+            / gmax}
+    default = {"launches": k3_counts, "shards": 4, "rows_a_shard": n_local,
+               "chains": SURR_CHAINS, "ms": mesh_ms,
+               "meshless_k3_ms": whole_ms, "peak_memory_bytes": peak,
+               "held_before_bytes": held,
+               "workspace_bytes_a_shard": 4 * program.workspace_floats(
+                   SURR_CHAINS), **errs}
+    del got, want, plain, k3_whole
+    torch.cuda.empty_cache()
+    print(f"(c) surrogate {SURR_CHAINS} chains x {SURROGATE_POINTS:,} rows "
+          f"on 1x4, default numerics ({card}): {json.dumps(default)}",
+          flush=True)
+    if (k3_counts != {"K1": 0, "K2": 0, "K3": 4}
+            or any(errs[k]["value_rel"] > SURR_VALUE_RTOL
+                   or errs[k]["grad_over_max"] > SURR_GRAD_TOL
+                   for k in ("vs_meshless_k3", "vs_float64"))):
+        raise AssertionError(f"surrogate K3 on 1x4: {default}")
+    # 10 epochs under the exact preset (the plain path: no kernel), burn-in
+    # 5 so that epochs 6, 8 and 10 are recorded, on 1x4 and without the
+    # mesh from the same seed (the likelihood summed in another order, so
+    # the acceptance is compared, not the bits)
+    exact_runs = {}
+    for label, m in (("meshless", None), ("1x4", mesh(1, 4))):
+        net_e, lik_e = surrogate_network(dev, x, y, warm, 5)
+        reset_counts()
+        t0 = time.perf_counter()
+        res_e = net_e.train(10, 2, lik_e, n_chains=SURR_CHAINS,
+                            chain_jitter=0.0, data_chunk=SURR_CHUNK,
+                            numerics="exact", mesh=m, verbose=False)
+        torch.cuda.synchronize()
+        exact_runs[label] = (res_e, time.perf_counter() - t0, read_counts(
+            f"surrogate, numerics='exact', {label} (plain)"))
+    res_0 = exact_runs["meshless"][0]
+    res_e, wall_e, counts_e = exact_runs["1x4"]
+    peers_e = DataPeers.split([dev] * 4, net_e.train_x, net_e.train_y)
+    pots = make_potentials(exact_numerics_model(net_e.model), lik_e,
+                           *peers_e.shards[0], sflat.unravel_theta,
+                           sflat.unravel_eta, data_chunk=SURR_CHUNK,
+                           peers=peers_e)
+    th_e, et_e = last_state(res_e, dev)
+    exact = {"main_path": res_e.main_path, "fused_hyper": res_e.fused_hyper,
+             "launches": counts_e, "train_wall_s": wall_e,
+             "epoch_wall_s": wall_e / 10,
+             "eval_ms": cuda_ms(lambda: pots.main_vg(th_e, et_e), reps=3),
+             "meshless_wall_s": exact_runs["meshless"][1],
+             "main_accept": float(res_e.main_accept.mean()),
+             "hyper_accept": float(res_e.hyper_accept.mean()),
+             "main_accept_epochs": res_e.main_accept.tolist(),
+             "hyper_accept_epochs": res_e.hyper_accept.tolist(),
+             "meshless_main_accept_epochs": res_0.main_accept.tolist(),
+             "meshless_hyper_accept_epochs": res_0.hyper_accept.tolist(),
+             "final_step_size": res_e.final_step_size,
+             "final_leapfrog": res_e.final_leapfrog,
+             "samples": list(res_e.theta_samples.shape)}
+    out["surrogate_1x4"] = {"default_numerics": default, "exact": exact}
+    print(f"(c) surrogate on 1x4, numerics='exact', data_chunk "
+          f"{SURR_CHUNK:,} (two chunks a shard) ({card}): "
+          f"{json.dumps(exact)}", flush=True)
+    if (res_e.main_path != "plain" or res_e.fused_hyper
+            or any(counts_e.values())
+            or not np.isfinite(res_e.theta_samples).all()
+            or not 0.0 < exact["main_accept"] <= 1.0
+            or any(abs(getattr(res_e, k).mean() - getattr(res_0, k).mean())
+                   > MESH_ACCEPT_TOL for k in ("main_accept",
+                                               "hyper_accept"))):
+        raise AssertionError(f"surrogate exact on 1x4: {exact}")
+    del net_d, net_e, res_e, res_0, exact_runs, pots, peers, peers_e, \
+        k3_mesh, th, et
+    torch.cuda.empty_cache()
+
+    # (d) multiclass tempered on 1x2: the plain main block
+    temp_kw = dict(n_chains=64, tempering=4, tempering_beta_min=0.5,
+                   chain_jitter=0.01)
+    mcmc = cls_mcmc("multiclass")
+    tmp = {label: train(f"multiclass tempered, {label}", multiclass_network,
+                        mcmc, 3, m, use_fused=False, **temp_kw)
+           for label, m in (("meshless", None), ("1x2", mesh(1, 2)))}
+    (t0_, _, _), (t1_, _, _) = tmp["meshless"], tmp["1x2"]
+    auto, auto_counts, _ = train("multiclass tempered on 1x2, kernels",
+                                 multiclass_network, mcmc, 3, mesh(1, 2),
+                                 **temp_kw)
+    swaps_equal = bool((t1_.swap_accept_rung == t0_.swap_accept_rung).all())
+    out["multiclass_tempered_1x2"] = {
+        "main_path": t1_.main_path,
+        "swap_rate_rung": t1_.swap_accept_rung.tolist(),
+        "meshless_swap_rate_rung": t0_.swap_accept_rung.tolist(),
+        "swap_decisions_equal": swaps_equal,
+        "main_accept": t1_.main_accept.tolist(),
+        "meshless_main_accept": t0_.main_accept.tolist(),
+        "with_kernels": {"main_path": auto.main_path,
+                         "fused_hyper": auto.fused_hyper,
+                         "launches": auto_counts,
+                         "swap_rate_rung": auto.swap_accept_rung.tolist()}}
+    print(f"(d) multiclass 64 x 4 rungs on 1x2 ({card}): "
+          f"{json.dumps(out['multiclass_tempered_1x2'])}", flush=True)
+    if (t1_.main_path != "plain" or not swaps_equal
+            or auto.main_path != "plain" or not auto.fused_hyper
+            or auto_counts != {"K1": 0, "K2": 3, "K3": 0}
+            or not np.isfinite(auto.swap_accept_rung).all()):
+        raise AssertionError(f"multiclass tempered on 1x2: "
+                             f"{out['multiclass_tempered_1x2']}")
+
+    # (e) the predict cell on 2x2
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp_dir:
+        pred, xp, _ = predict_cell(dev, tmp_dir)
+        m = mesh(2, 2)
+        want = pred.predict(xp)
+        got = pred.predict(xp, mesh=m)
+        host = {}
+        for label, kw in (("meshless", {}), ("2x2", {"mesh": m})):
+            for _ in range(3):
+                pred.predict(xp, **kw)
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pred.predict(xp, **kw)
+                times.append(1e3 * (time.perf_counter() - t0))
+            host[label] = float(np.median(times))
+    diff = float(np.abs(got - want).max())
+    out["predict_2x2"] = {
+        "networks": PREDICT_NETS, "points": PREDICT_POINTS,
+        "bit_equal": bool((got == want).all()), "max_abs_diff": diff,
+        "max_abs": float(np.abs(want).max()), "host_ms_median_of_5": host}
+    print(f"(e) the predict cell on 2x2 ({card}): "
+          f"{json.dumps(out['predict_2x2'])}", flush=True)
+    if got.shape != want.shape or diff > MESH_PREDICT_TOL * max(
+            1.0, out["predict_2x2"]["max_abs"]):
+        raise AssertionError(f"predict on 2x2: {out['predict_2x2']}")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"mesh": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    # --surrogate-only: phases 1, 2 and 10 alone (a quick check of phase
-    # 10; no kernels line)
+    # --surrogate-only / --mesh-only: phases 1, 2 and 10 / 11 alone (a quick
+    # check of that phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
-    if argv and not surrogate_only:
+    mesh_only = argv == ["--mesh-only"]
+    if argv and not (surrogate_only or mesh_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -1738,11 +2133,15 @@ def main(argv=None) -> int:
         print(f"launches during the {path} path: {got}")
         return got
 
-    if surrogate_only:
-        phase("10 the 1M-point surrogate on the card")
+    if surrogate_only or mesh_only:
         x, y = surrogate_data()
         warm = surrogate_pretrain(dev, x, y)
-        surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
+        if surrogate_only:
+            phase("10 the 1M-point surrogate on the card")
+            surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
+        else:
+            phase("11 the mesh on the card")
+            mesh_phase(dev, card, x, y, warm, reset_counts, read_counts)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -2833,9 +3232,17 @@ def main(argv=None) -> int:
 
     phase("10 the 1M-point surrogate on the card")
     surr = surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
-    del x, y
     # K3 at the surrogate's shape under default numerics: (e)'s figures
     kernels[2]["surrogate_default_numerics"] = surr["default_numerics"]
+
+    phase("11 the mesh on the card")
+    mesh = mesh_phase(dev, card, x, y, warm, reset_counts, read_counts)
+    del x, y
+    # K1 a chain shard's launch on 4x1, K3 on four surrogate shards
+    kernels[0]["mesh_4x1"] = {
+        k: mesh["flagship_4x1"][k] for k in ("launches", "steady_200")}
+    kernels[2]["mesh_1x4_surrogate"] = mesh["surrogate_1x4"][
+        "default_numerics"]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,8 +12,10 @@ by the chunked likelihood, under the default ``numerics="exact"`` preset
 (the Kahan leapfrog and TF32-off products). Leave ``--precondition`` off
 here: the cross-chain metric estimate on this fleet is near-identity or
 corrupted by the adapter's random-phase exploration (the JAX package's
-measurement). ``--data-devices`` above 1 needs the multi-GPU mesh, which
-is not ported yet.
+measurement). ``--data-devices N`` (N > 1) lays a ``(chains, data)`` mesh
+over the cards (over the CPU with ``--cpu``), N on the data axis and one
+chain a chain-axis device, as the JAX example does; a machine with fewer
+than N devices raises ``make_mesh``'s error.
 """
 
 import argparse
@@ -46,19 +48,24 @@ def main(argv=None):
                     help="opt out of the numerics='exact' preset (Kahan "
                          "integration + exact-f32 products)")
     args = ap.parse_args(argv)
-    if args.data_devices > 1:
-        raise NotImplementedError(
-            "--data-devices > 1 needs the data-parallel mesh, which "
-            "tensorbnn_tpu_torch does not carry yet (ROADMAP.md queue 1 "
-            "item 6, multi-GPU)")
 
     import torch
 
     from tensorbnn_tpu_torch import GaussianDenseLayer, GaussianLikelihood, \
         Network, Tanh
     from tensorbnn_tpu_torch.metrics import SquaredError
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
 
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    n_chains = args.chains
+    if args.data_devices > 1:
+        devices = [torch.device("cpu")] if args.cpu else [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        n_chain_dev = len(devices) // args.data_devices
+        mesh = make_mesh(n_chain_devices=n_chain_dev,
+                         n_data_devices=args.data_devices, devices=devices)
+        n_chains = n_chain_dev  # one chain per chain-axis device
     start = time.time()
     n = args.points if not args.smoke else min(args.points, 100_000)
     d_in, width = 8, 64
@@ -82,8 +89,8 @@ def main(argv=None):
                    hyper_leapfrog=10, burnin=burnin, averaging_steps=10,
                    random_steps=3)
     res = net.train(epochs, 5, GaussianLikelihood(sd=0.05),
-                    metric_list=[SquaredError()], mesh=None,
-                    n_chains=args.chains,
+                    metric_list=[SquaredError()], mesh=mesh,
+                    n_chains=n_chains,
                     # positional jitter collapses acceptance on sharp
                     # big-data posteriors; momenta decorrelate the fleet
                     chain_jitter=0.0,

@@ -5,7 +5,10 @@ the sampler configuration, then delegates to
 :func:`tensorbnn_tpu_torch.sampler.driver.sample_posterior`. The reference's
 camelCase names (``setupMCMC``, ``stepSizeStart``, ...) are accepted.
 Everything lives on ``device``: the CUDA card unless the caller names
-another device (the tests pass ``device="cpu"``).
+another device (the tests pass ``device="cpu"``). ``train(mesh=...)`` runs
+the fleet over a ``(chains, data)`` mesh (parallel/mesh.py), whose first
+device must be ``device``: the run's data, draws and gathered outputs live
+there.
 """
 
 from __future__ import annotations
@@ -143,7 +146,8 @@ class Network:
               keep_samples="auto", data_chunk: Optional[int] = None,
               precondition=False, precondition_clip=(1e-2, 1e2),
               precondition_windows: int = 1, compensated: bool = False,
-              numerics: str = "default", **kwargs) -> RunResult:
+              numerics: str = "default", mesh=None,
+              **kwargs) -> RunResult:
         """Runs the sampler; options the port does not carry raise
         NotImplementedError naming them.
 
@@ -188,6 +192,12 @@ class Network:
         ``n_chains >= 8``) estimates a diagonal metric from the fleet's
         spread, clipped to ``precondition_clip``, re-estimated at
         ``precondition_windows`` epochs up to the burn-in.
+
+        ``mesh`` (``parallel.mesh.make_mesh``; its first device this
+        Network's ``device``) splits the chains over its chains axis and the
+        rows over its data axis, the likelihood summed over the data peers;
+        ``n_chains`` must be a multiple of the chains axis and the rows of
+        the data axis.
         """
         options = {_REF_TRAIN_KWARGS.get(k, k): v for k, v in kwargs.items()}
         options.pop("scaleExp", None)
@@ -219,7 +229,8 @@ class Network:
             data_chunk=data_chunk, precondition=precondition,
             precondition_clip=precondition_clip,
             precondition_windows=precondition_windows,
-            compensated=compensated, numerics=numerics, **options)
+            compensated=compensated, numerics=numerics, mesh=mesh,
+            **options)
         return self.results
 
     def predict(self, train: bool = True, params: Optional[tuple] = None):

@@ -153,13 +153,15 @@ def fused_hyper_trajectory(program: HyperProgram, etas, stats, momenta,
     lp0 = torch.empty(c, dtype=torch.float32, device=etas.device)
     lp1 = torch.empty_like(lp0)
     lib = _build.load()
-    rc = lib.tbnn_fused_hyper(
-        etas.data_ptr(), momenta.data_ptr(), stats.data_ptr(),
-        eps_c.data_ptr(), program.table.ctypes.data, len(program.items),
-        int(program.coupled), c, program.eta_dim, program.n_stats,
-        program.n_steps, program.lanes, program.threads, q.data_ptr(),
-        v.data_ptr(), lp0.data_ptr(), lp1.data_ptr(),
-        torch.cuda.current_stream(etas.device).cuda_stream)
+    # the library launches on the current device: make it the tensors'
+    with torch.cuda.device(etas.device):
+        rc = lib.tbnn_fused_hyper(
+            etas.data_ptr(), momenta.data_ptr(), stats.data_ptr(),
+            eps_c.data_ptr(), program.table.ctypes.data, len(program.items),
+            int(program.coupled), c, program.eta_dim, program.n_stats,
+            program.n_steps, program.lanes, program.threads, q.data_ptr(),
+            v.data_ptr(), lp0.data_ptr(), lp1.data_ptr(),
+            torch.cuda.current_stream(etas.device).cuda_stream)
     _build.check(rc, "fused_hyper_trajectory")
     fused_hyper_trajectory.LAUNCHES += 1
     return q, v, lp0, lp1

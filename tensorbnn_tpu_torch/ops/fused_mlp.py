@@ -573,18 +573,21 @@ def fused_trajectory(program: TrajectoryProgram, thetas, etas, momenta, x,
     ut = (torch.empty(c, dtype=torch.int32, device=thetas.device)
           if program.record_uturn else None)
     lib = _build.load()
-    rc = lib.tbnn_fused_trajectory(
-        thetas.data_ptr(), momenta.data_ptr(), etas.data_ptr(),
-        x.data_ptr(), y.data_ptr(), eps_c.data_ptr(), l_c.data_ptr(),
-        None if beta_ptr is None else beta_ptr.data_ptr(),
-        program.table.ctypes.data, len(program.layers), prior_t.data_ptr(),
-        len(program.prior_blocks), c, d_total, program.eta_dim, n,
-        LIK_CODES[program.lik], program.sd,
-        -1 if program.sd_idx is None else program.sd_idx, int(program.full),
-        int(program.update_merged), program.threads(c),
-        program.smem_bytes, q.data_ptr(), v.data_ptr(), lp0.data_ptr(),
-        lp1.data_ptr(), None if ut is None else ut.data_ptr(),
-        torch.cuda.current_stream(thetas.device).cuda_stream)
+    # the library launches on the current device: make it the tensors'
+    with torch.cuda.device(thetas.device):
+        rc = lib.tbnn_fused_trajectory(
+            thetas.data_ptr(), momenta.data_ptr(), etas.data_ptr(),
+            x.data_ptr(), y.data_ptr(), eps_c.data_ptr(), l_c.data_ptr(),
+            None if beta_ptr is None else beta_ptr.data_ptr(),
+            program.table.ctypes.data, len(program.layers),
+            prior_t.data_ptr(), len(program.prior_blocks), c, d_total,
+            program.eta_dim, n, LIK_CODES[program.lik], program.sd,
+            -1 if program.sd_idx is None else program.sd_idx,
+            int(program.full), int(program.update_merged),
+            program.threads(c), program.smem_bytes, q.data_ptr(),
+            v.data_ptr(), lp0.data_ptr(), lp1.data_ptr(),
+            None if ut is None else ut.data_ptr(),
+            torch.cuda.current_stream(thetas.device).cuda_stream)
     _build.check(rc, "fused_trajectory")
     fused_trajectory.LAUNCHES += 1
     return (q, v, lp0, lp1) + ((ut,) if ut is not None else ())
@@ -755,13 +758,14 @@ def fused_potential(program: PotentialProgram, thetas, sd, x, y):
     work = torch.empty(program.workspace_floats(c), dtype=torch.float32,
                        device=thetas.device)
     lib = _build.load()
-    rc = lib.tbnn_fused_potential(
-        thetas.data_ptr(), x.data_ptr(), y.data_ptr(), sd_c.data_ptr(),
-        program.table.ctypes.data, program.plan(c).table.ctypes.data,
-        len(program.layers),
-        LIK_CODES[program.lik], c, d_total, n, work.data_ptr(), work.numel(),
-        ll.data_ptr(), grad.data_ptr(),
-        torch.cuda.current_stream(thetas.device).cuda_stream)
+    # the library launches on the current device: make it the tensors'
+    with torch.cuda.device(thetas.device):
+        rc = lib.tbnn_fused_potential(
+            thetas.data_ptr(), x.data_ptr(), y.data_ptr(), sd_c.data_ptr(),
+            program.table.ctypes.data, program.plan(c).table.ctypes.data,
+            len(program.layers), LIK_CODES[program.lik], c, d_total, n,
+            work.data_ptr(), work.numel(), ll.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream(thetas.device).cuda_stream)
     _build.check(rc, "fused_potential")
     fused_potential.LAUNCHES += 1
     return ll, grad
@@ -771,12 +775,23 @@ fused_potential.LAUNCHES = 0
 
 
 def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
-                            x, y, eta_dim: int) -> Optional[Callable]:
-    """``batched_main_vg(thetas, etas, x, y) -> ((C,), (C, D))`` for a model
-    in K3's scope (see the module docstring), else None (the caller then
-    takes the plain ``hmc_step_batched`` path). The likelihood's value and
-    gradient come from ``fused_potential``, the closed-form priors from
-    ``add_priors``, outside it."""
+                            x, y, eta_dim: int,
+                            n_rows: Optional[int] = None
+                            ) -> Optional[Callable]:
+    """``batched_main_vg(thetas, etas, x, y, peers=None) -> ((C,), (C,
+    D))`` for a model in K3's scope (see the module docstring), else None
+    (the caller then takes the plain ``hmc_step_batched`` path). The
+    likelihood's value and gradient come from ``fused_potential``, the
+    closed-form priors from ``add_priors``, outside it.
+
+    K3 is built for ``n_rows`` rows (``x``'s by default): on a data mesh,
+    a peer's local rows. Given ``peers`` (``parallel.mesh.DataPeers``),
+    ``batched_main_vg`` runs K3 on each peer's rows, sums the peers'
+    ``(value, grad)`` and then adds the priors, once (the JAX package's
+    psum around K3, ``tensorbnn_tpu/ops/fused_mlp.py:1191-1197``); ``x``,
+    ``y`` are then not read. Each call's workspace is ``C x N_local x
+    257`` floats a peer, allocated on the peer's stream, so peers that
+    share a card reuse one."""
     del y
     matched = _model_program(model, likelihood)
     if matched is None:
@@ -791,13 +806,22 @@ def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
     # the sd_root hyper must be the last flat-eta coordinate
     if sd_idx is not None and sd_idx != eta_dim - 1:
         return None
-    vg = make_fused_potential_vg(ops, x.shape[0], lik)
+    vg = make_fused_potential_vg(
+        ops, x.shape[0] if n_rows is None else n_rows, lik)
     if vg is None:
         return None
 
-    def batched_main_vg(thetas, etas, x_in, y_in):
+    def likelihood_vg(x_in, y_in, thetas, etas):
         sd_c = sd_fixed if sd_idx is None else etas[:, sd_idx] ** 2
-        value, grad = vg(thetas, sd_c, x_in, y_in)
+        return vg(thetas, sd_c, x_in, y_in)
+
+    def batched_main_vg(thetas, etas, x_in, y_in, peers=None):
+        if peers is None:
+            value, grad = likelihood_vg(x_in, y_in, thetas, etas)
+        else:
+            value, grad = peers.sum(
+                [functools.partial(likelihood_vg, *shard)
+                 for shard in peers.shards], thetas, etas)
         return add_priors(blocks, thetas, etas, value, grad)
 
     return batched_main_vg

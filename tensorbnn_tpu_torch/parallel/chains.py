@@ -1,11 +1,22 @@
-"""Multi-chain runs on one device: state construction and the chunk runner.
+"""Multi-chain runs: state construction and the chunk runner, on one
+device or over a ``(chains, data)`` mesh.
 
-Counterpart of ``init_multichain_state`` and the mesh-less
+Counterpart of ``init_multichain_state`` and
 ``make_multichain_chunk_runner`` of ``tensorbnn_tpu/parallel/chains.py``.
-Chains batch as ``(C, D)`` blocks on one device; the chunk runner is a
-Python loop over epochs whose per-epoch outputs stay on the device, so a
-chunk enqueues its work without a host synchronization. Meshes (chains or
-data sharded over several devices) are not ported yet.
+Chains batch as ``(C, D)`` blocks; the chunk runner is a Python loop over
+epochs whose per-epoch outputs stay on the device, so a chunk enqueues its
+work without a host synchronization.
+
+One runner serves every run: without a mesh it runs a 1x1 mesh of the
+data's device. Over a ``(chains, data)`` mesh (parallel/mesh.py) the
+chains split over the ``chains`` axis, a block a mesh row, and the rows
+over the ``data`` axis; each chain shard runs its own epoch, whose
+likelihood terms are summed over the row's data peers. The fleet's draws
+are made once an epoch on the mesh's first device (``draw_epoch``, the
+order every epoch draws in) and each shard takes its slice, so a
+chains-only mesh reproduces the mesh-less run from the same generator. The
+carry and the traces are gathered in chain order on the first device: the
+driver sees the arrays it sees without a mesh.
 """
 
 from __future__ import annotations
@@ -18,8 +29,9 @@ import torch
 
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
+from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DataPeers, Mesh
 from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
-    make_epoch_fn
+    draw_epoch, make_epoch_fn
 
 
 def init_multichain_state(theta, eta, hyper_step_size: float,
@@ -41,6 +53,45 @@ def init_multichain_state(theta, eta, hyper_step_size: float,
         log_eps_bar=zeros, h=zeros.clone(), epoch=zeros.clone())
 
 
+def check_tempering_mesh(mesh) -> None:
+    """Tempering needs a chains axis of 1 (the JAX driver's check and
+    message): its swaps pair rung blocks across the chains axis."""
+    if mesh is not None and mesh.shape[CHAIN_AXIS] > 1:
+        raise ValueError(
+            "tempering requires the mesh chains axis to be 1: "
+            "replica swaps pair rung blocks across the chain "
+            "axis and would straddle chain shards (ppermute "
+            "extension path documented in parallel/chains.py). "
+            "Data-parallel tempering (chains axis 1, data axis "
+            "> 1) is supported — replicas are whole on every "
+            "data shard and the psum'd log-likelihood makes "
+            "swap decisions shard-consistent")
+
+
+def _shard(value, homes: list) -> list:
+    """A tensor's chains (or None) split in order, a block on each home;
+    with one home, the tensor itself."""
+    if value is None or len(homes) == 1:
+        return [value] * len(homes)
+    return [block.to(hd, non_blocking=True)
+            for block, hd in zip(value.chunk(len(homes)), homes)]
+
+
+def _shard_tuple(value, homes: list) -> list:
+    """A NamedTuple of chain-major tensors split field by field."""
+    return [type(value)(*fields)
+            for fields in zip(*(_shard(f, homes) for f in value))]
+
+
+def _gather(blocks: list, dim: int = 0):
+    """The blocks concatenated along ``dim`` on the first one's device;
+    one block as it is."""
+    if len(blocks) == 1:
+        return blocks[0]
+    first = blocks[0].device
+    return torch.cat([b.to(first, non_blocking=True) for b in blocks], dim)
+
+
 def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  x, y, unravel_theta, unravel_eta, *,
                                  adjust_hypers: bool,
@@ -55,7 +106,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  record_uturn: bool = False,
                                  per_epoch_leapfrog: bool = False,
                                  data_chunk: Optional[int] = None,
-                                 compensated: bool = False):
+                                 compensated: bool = False,
+                                 mesh=None):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
     step_scale=None) -> (carry, trace)``, the trace's fields stacked
     ``(n_epochs, C, ...)`` (``swap_accept`` None unless
@@ -76,41 +128,80 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     of each chunk, so the driver's windowed re-estimates swap in from one
     chunk to the next (the JAX runner's ``traced_step_scale`` exists to
     avoid a retrace, which eager torch does not have).
+
+    ``mesh`` (parallel/mesh.py; None runs a 1x1 mesh of ``x``'s device):
+    the rows split over each mesh row's data peers once, here.
+    ``run_chunk`` takes and returns the whole fleet's carry on the first
+    device. It splits the carry over the chain shards at the chunk's start
+    (a block on each mesh row's first device), gives each shard its slice
+    of per-chain ``step_size`` / ``leapfrog`` vectors (a U-turn run's
+    per-epoch counts are shared) and of each epoch's draws, and gathers the
+    carry and the traces in chain order at the chunk's end. Tempering needs
+    a chains axis of 1 (``check_tempering_mesh``).
     """
+    if tempering_beta is not None:
+        check_tempering_mesh(mesh)
     mu = math.log(100.0 * hyper_step_size_init)
-    epoch_fn = make_epoch_fn(
-        model, likelihood, x, y, unravel_theta, unravel_eta,
+    if mesh is None:
+        mesh = Mesh([[x.device]])
+    shards = [DataPeers.split(row, x, y) for row in mesh.devices]
+    epoch_fns = [make_epoch_fn(
+        model, likelihood, *p.shards[0], unravel_theta, unravel_eta,
         adjust_hypers=adjust_hypers, hyper_leapfrog=hyper_leapfrog,
         burnin=burnin, mu=mu, batched_main_vg=batched_main_vg,
         batched_main_traj=batched_main_traj,
         batched_hyper_traj=batched_hyper_traj, eta_dim=eta_dim,
         tempering_beta=tempering_beta, record_uturn=record_uturn,
-        data_chunk=data_chunk, compensated=compensated)
+        data_chunk=data_chunk, compensated=compensated, peers=p)
+        for p in shards]
+    homes = [p.home for p in shards]
+    first = homes[0]
+    h = eta_dim if adjust_hypers else None
+    tempered = tempering_beta is not None
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator,
                   step_scale: Optional[torch.Tensor] = None):
-        device = carry.theta.device
-        leapfrog_dev = None
+        c, d = carry.theta.shape
+        dtype = carry.theta.dtype
+        # per-chain vectors reach the first device once a chunk, and each
+        # shard its slice from there, so no shard waits on the host
+        steps = [step_size] * len(homes)
         if np.ndim(step_size) > 0:
-            step_size = torch.as_tensor(np.asarray(step_size),
-                                        dtype=carry.theta.dtype,
-                                        device=device)
+            steps = _shard(torch.as_tensor(np.asarray(step_size),
+                                           dtype=dtype, device=first), homes)
+        leap_devs = [None] * len(homes)
         if per_epoch_leapfrog:
-            leaps = [int(n) for n in np.asarray(leapfrog).reshape(n_epochs)]
+            leaps = [[int(n) for n in np.asarray(leapfrog).reshape(
+                n_epochs)]] * len(homes)
+        elif np.ndim(leapfrog) > 0:
+            leap_np = np.asarray(leapfrog, np.int64)
+            leaps = [[block] * n_epochs
+                     for block in np.split(leap_np, len(homes))]
+            leap_devs = _shard(torch.as_tensor(leap_np, dtype=torch.int32,
+                                               device=first), homes)
         else:
-            if np.ndim(leapfrog) > 0:
-                leapfrog = np.asarray(leapfrog, np.int64)
-                leapfrog_dev = torch.as_tensor(leapfrog, dtype=torch.int32,
-                                               device=device)
-            leaps = [leapfrog] * n_epochs
-        traces = []
-        for leap in leaps:
-            carry, trace = epoch_fn(carry, step_size, leap, generator,
-                                    leapfrog_dev=leapfrog_dev,
-                                    step_scale=step_scale)
-            traces.append(trace)
-        return carry, EpochTrace(*(None if f[0] is None else torch.stack(f)
-                                   for f in zip(*traces)))
+            leaps = [[leapfrog] * n_epochs] * len(homes)
+        scales = [None if step_scale is None
+                  else step_scale.to(hd, non_blocking=True) for hd in homes]
+        states = _shard_tuple(carry, homes)
+        traces = [[] for _ in homes]
+        for j in range(n_epochs):
+            draws = _shard_tuple(draw_epoch(generator, c, d, h, dtype, first,
+                                            tempered), homes)
+            for i, epoch_fn in enumerate(epoch_fns):
+                states[i], trace = epoch_fn(
+                    states[i], steps[i], leaps[i][j], generator,
+                    draws=draws[i], leapfrog_dev=leap_devs[i],
+                    step_scale=scales[i])
+                traces[i].append(trace)
+            # drop the epoch's draws with it: the last (C, D) momenta would
+            # otherwise be alive while the traces are stacked (the peak)
+            draws = None
+        # the whole fleet on the first device, traces (n_epochs, C, ...)
+        return ChainState(*(_gather(list(f)) for f in zip(*states))), \
+            EpochTrace(*(None if f[0][0] is None else
+                         _gather([torch.stack(t) for t in f], dim=1)
+                         for f in zip(*(zip(*t) for t in traces))))
 
     return run_chunk

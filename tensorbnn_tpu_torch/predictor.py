@@ -21,8 +21,15 @@ It reads both the reference text store and the npz store (preferring
 writes carries chain ids (``chains.txt``, ``__chain_index__``), so a
 multichain store gets a per-chain autocorrelation time; a JAX package's
 buffered store has none and gets the pooled one, as there. Kept quirk:
-Bernoulli reweighting is prior-only, as in the reference. A ``mesh``
-(multi-device serving) is not carried.
+Bernoulli reweighting is prior-only, as in the reference.
+
+With a ``mesh`` (parallel/mesh.py; on the constructor or on a call) the
+ensemble splits over the ``chains`` axis and the rows over the ``data``
+axis, every block of networks placed once on its mesh row's devices and
+cached per mesh (one mesh at a time, compared by identity); each device
+runs its networks on its rows, with no sum between devices, and the
+blocks are gathered in order. The ensemble is padded with copies of its
+first network and the rows with zeros, both sliced off the result.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from tensorbnn_tpu_torch.likelihoods import (
 from tensorbnn_tpu_torch.models.layers import LAYER_REGISTRY, LayerSpec
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.network import _torch_dtype
+from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DATA_AXIS
 from tensorbnn_tpu_torch.sampler.potential import tree_leaves, \
     tree_unflatten
 from tensorbnn_tpu_torch.utils import autocorr
@@ -49,14 +57,6 @@ from tensorbnn_tpu_torch.utils import autocorr
 
 def _tree_map(fn, tree):
     return tree_unflatten(tree, iter([fn(leaf) for leaf in tree_leaves(tree)]))
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not carried by tensorbnn_tpu_torch's Predictor yet: "
-            "multi-device serving comes with the multi-GPU port (ROADMAP.md "
-            "queue 1 item 7)")
 
 
 class Predictor:
@@ -76,9 +76,13 @@ class Predictor:
               ``architecture.txt`` via the registry
             * device: where the ensemble lives and runs: the CUDA card
               unless the caller names another device
-            * mesh: not carried (raises NotImplementedError)
+            * mesh: optional ``(chains, data)`` mesh
+              (``parallel.mesh.make_mesh``): ``predict`` then shards the
+              networks over its chains axis and the rows over its data
+              axis (see the module docstring)
         """
-        _refuse_mesh(mesh)
+        self.mesh = mesh
+        self._mesh_cache = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -189,9 +193,63 @@ class Predictor:
 
     def predict(self, input_matrix, n: int = 1, mesh=None) -> np.ndarray:
         """Ensemble predictions using every n-th network, as a numpy array
-        of shape (ceil(S/n), batch, out_dims)."""
-        _refuse_mesh(mesh)
+        of shape (ceil(S/n), batch, out_dims); sharded over ``mesh`` (or
+        the constructor's) when there is one."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is not None:
+            return self._predict_sharded(input_matrix, n, mesh)
         return self.predict_tensor(input_matrix, n).cpu().numpy()
+
+    def _mesh_ensemble(self, n: int, mesh):
+        """``(blocks, S)``: every n-th network, padded to a multiple of the
+        chains axis, split in order into one block a mesh row and placed on
+        each of the row's devices; cached per thinning factor for one mesh
+        at a time (a new mesh drops the old one's blocks)."""
+        if self._mesh_cache is None or self._mesh_cache[0] is not mesh:
+            self._mesh_cache = (mesh, {})
+        cached = self._mesh_cache[1].get(n)
+        if cached is None:
+            n_ens = mesh.shape[CHAIN_AXIS]
+            params = _tree_map(lambda v: np.asarray(v)[::n],
+                               self.param_samples)
+            s = next(v.shape[0] for v in tree_leaves(params))
+            pad = (-s) % n_ens
+            if pad:
+                # copies of the first network; sliced off the result
+                params = _tree_map(lambda v: np.concatenate(
+                    [v, np.repeat(v[:1], pad, axis=0)]), params)
+            k = (s + pad) // n_ens
+            blocks = []
+            for i, row in enumerate(mesh.devices):
+                home = _tree_map(lambda v: torch.as_tensor(
+                    np.ascontiguousarray(v[i * k:(i + 1) * k]),
+                    dtype=self.dtype).to(row[0]), params)
+                blocks.append([_tree_map(lambda t: t.to(d), home)
+                               for d in row])
+            cached = (blocks, s)
+            self._mesh_cache[1][n] = cached
+        return cached
+
+    def _predict_sharded(self, input_matrix, n: int, mesh) -> np.ndarray:
+        """``predict`` over ``mesh``: device (i, j) runs row i's networks
+        on the j-th block of rows; no device reads another's output."""
+        blocks, s = self._mesh_ensemble(n, mesh)
+        x = torch.as_tensor(input_matrix, dtype=self.dtype)
+        x = x[:, None] if x.ndim == 1 else x
+        b = x.shape[0]
+        pad = (-b) % mesh.shape[DATA_AXIS]
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        x_rows = x.chunk(mesh.shape[DATA_AXIS])
+        # each block of rows reaches the first row's device once; other
+        # rows take it from there (no copy on a repeated device)
+        x_rows = [xr.to(d) for xr, d in zip(x_rows, mesh.devices[0])]
+        first = mesh.first
+        out = torch.cat([torch.cat(
+            [self._apply_ens(blk, xr.to(d, non_blocking=True)).to(
+                first, non_blocking=True)
+             for blk, xr, d in zip(row_blocks, x_rows, row)], dim=1)
+            for row_blocks, row in zip(blocks, mesh.devices)])
+        return out.cpu().numpy()[:s, :b]
 
     def predict_mean_sd(self, input_matrix, n: int = 1, mesh=None):
         """Posterior predictive mean and sd over the ensemble."""

@@ -14,10 +14,11 @@ built it, else through ``hmc_step_batched`` on K3's value and gradient
 (``batched_main_vg``) or on the plain ``torch.func`` potential; the hyper
 block runs through K2 (``batched_hyper_traj``) on the
 sufficient-statistics potential when it applies. Randomness comes from one
-``torch.Generator`` per run, drawn in this order: main momenta, main MH
-coins, hyper momenta, hyper MH coins and, only under tempering, the swap
-coins. An epoch can instead be handed its draws (``EpochDraws``), which is
-how the tests feed it the JAX package's own draws.
+``torch.Generator`` per run, drawn by ``draw_epoch`` at the epoch's start
+in this order: main momenta, main MH coins, hyper momenta, hyper MH coins
+and, only under tempering, the swap coins. An epoch can instead be handed
+its draws (``EpochDraws``): the chunk runner hands each chain shard its
+slice of the fleet's, and the tests feed it the JAX package's own.
 """
 
 from __future__ import annotations
@@ -78,6 +79,26 @@ class EpochDraws(NamedTuple):
     swap_log_u: Optional[torch.Tensor] = None  # (C,), tempered runs only
 
 
+def draw_epoch(generator: torch.Generator, c: int, d: int,
+               h: Optional[int], dtype, device,
+               tempered: bool) -> EpochDraws:
+    """One epoch's draws for ``c`` chains from ``generator``, in the
+    order above: main momenta ``(c, d)`` and coins, hyper momenta ``(c,
+    h)`` and coins (``h`` None: the hyper block does not run), swap coins
+    (``tempered``)."""
+    like = torch.empty(0, dtype=dtype, device=device)
+    main_mom = torch.randn((c, d), generator=generator, dtype=dtype,
+                           device=device)
+    main_log_u = draw_log_u(c, like, generator)
+    h_mom = h_log_u = None
+    if h is not None:
+        h_mom = torch.randn((c, h), generator=generator, dtype=dtype,
+                            device=device)
+        h_log_u = draw_log_u(c, like, generator)
+    swap_log_u = draw_log_u(c, like, generator) if tempered else None
+    return EpochDraws(main_mom, main_log_u, h_mom, h_log_u, swap_log_u)
+
+
 def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   unravel_theta, unravel_eta, *,
                   adjust_hypers: bool,
@@ -91,7 +112,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   tempering_beta=None,
                   record_uturn: bool = False,
                   data_chunk: Optional[int] = None,
-                  compensated: bool = False) -> Callable:
+                  compensated: bool = False,
+                  peers=None) -> Callable:
     """Builds ``epoch_fn(carry, step_size, leapfrog, generator, draws=None,
     leapfrog_dev=None, step_scale=None) -> (carry, trace)``.
 
@@ -130,18 +152,32 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     carries, so the two together raise. ``step_scale`` ``(D,)``, an
     argument of each epoch, is the main block's diagonal-metric step
     multiplier (plain path only).
+
+    ``peers`` (``parallel.mesh.DataPeers``) is the chain shard's data on a
+    mesh: ``x``, ``y`` are then its first peer's rows, and with more than
+    one peer the likelihood's value and gradient (plain or K3's), the
+    stats' ``(R, K)`` and the tempered swap's log-likelihood are summed
+    over the peers (the JAX package's data-axis psums). K1 cannot sum
+    mid-trajectory, so a data mesh refuses it.
     """
+    if peers is not None and len(peers) == 1:
+        peers = None
+    if peers is not None and batched_main_traj is not None:
+        raise ValueError("a trajectory kernel cannot sum over the data "
+                         "peers mid-trajectory; build without "
+                         "batched_main_traj on a data mesh")
     if compensated and batched_main_traj is not None:
         raise ValueError("compensated leapfrog is handled by the plain "
                          "path; build without batched_main_traj")
     potentials = make_potentials(model, likelihood, x, y, unravel_theta,
-                                 unravel_eta, data_chunk=data_chunk)
+                                 unravel_eta, data_chunk=data_chunk,
+                                 peers=peers)
     stats_pair = None
     if adjust_hypers and eta_dim is not None:
         from tensorbnn_tpu_torch.sampler.hyper_stats import make_stats_hyper
         stats_pair = make_stats_hyper(model, likelihood, x, y,
                                       unravel_theta, unravel_eta, eta_dim,
-                                      data_chunk=data_chunk)
+                                      data_chunk=data_chunk, peers=peers)
     tempered = tempering_beta is not None
     tempered_coupled = tempered and likelihood.main_probs_in_hypers
     if tempered:
@@ -160,13 +196,13 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             leapfrog_dev = torch.as_tensor(np.asarray(leapfrog),
                                            device=theta0.device)
         steps = leapfrog if leapfrog_dev is None else leapfrog_dev
+        if draws is None:
+            draws = draw_epoch(generator, *theta0.shape,
+                               eta.shape[1] if adjust_hypers else None,
+                               theta0.dtype, theta0.device, tempered)
 
         # -- main block: HMC over params given the current hypers ----------
-        momenta = draws.main_momenta if draws is not None else torch.randn(
-            theta0.shape, generator=generator, dtype=theta0.dtype,
-            device=theta0.device)
-        log_u = draws.main_log_u if draws is not None else draw_log_u(
-            theta0.shape[0], theta0, generator)
+        momenta, log_u = draws.main_momenta, draws.main_log_u
         uturn = None
         if batched_main_traj is not None:
             q_new, v_new, lp0, lp1, *rec = batched_main_traj(
@@ -182,7 +218,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             if tempered:
                 main_vg = lambda ths: potentials.main_vg_t(ths, eta, beta_c)  # noqa: E731
             elif batched_main_vg is not None:
-                main_vg = lambda ths: batched_main_vg(ths, eta, x, y)  # noqa: E731
+                main_vg = lambda ths: batched_main_vg(ths, eta, x, y,  # noqa: E731
+                                                      peers=peers)
             else:
                 main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
             main = hmc_step_batched(generator, theta0, main_vg, step_size,
@@ -204,11 +241,7 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
         hyper_accept = torch.zeros_like(sjd)
         if adjust_hypers:
             # -- hyper block: HMC over hypers given the new params ---------
-            h_mom = draws.hyper_momenta if draws is not None else \
-                torch.randn(eta.shape, generator=generator, dtype=eta.dtype,
-                            device=eta.device)
-            h_log_u = draws.hyper_log_u if draws is not None else \
-                draw_log_u(eta.shape[0], eta, generator)
+            h_mom, h_log_u = draws.hyper_momenta, draws.hyper_log_u
             stats = stats_pair[0](theta) if stats_pair is not None else None
             if (batched_hyper_traj is not None and stats is not None
                     and not tempered_coupled):
@@ -246,11 +279,10 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
         if tempered:
             # -- replica swap; the SJD above saw the HMC move alone -------
             ll = potentials.loglik(theta, eta)
-            s_log_u = draws.swap_log_u if draws is not None else \
-                draw_log_u(theta.shape[0], theta, generator)
             # parity from the device-side epoch counter: no host sync
             parity = carry.epoch[0].to(torch.int64)
-            theta, eta, swapped = swap_fn(theta, eta, ll, parity, s_log_u)
+            theta, eta, swapped = swap_fn(theta, eta, ll, parity,
+                                           draws.swap_log_u)
 
         new_carry = ChainState(theta=theta, eta=eta, hyper_step=hyper_step,
                                log_eps_bar=log_eps_bar, h=h,

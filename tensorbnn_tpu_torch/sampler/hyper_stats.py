@@ -17,6 +17,7 @@ kernel (ops/fused_hyper.py) consumes the same rows.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -72,8 +73,8 @@ def probe_stats_layout(model, likelihood, unravel_eta, eta_dim: int):
 
 
 def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
-                     eta_dim: int, data_chunk: Optional[int] = None
-                     ) -> Optional[Tuple[Callable, Callable]]:
+                     eta_dim: int, data_chunk: Optional[int] = None,
+                     peers=None) -> Optional[Tuple[Callable, Callable]]:
     """Builds ``(stats_fn, hyper_vg, hyper_vg_t)`` or None when out of
     scope.
 
@@ -84,7 +85,10 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
       with ``data_chunk`` the coupled likelihood's residual power ``R`` is
       summed over row chunks (forward only: nothing is differentiated
       through ``stats_fn``), as the chunked potential bounds its
-      activations;
+      activations; with ``peers`` (``parallel.mesh.DataPeers``, more than
+      one peer) ``R`` and the event count ``K`` are each peer's, summed
+      over the peers (the JAX package's data-axis psums), and ``x``, ``y``
+      are not read;
     * ``hyper_vg_t(etas, stats, betas (C,))``, the tempered variant (the
       power posterior: beta scales only the coupled likelihood term, so for
       an uncoupled likelihood it equals ``hyper_vg`` for any beta), equal to
@@ -94,17 +98,32 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
     if layout is None:
         return None
     dense_layers, coupled, sd_idx = layout
-    n_events = int(x.shape[0]) * int(model.layers[dense_layers[-1][0]].out_dim)
-    chunks = row_chunks(x, y, data_chunk) or [(x, y)]
+    out_dim = int(model.layers[dense_layers[-1][0]].out_dim)
 
-    def resid_sq(thetas):
-        total = None
-        for xc, yc in chunks:
-            preds = vmap(lambda th: model.apply(unravel_theta(th), xc))(thetas)
-            resid = yc.reshape(preds.shape[1:]) - preds
-            part = (resid * resid).flatten(1).sum(1)
-            total = part if total is None else total + part
-        return total
+    def resid_and_count(xs, ys):
+        """``f(thetas) -> (R (C,), K (C,))`` over the rows ``xs``, ``ys``:
+        the residual power (over row chunks) and the likelihood's event
+        count (rows x the output width)."""
+        chunks = row_chunks(xs, ys, data_chunk) or [(xs, ys)]
+        n_events = float(int(xs.shape[0]) * out_dim)
+
+        def f(thetas):
+            total = None
+            for xc, yc in chunks:
+                preds = vmap(lambda th: model.apply(unravel_theta(th), xc))(
+                    thetas)
+                resid = yc.reshape(preds.shape[1:]) - preds
+                part = (resid * resid).flatten(1).sum(1)
+                total = part if total is None else total + part
+            return total, torch.full_like(total, n_events)
+
+        return f
+
+    if peers is not None and len(peers) > 1:
+        r_and_k = functools.partial(peers.sum, [
+            resid_and_count(xj, yj) for xj, yj in peers.shards])
+    else:
+        r_and_k = resid_and_count(x, y)
 
     def stats_fn(thetas):
         params = unravel_theta(thetas)                 # leaves (C, ...)
@@ -114,8 +133,7 @@ def make_stats_hyper(model, likelihood, x, y, unravel_theta, unravel_eta,
             b = params[i]["b"]
             cols += [w.sum(1), (w * w).sum(1), b.sum(1), (b * b).sum(1)]
         if coupled:
-            cols += [resid_sq(thetas),
-                     torch.full_like(cols[0], float(n_events))]
+            cols += list(r_and_k(thetas))
         return torch.stack(cols, dim=1)
 
     def hyper_logp(eta, stats, beta):

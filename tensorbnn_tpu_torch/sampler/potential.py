@@ -14,12 +14,16 @@ oracles batched over chains (``torch.func.vmap`` of
 tempering runs (the power posterior ``prior + beta * loglik``, priors
 untempered). With ``data_chunk`` the likelihood's value and gradient
 accumulate over row chunks (``_chunked_loglik``), which bounds the
-activations a call holds to ``chains x data_chunk x width``. The JAX
-package's data-parallel ``axis_name`` is not ported yet.
+activations a call holds to ``chains x data_chunk x width``. With
+``peers`` (a chain shard's data peers on a mesh, parallel/mesh.py) the
+likelihood's value and gradient are taken on each peer's rows and summed
+over the peers, the priors added once (the JAX package's ``_combine``
+around its ``axis_name`` psum).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -190,18 +194,56 @@ def _chunked_loglik(loglik_chunk: Callable, chunks: list,
     return value, value_and_grad
 
 
+def _lik_oracles(model: Sequential, likelihood: Likelihood, x, y,
+                 unravel_theta: Callable, unravel_eta: Callable,
+                 data_chunk: Optional[int]) -> Tuple[Callable, ...]:
+    """``(value, vg in theta, vg in eta)`` of the likelihood of the rows
+    ``x``, ``y``, batched over ``(C, ...)`` blocks: ``value(thetas,
+    etas)``, ``vg(thetas, etas)``, ``vg_eta(etas, thetas)``; over row
+    chunks (``_chunked_loglik``) when ``data_chunk`` makes more than one."""
+    chunks = row_chunks(x, y, data_chunk)
+
+    def loglik_main(theta, eta):
+        _, lik_hypers = unravel_eta(eta)
+        preds = model.apply(unravel_theta(theta), x)
+        return likelihood.log_likelihood(preds, y, lik_hypers)
+
+    if chunks is None:
+        return (vmap(loglik_main), _batched_value_and_grad(loglik_main),
+                _batched_value_and_grad(
+                    lambda eta, theta: loglik_main(theta, eta)))
+
+    def loglik_chunk(theta, eta, xc, yc):
+        _, lik_hypers = unravel_eta(eta)
+        preds = model.apply(unravel_theta(theta), xc)
+        return likelihood.log_likelihood(preds, yc, lik_hypers)
+
+    lik_value, lik_vg = _chunked_loglik(loglik_chunk, chunks, 0)
+    _, lik_vg_eta = _chunked_loglik(loglik_chunk, chunks, 1)
+    return lik_value, lik_vg, lambda etas, thetas: lik_vg_eta(thetas, etas)
+
+
 def make_potentials(model: Sequential, likelihood: Likelihood,
                     x: torch.Tensor, y: torch.Tensor,
                     unravel_theta: Callable,
                     unravel_eta: Callable,
-                    data_chunk: Optional[int] = None) -> Potentials:
+                    data_chunk: Optional[int] = None,
+                    peers=None) -> Potentials:
     """Builds the two log-posterior targets over flat vectors, closing
     over the data ``x (N, d0)`` and ``y``. With ``data_chunk`` (a divisor
     of N, more than one chunk) the batched oracles take the likelihood's
     value and gradient chunk by chunk (``_chunked_loglik``), apart from the
     priors, as the JAX package's ``_combine`` does; the single-chain
-    ``main`` and ``hyper`` sum the chunks' values likewise."""
-    chunks = row_chunks(x, y, data_chunk)
+    ``main`` and ``hyper`` sum the chunks' values likewise.
+
+    ``peers`` (``parallel.mesh.DataPeers``, more than one peer): the
+    likelihood's value and gradient are taken on each peer's rows (chunked
+    there with ``data_chunk``, which must divide the local rows, each
+    peer's Kahan carry its own) and summed over the peers before the
+    priors, taken once, are added (``_combine``); ``x`` and ``y`` are not
+    read. The tempered oracles sum the log-likelihood before beta scales
+    it, as the JAX package's do."""
+    sharded = peers is not None and len(peers) > 1
 
     def loglik(params, lik_hypers):
         preds = model.apply(params, x)
@@ -220,13 +262,9 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
             value = value + loglik(params, lik_hypers)
         return value
 
-    # -- tempered variants (power posterior: prior + beta * loglik) --------
-    # the likelihood and the priors are differentiated apart, as the JAX
-    # package does, and beta scales only the likelihood's part
-    def loglik_main(theta, eta):
-        _, lik_hypers = unravel_eta(eta)
-        return loglik(unravel_theta(theta), lik_hypers)
-
+    # -- the priors apart from the likelihood (tempered, chunked and
+    # sharded targets differentiate the two separately, as the JAX
+    # package does, and beta scales only the likelihood's part)
     def prior_main(theta, eta):
         hypers, _ = unravel_eta(eta)
         return model.log_prior(hypers, unravel_theta(theta))
@@ -239,22 +277,20 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
     hyper_rep_vg = _batched_value_and_grad(hyper_rep)
     main_vg = _batched_value_and_grad(main)
     hyper_vg = _batched_value_and_grad(hyper)
-    if chunks is None:
-        lik_vg = _batched_value_and_grad(loglik_main)
-        hyper_lik_vg = _batched_value_and_grad(
-            lambda eta, theta: loglik_main(theta, eta))
-        lik_value = vmap(loglik_main)
+    if sharded:
+        oracles = [_lik_oracles(model, likelihood, xj, yj, unravel_theta,
+                                unravel_eta, data_chunk)
+                   for xj, yj in peers.shards]
+        lik_value, lik_vg, hyper_lik_vg = (
+            functools.partial(peers.sum, [o[i] for o in oracles])
+            for i in range(3))
     else:
-        def loglik_chunk(theta, eta, xc, yc):
-            _, lik_hypers = unravel_eta(eta)
-            preds = model.apply(unravel_theta(theta), xc)
-            return likelihood.log_likelihood(preds, yc, lik_hypers)
-
-        lik_value, lik_vg = _chunked_loglik(loglik_chunk, chunks, 0)
-        _, lik_vg_eta = _chunked_loglik(loglik_chunk, chunks, 1)
-
-        def hyper_lik_vg(etas, thetas):
-            return lik_vg_eta(thetas, etas)
+        lik_value, lik_vg, hyper_lik_vg = _lik_oracles(
+            model, likelihood, x, y, unravel_theta, unravel_eta, data_chunk)
+    if sharded or row_chunks(x, y, data_chunk) is not None:
+        main_vg, hyper_vg = _combine(lik_vg, prior_vg), _combine(
+            hyper_lik_vg if likelihood.main_probs_in_hypers else None,
+            hyper_rep_vg)
 
         def main(theta, eta):
             return (lik_value(theta[None], eta[None])[0]
@@ -265,18 +301,6 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
             if likelihood.main_probs_in_hypers:
                 value = value + lik_value(theta[None], eta[None])[0]
             return value
-
-        def main_vg(thetas, etas):
-            lv, lg = lik_vg(thetas, etas)
-            rv, rg = prior_vg(thetas, etas)
-            return lv + rv, lg + rg
-
-        def hyper_vg(etas, thetas):
-            rv, rg = hyper_rep_vg(etas, thetas)
-            if likelihood.main_probs_in_hypers:
-                lv, lg = hyper_lik_vg(etas, thetas)
-                rv, rg = lv + rv, lg + rg
-            return rv, rg
 
     def main_vg_t(thetas, etas, betas):
         lv, lg = lik_vg(thetas, etas)
@@ -292,3 +316,20 @@ def make_potentials(model: Sequential, likelihood: Likelihood,
 
     return Potentials(main, hyper, main_vg, hyper_vg, main_vg_t, hyper_vg_t,
                       lik_value)
+
+
+def _combine(local_vg: Optional[Callable], rep_vg: Callable) -> Callable:
+    """``vg(z, other)`` of ``local + rep``: the likelihood's part
+    ``local_vg`` (already summed over the data peers, or None when the
+    target has none) and the replicated prior part ``rep_vg``, each
+    differentiated on its own so that the prior is counted once (the JAX
+    package's ``_combine``, ``tensorbnn_tpu/sampler/potential.py:170``)."""
+
+    def value_and_grad(z, other):
+        rv, rg = rep_vg(z, other)
+        if local_vg is None:
+            return rv, rg
+        lv, lg = local_vg(z, other)
+        return lv + rv, lg + rg
+
+    return value_and_grad

@@ -11,6 +11,10 @@ whole state ``(theta, eta)`` with chain ``i`` of its partner rung, rungs
 at odd parity. The Metropolis log-ratio of a swap is ``(beta_r - beta_p) *
 (ll_p - ll_r)``, symmetric in the pair, and both members decide on the low
 rung member's uniform, so a pair always exchanges or stays together.
+
+On a ``(chains, data)`` mesh tempering needs a chains axis of 1: the one
+chain shard holds the whole replica fleet, and the swap reads the
+log-likelihood summed over the data peers (``Potentials.loglik``).
 """
 
 from __future__ import annotations

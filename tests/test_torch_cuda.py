@@ -7,7 +7,11 @@ card, K1's, K2's and K3's repeats bit-equal, and K1's and K2's entry
 points refusing tables that cannot hold; and, with no kernel, the dense
 layers' ``matmul_precision`` on the card ("highest" gives the float32
 bits with TF32 switched on, "high" differs within TF32's tolerance) and
-the chunked likelihood on the card against the CPU in float64.
+the chunked likelihood on the card against the CPU in float64; and the
+``(chains, data)`` mesh on the card (K1 + K2 on 4x1, K3 + K2 on 2x2, K3
+on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
+the mesh, each on a mesh of this card repeated and on one of distinct
+cards (which skips on a machine with fewer).
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -635,3 +639,170 @@ def _chunked_main_vg(dev, dt):
     v, g = pots.main_vg(thetas.to(dev, dt),
                         flat.eta.expand(8, -1).to(dev, dt))
     return v.cpu(), g.cpu()
+
+
+# -- the (chains, data) mesh on the card: a virtual mesh whose entries are
+# all this card (a device may repeat in a port mesh), or distinct cards ----
+
+MESH_LAYOUTS = ["repeated", "distinct"]
+
+
+def _mesh(device, n_chain, n_data, layout):
+    """An ``n_chain x n_data`` mesh of this card repeated, or of as many
+    distinct cards (skips where the machine has fewer)."""
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
+    n = n_chain * n_data
+    if layout == "repeated":
+        return make_mesh(n_chain, n_data, devices=[device] * n)
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards for a mesh of distinct cards")
+    return make_mesh(n_chain, n_data,
+                     devices=[torch.device("cuda", i) for i in range(n)])
+
+
+def _moves(samples):
+    """The MH decisions between recorded samples: True where a chain's
+    state moved."""
+    return (samples[1:] != samples[:-1]).any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_chains_mesh_on_k1_and_k2_matches_the_meshless_run(device, layout):
+    """The flagship at 64 chains through ``Network.train`` on a 4x1 mesh:
+    K1 and K2 run on each chain shard (4 launches each an epoch), and the
+    samples equal the mesh-less run's from the same seed within 1e-6 of
+    their largest entry (a shard's 16 chains run K1's and K2's per-chain
+    arithmetic as the fleet's 64 do; only the glue's row sums may take
+    another order for a smaller batch)."""
+    from tensorbnn_tpu_torch import Network
+    x = np.linspace(-2, 2, 11)
+    y = np.sin(x * np.pi * 2) * x - np.cos(x * np.pi)
+    res, launches = [], []
+    for mesh in (None, _mesh(device, 4, 1, layout)):
+        net = Network(torch.float32, 1, x, y, x, y, seed=0, device=device)
+        for layer in _flagship(FixedGaussianLikelihood(sd=0.1))[0].layers:
+            net.add(layer)
+        net.setup_mcmc(burnin=0, leapfrog_start=20, step_size_start=1e-3,
+                       hyper_leapfrog=30, averaging_steps=10)
+        k1, k2 = (fused_mlp.fused_trajectory.LAUNCHES,
+                  fused_hyper.fused_hyper_trajectory.LAUNCHES)
+        res.append(net.train(3, 1, FixedGaussianLikelihood(sd=0.1),
+                             n_chains=64, chain_jitter=0.01, mesh=mesh,
+                             verbose=False))
+        torch.cuda.synchronize()
+        launches.append((fused_mlp.fused_trajectory.LAUNCHES - k1,
+                         fused_hyper.fused_hyper_trajectory.LAUNCHES - k2))
+    assert res[1].main_path == "K1" and res[1].fused_hyper
+    assert launches == [(3, 3), (12, 12)]
+    want = res[0].theta_samples
+    np.testing.assert_array_equal(_moves(res[1].theta_samples),
+                                  _moves(want))
+    np.testing.assert_allclose(res[1].theta_samples, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_data_mesh_train_on_k3_and_k2_matches_the_meshless_run(device,
+                                                                layout):
+    """A learned-sd 4-32-1 tanh network over 600 rows (K1 declines: its
+    planes need more than the card's shared memory) at 64 chains through
+    ``Network.train`` on a 2x2 mesh: K3 on each of 4 shards of 300 rows
+    and the coupled K2 on each chain shard, against the mesh-less K3
+    run from the same seed over 3 epochs: the same main and hyper MH
+    decisions, samples within 1e-5 of their largest entry (the likelihood
+    summed in two halves), the main block's move 10 times that."""
+    from tensorbnn_tpu_torch import Network
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(600, 4)).astype(np.float32)
+    y = np.sin(x.sum(axis=1)).astype(np.float32)
+    res, launches = [], []
+    for mesh in (None, _mesh(device, 2, 2, layout)):
+        net = Network(torch.float32, 4, x, y, x, y, seed=0, device=device)
+        net.add(GaussianDenseLayer(4, 32)).add(Tanh())
+        net.add(GaussianDenseLayer(32, 1))
+        net.setup_mcmc(burnin=0, step_size_start=1e-3, leapfrog_start=10,
+                       leapfrog_min=10, leapfrog_max=10, hyper_leapfrog=5,
+                       hyper_step_size=1e-4, averaging_steps=10)
+        k3, k2 = (fused_mlp.fused_potential.LAUNCHES,
+                  fused_hyper.fused_hyper_trajectory.LAUNCHES)
+        res.append(net.train(3, 1, GaussianLikelihood(sd=0.3), n_chains=64,
+                             chain_jitter=0.01, mesh=mesh, verbose=False))
+        torch.cuda.synchronize()
+        launches.append((fused_mlp.fused_potential.LAUNCHES - k3,
+                         fused_hyper.fused_hyper_trajectory.LAUNCHES - k2))
+    assert [r.main_path for r in res] == ["K3", "K3"]
+    assert res[1].fused_hyper
+    assert launches == [(3 * 11, 3), (4 * 3 * 11, 2 * 3)]
+    want = res[0].theta_samples
+    scale = np.abs(want).max()
+    assert np.abs(want[-1] - want[0]).max() > 10 * 1e-5 * scale
+    for field in ("theta_samples", "eta_samples"):
+        np.testing.assert_array_equal(_moves(getattr(res[1], field)),
+                                      _moves(getattr(res[0], field)))
+    np.testing.assert_allclose(res[1].theta_samples, want, rtol=0,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_data_mesh_k3_matches_the_meshless_k3(device, layout):
+    """K3 built for 16 rows, run on each of 4 data peers and summed on
+    the first before the priors, against K3 over all 64 rows: value and
+    gradient within rtol 1e-5 (atol 1e-5 of the largest gradient entry)."""
+    from tensorbnn_tpu_torch.parallel.mesh import DataPeers
+    lik = GaussianLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(np.linspace(-2, 2, 64)[:, None], dtype=torch.float32,
+                     device=device)
+    y = torch.sin(2 * x[:, 0])
+    thetas = (0.3 * torch.randn((32, flat.theta.numel()),
+                                generator=torch.Generator().manual_seed(3))
+              ).to(device)
+    etas = torch.tensor(np.tile(flat.eta.numpy(), (32, 1)) + 0.01
+                        * rng.normal(size=(32, flat.eta.numel())),
+                        dtype=torch.float32, device=device)
+    h = flat.eta.numel()
+    peers = DataPeers.split(_mesh(device, 1, 4, layout).devices[0], x, y)
+    sharded = fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, *peers.shards[0],
+        h, n_rows=16)
+    whole = fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+    before = fused_mlp.fused_potential.LAUNCHES
+    got = sharded(thetas, etas, *peers.shards[0], peers=peers)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_potential.LAUNCHES - before == 4
+    want = whole(thetas, etas, x, y)
+    _close(got[0], want[0], 1e-5, 0)
+    _close(got[1], want[1], 1e-5, 1e-5 * float(want[1].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_sharded_predictor_on_the_card(device, tmp_path, layout):
+    """11 flagship networks over 13 rows on a 2x2 mesh (both padded)
+    against the unsharded ``predict``, within 1e-6: the blocks run batched
+    products of other shapes, which may sum in another order."""
+    from tensorbnn_tpu_torch import Predictor
+    from tensorbnn_tpu_torch.io import checkpoint
+    from tensorbnn_tpu_torch.sampler.potential import host_unraveler
+    lik = FixedGaussianLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    rng = np.random.default_rng(2)
+    thetas = (flat.theta.numpy()[None] + 0.1 * rng.normal(
+        size=(11, flat.theta.numel()))).astype(np.float32)
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    hyper_samples = tuple({k: np.broadcast_to(v.numpy(), (11,))
+                           for k, v in hp.items()} for hp in hypers)
+    d = str(tmp_path / "run")
+    checkpoint.save_samples(d, host_unraveler(params)(thetas),
+                            hyper_samples, {})
+    pred = Predictor(d, likelihood=lik, layers=model.layers, device=device)
+    x = rng.normal(size=(13, 1)).astype(np.float32)
+    want = pred.predict(x)
+    got = pred.predict(x, mesh=_mesh(device, 2, 2, layout))
+    assert got.shape == want.shape == (11, 13, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

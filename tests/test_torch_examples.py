@@ -245,15 +245,16 @@ def test_surrogate_example_runs_on_the_cpu():
     epochs, one chain, the plain path under ``numerics="exact"``): 8
     samples, acceptance in (0, 1], a finite learned sd. Its 100,000-point
     ``--smoke`` runs on the card in ``chip_smoke.py``, held against the
-    JAX example's figures. ``--data-devices`` above 1 raises, naming the
-    mesh's place in ROADMAP.md."""
+    JAX example's figures. ``--data-devices 2`` on one device (the CPU
+    under ``--cpu``) raises ``make_mesh``'s error, as the JAX example does
+    on one chip."""
     module = _torch_example("surrogate_regression")
     out = module.main(["--cpu", "--smoke", "--points", "4096"])
     assert out["samples"] == 8 and out["main_path"] == "plain"
     assert not out["fused_hyper"]
     assert 0.0 < out["main_accept"] <= 1.0
     assert np.isfinite(out["learned_sd"]) and out["learned_sd"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match=r"^mesh 0x2 != 1 devices$"):
         module.main(["--cpu", "--smoke", "--data-devices", "2"])
 
 

@@ -189,12 +189,20 @@ def test_reweight_takes_an_architecture_file_and_refuses_data(stores,
 
 
 def test_predictor_refuses_a_mesh_and_needs_a_card(stores):
+    """A mesh is carried now (tests/test_torch_mesh.py holds the sharded
+    predictions against the JAX package's): on the constructor and on a
+    call, a 2x2 mesh of CPU entries gives the unsharded predictions; the
+    Predictor still needs a card unless told the CPU."""
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
     d = stores["torch", "npz"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TPredictor(d, device="cpu", mesh=object())
+    mesh = make_mesh(2, 2, devices=[torch.device("cpu")] * 4)
     tp = TPredictor(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tp.predict(X_TEST, mesh=object())
+    want = tp.predict(X_TEST)
+    np.testing.assert_allclose(
+        TPredictor(d, device="cpu", mesh=mesh).predict(X_TEST), want,
+        rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tp.predict(X_TEST, mesh=mesh), want,
+                               rtol=1e-6, atol=1e-7)
     assert T.predictor is T.Predictor
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -225,9 +225,9 @@ def test_network_train_runs_on_cpu(n_chains, n_adapters):
 def test_network_train_rejects_what_the_port_does_not_carry():
     net = _small_network()
     lik = T.FixedGaussianLikelihood(sd=0.1)
+    # a mesh is carried (tests/test_torch_mesh.py)
     for option in (dict(max_dispatch_seconds=25.0),
-                   dict(state_layout="tree"), dict(mesh=object()),
-                   dict(donate=True)):
+                   dict(state_layout="tree"), dict(donate=True)):
         with pytest.raises(NotImplementedError, match=next(iter(option))):
             net.train(2, 1, lik, verbose=False, **option)
     with pytest.raises(TypeError, match="no_such_option"):
