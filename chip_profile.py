@@ -58,8 +58,12 @@ It reports, per epoch: the wall time over three unprofiled windows (host
 clock after a synchronize), the enqueue time (until the runner returns),
 and under ``torch.profiler`` the device's busy time (the union of kernel
 and copy intervals), each kernel group's time and launches (K1, K2, K3,
-and the torch ops around them), the kernels that take the most time, and
-the idle share, 1 - busy / median wall. One JSON line per cell.
+and the torch ops around them), the kernels that take the most time, the
+host's launches (kernel and graph launches, copies and fills), and the
+idle share, 1 - busy / median wall. One JSON line per cell, with the
+runner that ran it: the K1 cells (flagship, tempered, U-turn,
+classification) run on the graph runner (parallel/graphs.py), whose
+captures happen in the warm-up, before any window; the others eagerly.
 """
 
 import json
@@ -72,7 +76,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import device_events
+from chip_smoke import busy_ms, device_events, host_launches, trace_events
 
 #: kernel-name substrings of each hand-written kernel
 GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
@@ -102,24 +106,17 @@ def timed(run, carry, eps, steps, epochs, gen):
 
 def device_breakdown(run, carry, eps, steps, epochs, gen):
     """Busy ms, per-group and top per-kernel ms and launches per epoch,
-    from a chrome trace of ``epochs`` profiled epochs."""
+    and the host's launches per epoch (kernel and graph launches, copies
+    and fills), from a chrome trace of ``epochs`` profiled epochs."""
     state = [carry]
 
     def chunk():
         state[0], _ = run(state[0], eps, steps, epochs, gen)
 
-    events = device_events(chunk, 1)
+    everything = trace_events(chunk, 1)
+    events = device_events(None, events=everything)
     carry = state[0]
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy += hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    busy += hi - lo
+    busy = 1e3 * busy_ms(events)
     groups, kernels = {}, {}
     for e in events:
         name = e.get("name", "")
@@ -131,7 +128,8 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
                   for g, (ms, n) in sorted(groups.items())}
     top = [[name, ms / epochs, n / epochs] for name, (ms, n) in
            sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
-    return carry, busy / 1e3 / epochs, group_rows, top
+    return (carry, busy / 1e3 / epochs, group_rows, top,
+            host_launches(everything) / epochs)
 
 
 def glue_breakdown(glue, reps=50):
@@ -154,19 +152,26 @@ def glue_breakdown(glue, reps=50):
 def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
          glue=None):
     carry, _ = run(carry, eps, steps, warm, gen)
+    # the graph runner captures each chunk length once: the timed and the
+    # profiled lengths too, before they are timed
+    for n in (window, profiled):
+        carry, _ = run(carry, eps, steps, n, gen)
     enqueue, wall = [], []
     for _ in range(3):
         carry, e_ms, w_ms = timed(run, carry, eps, steps, window, gen)
         enqueue.append(e_ms)
         wall.append(w_ms)
-    carry, busy, groups, top = device_breakdown(run, carry, eps, steps,
-                                                profiled, gen)
+    carry, busy, groups, top, launches = device_breakdown(
+        run, carry, eps, steps, profiled, gen)
     if not torch.isfinite(carry.theta).all():
         raise AssertionError(f"{name}: the chains left the finite range")
     median = statistics.median(wall)
-    out = {"cell": name, "card": card, "wall_ms_per_epoch": wall,
+    out = {"cell": name, "card": card,
+           "runner": getattr(run, "runner", "eager"),
+           "wall_ms_per_epoch": wall,
            "enqueue_ms_per_epoch": enqueue, "device_busy_ms_per_epoch": busy,
-           "idle_share": 1.0 - busy / median, "groups": groups,
+           "idle_share": 1.0 - busy / median,
+           "host_launches_per_epoch": launches, "groups": groups,
            "top_kernels": top}
     if glue is not None:
         out["swap_glue_per_epoch"] = glue_breakdown(glue(carry))

@@ -119,7 +119,17 @@ script exits non-zero:
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
    mesh-less swap decisions; the predict cell on 2x2 against the unsharded
    ``predict``; as a ``{"mesh": ...}`` line (``--mesh-only`` runs phases
-   1, 2 and 11 alone).
+   1, 2 and 11 alone);
+12. the graph chunk runner (parallel/graphs.py), which phases 6-11 take
+   wherever K1 runs the main block on this card, against the eager
+   runner in each K1 cell of phase 6 (the flagship at 64 chains, the G = 4
+   block at 512, the tempered block at 512 x 4, the U-turn block at 512
+   with per-epoch counts, ``classification`` and ``multiclass`` at 128):
+   two chunks whose (eps, L) differ, bit-equal (carry, traces, the
+   generator's state), then each runner's host ms an epoch over 200 steady
+   epochs, the card's busy ms, the idle share, the host's launches an
+   epoch and the graph runner's captures with their ms, as a ``{"graph":
+   ...}`` line (``--graph-only`` runs phases 1, 2 and 12 alone).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -315,6 +325,8 @@ MESH_ACCEPT_TOL = 0.05
 # (e) the predict cell on 2x2 against the unsharded predict: each block's
 # batched products have other shapes, which may sum in another order
 MESH_PREDICT_TOL = 1e-6
+# phase 12: the steady epochs each runner is timed over in each K1 cell
+GRAPH_STEADY = 200
 
 
 def phase(name):
@@ -526,7 +538,7 @@ def stack_network(device, n_blocks, learned_sd=False, seed=0):
 
 
 def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
-                 record_uturn=False):
+                 record_uturn=False, eager=False, per_epoch_leapfrog=False):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
     hyper block where the stats layout applies, else the plain block),
@@ -534,7 +546,10 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
     tempered by ``tempering_beta = (K, per-chain betas)`` when given (K1's
     tempered program, never K3), recording U-turn steps with
     ``record_uturn`` (K1's recording program): the steady rates here and
-    the profile of chip_profile.py."""
+    the profile of chip_profile.py. It is the graph runner where one
+    applies (K1 on this card), unless ``eager``; ``per_epoch_leapfrog``
+    takes a U-turn run's per-epoch counts (the driver's) for a shared
+    one."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
@@ -555,7 +570,8 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
         hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
         batched_main_vg=vg, batched_hyper_traj=hyper,
-        tempering_beta=tempering_beta, record_uturn=record_uturn)
+        tempering_beta=tempering_beta, record_uturn=record_uturn,
+        per_epoch_leapfrog=per_epoch_leapfrog, eager=eager)
 
 
 def rung_groups(c, n_rungs=4):
@@ -792,9 +808,9 @@ def cuda_ms(fn, reps=10):
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def device_events(fn, reps=1):
-    """Device events (kernels and copies) of ``reps`` calls of ``fn``,
-    from a chrome trace of ``torch.profiler``."""
+def trace_events(fn, reps=1):
+    """Every event with a duration of ``reps`` calls of ``fn``, from a
+    chrome trace of ``torch.profiler``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -806,11 +822,45 @@ def device_events(fn, reps=1):
         trace_path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace_path)
         with open(trace_path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") in DEVICE_CATS and "dur" in e]
+            return [e for e in json.load(f)["traceEvents"] if "dur" in e]
+
+
+def device_events(fn, reps=1, events=None):
+    """Device events (kernels and copies) of ``reps`` calls of ``fn``,
+    from a chrome trace of ``torch.profiler`` (or of ``events``, one
+    already taken)."""
+    events = [e for e in (trace_events(fn, reps) if events is None
+                          else events) if e.get("cat") in DEVICE_CATS]
     if not events:
         raise RuntimeError("the profiler recorded no device activity")
     return events
+
+
+#: the host's calls that put work on the card: kernel and graph launches,
+#: copies and fills (the CUDA runtime's and the driver's names)
+HOST_LAUNCH_NAMES = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
+
+
+def host_launches(events) -> int:
+    """The host's calls in ``events`` that put work on the card."""
+    return sum(1 for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and any(k in e.get("name", "") for k in HOST_LAUNCH_NAMES))
+
+
+def busy_ms(events) -> float:
+    """Milliseconds in which the card ran any of ``events`` (the union of
+    their intervals)."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / 1e3
 
 
 def device_ms(fn, reps=10):
@@ -2077,13 +2127,163 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     return out
 
 
+def same_bits(got, want, what: str) -> None:
+    """Raises unless two NamedTuples of tensors (or None) are equal bit for
+    bit, NaNs included."""
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        if (g is None) != (w is None):
+            raise AssertionError(f"{what}: {field} is None on one side only")
+        if g is None:
+            continue
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {field} differs")
+
+
+def graph_cells(dev):
+    """Phase 12's cells: each K1 cell of phase 6 at its chains, hyper
+    steps and hyper step size; two chunks' (eps, L) (``a``, ``b``: shared,
+    per chain in 4 groups, or a U-turn run's per-epoch counts), the chunk
+    length of the steady window and the profiled epochs."""
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder
+
+    rng = np.random.default_rng(12)
+    g_eps, g_l = rung_groups(512)
+    t_eps, t_l = rung_groups(2048)
+    flip = lambda e, l: (e[::-1].copy(), l[::-1].copy())  # noqa: E731
+    cls, multi = CLS_CELLS["classification"], CLS_CELLS["multiclass"]
+    return [
+        dict(name="flagship 64", build=lambda: flagship_network(dev),
+             chains=64, hyper=(30, 1e-3), chunk=10, prof=10,
+             a=(2e-3, 100), b=(1e-3, 120)),
+        dict(name="G = 4 512", build=lambda: flagship_network(dev, seed=11),
+             chains=512, hyper=(30, 1e-3), chunk=10, prof=10,
+             a=(g_eps, g_l), b=flip(g_eps, g_l)),
+        dict(name="tempered 512 x 4",
+             build=lambda: flagship_network(dev, seed=11), chains=2048,
+             hyper=(30, 1e-3), chunk=10, prof=10,
+             tempering=(4, np.repeat(make_ladder(4, 0.5), 512)),
+             a=(t_eps, t_l), b=flip(t_eps, t_l)),
+        dict(name="U-turn 512 alternate",
+             build=lambda: flagship_network(dev, seed=11), chains=512,
+             hyper=(30, 1e-3), chunk=50, prof=50, uturn=True,
+             a=(3e-3, rng.integers(20, 201, 50)),
+             b=(2e-3, rng.integers(20, 201, 50))),
+        dict(name="classification 128",
+             build=lambda: classification_network(dev), chains=CLS_CHAINS,
+             hyper=(cls["hyper_steps"], 1e-4), chunk=50, prof=5,
+             a=(cls["eps"], cls["steps"]), b=CLS_GROUPS[1]),
+        dict(name="multiclass 128", build=lambda: multiclass_network(dev),
+             chains=CLS_CHAINS, hyper=(multi["hyper_steps"], 1e-4),
+             chunk=50, prof=50, a=(multi["eps"], multi["steps"]),
+             b=(5e-3, 30)),
+    ]
+
+
+def graph_phase(dev, card) -> dict:
+    """Phase 12: each cell of ``graph_cells`` through the eager and the
+    graph runner, from one carry and one generator seed: two chunks whose
+    (eps, L) differ, held bit for bit (carry, every trace and the
+    generator's state); then ``GRAPH_STEADY`` epochs in chunks of the
+    cell's length, their host ms an epoch (the host clock around work
+    ending in a synchronize), and one profiled chunk: the card's busy ms an
+    epoch, the idle share (1 - busy / host ms) and the host's launches an
+    epoch (kernel and graph launches, copies and fills); with the graph
+    runner's captures and their ms."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    out = {"card": card, "steady_epochs": GRAPH_STEADY}
+    for spec in graph_cells(dev):
+        net, lik = spec["build"]()
+        params, hypers = net.init_state()
+        flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+        hyper_steps, hyper_eps = spec["hyper"]
+        n, uturn = spec["chunk"], spec.get("uturn", False)
+        row, chunks = {"chains": spec["chains"], "chunk": n}, {}
+        for kind in ("eager", "graph"):
+            run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
+                               spec.get("tempering"), record_uturn=uturn,
+                               eager=kind == "eager",
+                               per_epoch_leapfrog=uturn)
+            assert run.runner == kind, (run.runner, kind)
+            graphs.COUNTS.reset()
+            gen = torch.Generator(device=dev).manual_seed(12)
+            carry = init_multichain_state(
+                flat.theta, flat.eta, hyper_eps, spec["chains"],
+                torch.Generator(device=dev).manual_seed(13), jitter=0.01)
+            got = []
+            for eps, leap in (spec["a"], spec["b"]):
+                carry, trace = run(carry, eps, leap, n, gen)
+                got.append((carry, trace))
+            torch.cuda.synchronize()
+            chunks[kind] = (got, gen.get_state())
+            eps, leap = spec["a"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_STEADY // n):
+                carry, _ = run(carry, eps, leap, n, gen)
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_STEADY
+            if not torch.isfinite(carry.theta).all():
+                raise AssertionError(f"{spec['name']}: the chains left the "
+                                     f"finite range")
+            prof = spec["prof"]
+            events = trace_events(lambda: run(carry, eps, leap[:prof] if
+                                              uturn else leap, prof, gen))
+            busy = busy_ms(device_events(None, events=events)) / prof
+            row[kind] = {
+                "host_ms_per_epoch": host_ms, "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / host_ms,
+                "host_launches_per_epoch": host_launches(events) / prof,
+                "device_ops_per_epoch": len(device_events(
+                    None, events=events)) / prof,
+                **({"captures": graphs.COUNTS.captures,
+                    "capture_ms": [1e3 * t for t in
+                                   graphs.COUNTS.capture_seconds],
+                    "replays": graphs.COUNTS.replays}
+                   if kind == "graph" else {})}
+            del run, carry, got, trace
+        (g_chunks, g_state), (e_chunks, e_state) = (chunks["graph"],
+                                                    chunks["eager"])
+        for j, ((cg, tg), (ce, te)) in enumerate(zip(g_chunks, e_chunks)):
+            same_bits(cg, ce, f"{spec['name']} chunk {j} carry")
+            same_bits(tg, te, f"{spec['name']} chunk {j} trace")
+        if not torch.equal(g_state, e_state):
+            raise AssertionError(f"{spec['name']}: the generators' states "
+                                 f"differ")
+        row["bit_equal"] = True
+        g, e = row["graph"], row["eager"]
+        # one capture a key: the chunk length (whole-chunk graphs) and, for
+        # the classification stack's plain hyper block, one epoch
+        if g["captures"] != 1:
+            raise AssertionError(f"{spec['name']}: {g['captures']} captures "
+                                 f"for one chunk key")
+        if g["host_launches_per_epoch"] >= e["host_launches_per_epoch"]:
+            raise AssertionError(f"{spec['name']}: the graph runner issues "
+                                 f"no fewer host launches an epoch: {row}")
+        print(f"{spec['name']}: graph and eager runners bit-equal over two "
+              f"chunks of {n}; host ms/epoch {e['host_ms_per_epoch']:.3f} "
+              f"eager, {g['host_ms_per_epoch']:.3f} graph; host launches "
+              f"an epoch {e['host_launches_per_epoch']:.1f} eager, "
+              f"{g['host_launches_per_epoch']:.1f} graph", flush=True)
+        out[spec["name"]] = row
+        del net, chunks, g_chunks, e_chunks
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    # --surrogate-only / --mesh-only: phases 1, 2 and 10 / 11 alone (a quick
-    # check of that phase; no kernels line)
+    # --surrogate-only / --mesh-only / --graph-only: phases 1, 2 and 10 /
+    # 11 / 12 alone (a quick check of that phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
-    if argv and not (surrogate_only or mesh_only):
+    graph_only = argv == ["--graph-only"]
+    if argv and not (surrogate_only or mesh_only or graph_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -2122,16 +2322,34 @@ def main(argv=None) -> int:
                "K2": fused_hyper.fused_hyper_trajectory,
                "K3": fused_mlp.fused_potential}
 
+    from tensorbnn_tpu_torch.parallel import graphs
+
     def reset_counts():
         torch.cuda.synchronize()
         for fn in counted.values():
             fn.LAUNCHES = 0
+        graphs.COUNTS.reset()
 
     def read_counts(path):
+        # a replay adds the launches its graph captured: the counts read as
+        # the eager runner's; the graph runner's own counts on a line of
+        # their own
         torch.cuda.synchronize()
         got = {name: fn.LAUNCHES for name, fn in counted.items()}
         print(f"launches during the {path} path: {got}")
+        if graphs.COUNTS.captures:
+            print(f"graph runner during the {path} path: "
+                  f"{json.dumps(graphs.COUNTS.as_dict())}")
         return got
+
+    if graph_only:
+        phase("12 the graph chunk runner against the eager runner")
+        print(json.dumps({"graph": graph_phase(dev, card)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if surrogate_only or mesh_only:
         x, y = surrogate_data()
@@ -2814,7 +3032,10 @@ def main(argv=None) -> int:
         ccarry, _ = crun(ccarry, cfg["eps"], cfg["steps"], 2, gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ccarry, _ = crun(ccarry, cfg["eps"], cfg["steps"], 10, gen)
+        # chunks of the warm-up's length: the graph runner captured that
+        # one before the window
+        for _ in range(5):
+            ccarry, _ = crun(ccarry, cfg["eps"], cfg["steps"], 2, gen)
         torch.cuda.synchronize()
         steady = 10 * cfg["steps"] * CLS_CHAINS / (time.perf_counter() - t0)
         cq = {"cell": cell, "n_chains": CLS_CHAINS, "epochs": CLS_EPOCHS,
@@ -3091,9 +3312,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_epochs = 0
-    for _ in range(5):
-        carry, trace = run(carry, 1e-3, 100, 20, gen)
-        n_epochs += 20
+    # chunks of the warm-up's length: the graph runner captured that one
+    # before the window
+    for _ in range(10):
+        carry, trace = run(carry, 1e-3, 100, 10, gen)
+        n_epochs += 10
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     assert torch.isfinite(trace.theta).all()
@@ -3243,6 +3466,9 @@ def main(argv=None) -> int:
         k: mesh["flagship_4x1"][k] for k in ("launches", "steady_200")}
     kernels[2]["mesh_1x4_surrogate"] = mesh["surrogate_1x4"][
         "default_numerics"]
+
+    phase("12 the graph chunk runner against the eager runner")
+    print(json.dumps({"graph": graph_phase(dev, card)}))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

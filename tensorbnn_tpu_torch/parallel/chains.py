@@ -3,9 +3,12 @@ device or over a ``(chains, data)`` mesh.
 
 Counterpart of ``init_multichain_state`` and
 ``make_multichain_chunk_runner`` of ``tensorbnn_tpu/parallel/chains.py``.
-Chains batch as ``(C, D)`` blocks; the chunk runner is a Python loop over
-epochs whose per-epoch outputs stay on the device, so a chunk enqueues its
-work without a host synchronization.
+Chains batch as ``(C, D)`` blocks. Where K1 runs the main block on one
+CUDA device (no mesh, or a 1x1 one), a chunk is a captured CUDA graph,
+the port of the JAX package's compiled chunk (parallel/graphs.py). Else
+the chunk runner is a Python loop over epochs (the eager runner) whose
+per-epoch outputs stay on the device, so a chunk enqueues its work without
+a host synchronization.
 
 One runner serves every run: without a mesh it runs a 1x1 mesh of the
 data's device. Over a ``(chains, data)`` mesh (parallel/mesh.py) the
@@ -29,6 +32,8 @@ import torch
 
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
+from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
+    graph_runner_applies, whole_chunk
 from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DataPeers, Mesh
 from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
     draw_epoch, make_epoch_fn
@@ -107,7 +112,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  per_epoch_leapfrog: bool = False,
                                  data_chunk: Optional[int] = None,
                                  compensated: bool = False,
-                                 mesh=None):
+                                 mesh=None,
+                                 eager: bool = False):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
     step_scale=None) -> (carry, trace)``, the trace's fields stacked
     ``(n_epochs, C, ...)`` (``swap_accept`` None unless
@@ -138,9 +144,18 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     per-epoch counts are shared) and of each epoch's draws, and gathers the
     carry and the traces in chain order at the chunk's end. Tempering needs
     a chains axis of 1 (``check_tempering_mesh``).
+
+    Where ``graph_runner_applies`` (K1, a 1x1 mesh, a CUDA device) the
+    returned runner is a ``GraphChunkRunner`` (parallel/graphs.py), with
+    the same signature and results bit for bit; else the eager loop. Its
+    ``runner`` attribute says which ("graph" or "eager"). ``eager`` keeps
+    the eager loop where a graph would apply (the runners' comparisons on
+    the card; the driver never sets it).
     """
     if tempering_beta is not None:
         check_tempering_mesh(mesh)
+    graph = not eager and graph_runner_applies(batched_main_traj, mesh,
+                                               x.device)
     mu = math.log(100.0 * hyper_step_size_init)
     if mesh is None:
         mesh = Mesh([[x.device]])
@@ -158,6 +173,11 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     first = homes[0]
     h = eta_dim if adjust_hypers else None
     tempered = tempering_beta is not None
+    if graph:
+        return GraphChunkRunner(
+            epoch_fns[0], h=h, tempered=tempered,
+            per_epoch_leapfrog=per_epoch_leapfrog,
+            whole=whole_chunk(adjust_hypers, batched_hyper_traj))
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator,
@@ -204,4 +224,5 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                          _gather([torch.stack(t) for t in f], dim=1)
                          for f in zip(*(zip(*t) for t in traces))))
 
+    run_chunk.runner = "eager"
     return run_chunk

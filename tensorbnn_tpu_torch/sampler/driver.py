@@ -283,6 +283,9 @@ class RunResult:
     #: arrays cover epochs ``resume_epoch + 1 .. n_epochs`` (the samples
     #: cover the whole run)
     resume_epoch: int = 0
+    #: what ran the chunks: "graph" (captured CUDA graphs,
+    #: parallel/graphs.py) or "eager" (the Python loop over epochs)
+    chunk_runner: str = "eager"
 
     def after_epoch(self, values, epoch: int) -> np.ndarray:
         """The entries of a per-epoch array (``main_accept``, ``sjd``, ...)
@@ -572,6 +575,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta,
         record_uturn=traj_uturn, per_epoch_leapfrog=traj_uturn,
         data_chunk=data_chunk, compensated=compensated, mesh=mesh)
+    if verbose:
+        print(f"chunk runner: {run_chunk.runner}")
     carry = init_multichain_state(flat.theta, flat.eta,
                                   config.hyper_step_size, fleet_chains,
                                   generator, jitter=chain_jitter)
@@ -891,7 +896,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         fused_main=main_path != "plain",
         fused_hyper=hyper_traj is not None,
         main_path=main_path,
-        resume_epoch=resume_epoch)
+        resume_epoch=resume_epoch,
+        chunk_runner=run_chunk.runner)
 
 
 def _advise_numerics(theta: torch.Tensor, step: float) -> bool:

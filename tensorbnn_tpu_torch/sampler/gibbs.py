@@ -115,13 +115,17 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   compensated: bool = False,
                   peers=None) -> Callable:
     """Builds ``epoch_fn(carry, step_size, leapfrog, generator, draws=None,
-    leapfrog_dev=None, step_scale=None) -> (carry, trace)``.
+    leapfrog_dev=None, step_scale=None, scale_sjd=True) -> (carry,
+    trace)``.
 
     ``step_size`` is a float or a ``(C,)`` tensor on the chains' device.
     ``leapfrog`` is an int, or a ``(C,)`` host integer array in the
     driver's ``n_adapters`` mode; ``leapfrog_dev`` is then its device copy,
     made once per chunk by the runner so that an epoch never copies from
     the host (the plain path keeps the host array for its loop bound).
+    ``scale_sjd=False`` leaves the trace's SJD unscaled: the graph runner
+    (parallel/graphs.py) divides it by a shared count's square root after
+    the replay, as a Python float, which a captured epoch cannot take.
     ``mu`` is the dual-averaging anchor ``log(100 * initial hyper step
     size)``. ``batched_main_vg`` is K3's ``f(thetas, etas, x, y) -> ((C,),
     (C, D))``; ``batched_main_traj`` K1's ``traj(thetas, etas, momenta, x,
@@ -190,7 +194,8 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
 
     def epoch_fn(carry: ChainState, step_size, leapfrog, generator,
                  draws: Optional[EpochDraws] = None, leapfrog_dev=None,
-                 step_scale: Optional[torch.Tensor] = None):
+                 step_scale: Optional[torch.Tensor] = None,
+                 scale_sjd: bool = True):
         theta0, eta = carry.theta, carry.eta
         if leapfrog_dev is None and np.ndim(leapfrog) > 0:
             leapfrog_dev = torch.as_tensor(np.asarray(leapfrog),
@@ -232,9 +237,10 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
 
         # SJD scaled by L^(-1/2) (reference paramAdapter.py:219-222)
         dif = theta - theta0
-        sjd = (dif * dif).sum(-1) / (torch.sqrt(steps.to(theta.dtype))
-                                     if torch.is_tensor(steps)
-                                     else math.sqrt(steps))
+        sjd = (dif * dif).sum(-1)
+        if scale_sjd:
+            sjd = sjd / (torch.sqrt(steps.to(theta.dtype))
+                         if torch.is_tensor(steps) else math.sqrt(steps))
 
         hyper_step, log_eps_bar, h = (carry.hyper_step, carry.log_eps_bar,
                                       carry.h)

@@ -806,3 +806,277 @@ def test_sharded_predictor_on_the_card(device, tmp_path, layout):
     got = pred.predict(x, mesh=_mesh(device, 2, 2, layout))
     assert got.shape == want.shape == (11, 13, 1)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- the graph chunk runner (parallel/graphs.py) against the eager runner,
+# and the driver's runs on it --------------------------------------------
+
+def _bits(t):
+    """A tensor's bits, NaNs included, for comparisons bit for bit."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _same_bits(got, want, what):
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), (what, field)
+        if g is not None:
+            assert torch.equal(_bits(g), _bits(w)), (what, field)
+
+
+def _graph_cell(device, cell):
+    """The runner pieces of one K1 cell: ``(model, lik, flat, x, y, c,
+    hyper_steps, tempering_beta, uturn, chunks)``, ``chunks`` two chunks'
+    ``(eps, L, n_epochs)`` whose (eps, L) differ."""
+    from tensorbnn_tpu_torch import BernoulliLikelihood, \
+        CategoricalLikelihood, Sigmoid, Softmax, SquarePrelu
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder
+    rng = np.random.default_rng(0)
+    tempering_beta, uturn, hyper_steps = None, False, 30
+    if cell in ("classification", "multiclass"):
+        if cell == "classification":
+            model = Sequential([GaussianDenseLayer(10, 16), SquarePrelu(16),
+                                GaussianDenseLayer(16, 16), SquarePrelu(16),
+                                GaussianDenseLayer(16, 1), Sigmoid()])
+            lik = BernoulliLikelihood()
+            x = rng.normal(size=(64, 10))
+            y = (x.sum(1) > 0).astype(np.float64)
+            chunks = ((5e-4, 50, 3), (1e-3, 40, 2))
+            hyper_steps = 10
+        else:
+            model = Sequential([GaussianDenseLayer(2, 8), Tanh(),
+                                GaussianDenseLayer(8, 3), Softmax()])
+            lik = CategoricalLikelihood()
+            x = rng.normal(size=(64, 2))
+            y = rng.integers(0, 3, size=64).astype(np.float64)
+            chunks = ((5e-3, 20, 3), (2e-3, 30, 3))
+            hyper_steps = 5
+        c = 128
+    else:
+        lik = FixedGaussianLikelihood(sd=0.1)
+        model = _flagship(lik)[0]
+        x = np.linspace(-2, 2, 11)[:, None]
+        y = np.sin(x[:, 0] * np.pi * 2) * x[:, 0] - np.cos(x[:, 0] * np.pi)
+        c = {"flagship": 64, "g4": 512, "tempered": 512, "uturn": 64}[cell]
+        chunks = ((2e-3, 20, 3), (1e-3, 30, 3))
+        if cell in ("g4", "tempered"):
+            groups = ((2e-3, 20), (1e-3, 30), (3e-3, 13), (5e-4, 40))
+            a = np.repeat(np.asarray(groups), c // 4, axis=0)
+            b = a[::-1].copy()
+            chunks = tuple((g[:, 0].astype(np.float32), g[:, 1].astype(
+                np.int64), 3) for g in (a, b))
+        if cell == "tempered":
+            tempering_beta = (4, np.repeat(make_ladder(4, 0.5), c // 4))
+        if cell == "uturn":
+            uturn = True
+            chunks = ((2e-3, np.asarray([40, 20, 60]), 3),
+                      (3e-3, np.asarray([30, 50, 10]), 3))
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    x = torch.tensor(x, dtype=torch.float32, device=device)
+    y = torch.tensor(y, dtype=torch.float32, device=device)
+    return (model, lik, flat, x, y, c, hyper_steps, tempering_beta, uturn,
+            chunks)
+
+
+def _runner(device, pieces, eager):
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+    model, lik, flat, x, y, c, hyper_steps, tempering_beta, uturn, _ = \
+        pieces
+    h = flat.eta.numel()
+    traj = fused_mlp.try_build_fused_trajectory(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+        tempered=tempering_beta is not None, record_uturn=uturn)
+    hyper = fused_hyper.try_build_fused_hyper_trajectory(
+        model, lik, flat.unravel_eta, h, hyper_steps)
+    assert traj is not None
+    return make_multichain_chunk_runner(
+        model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+        adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
+        hyper_step_size_init=1e-3, eta_dim=h, batched_main_traj=traj,
+        batched_hyper_traj=hyper, tempering_beta=tempering_beta,
+        record_uturn=uturn, per_epoch_leapfrog=uturn, eager=eager)
+
+
+GRAPH_CELLS = ["flagship", "g4", "tempered", "uturn", "classification",
+               "multiclass"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", GRAPH_CELLS)
+def test_graph_runner_matches_eager_runner_on_the_card(device, cell):
+    """Two chunks whose (eps, L) differ through the graph runner and the
+    eager runner on the card, from one carry and one generator seed: the
+    carry, every trace (samples, acceptances, SJD, swap flags, U-turn
+    steps) and the generator's state bit for bit, and the kernels' launch
+    counters equal; one capture a chunk key (classification's one-epoch
+    graph serves both chunks) and one warm-up epoch a runner."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    pieces = _graph_cell(device, cell)
+    flat, c, chunks = pieces[2], pieces[5], pieces[9]
+    carry0 = init_multichain_state(
+        flat.theta.to(device), flat.eta.to(device), 1e-3, c,
+        torch.Generator(device=device).manual_seed(2), jitter=0.01)
+    out = {}
+    for eager in (True, False):
+        run = _runner(device, pieces, eager)
+        assert run.runner == ("eager" if eager else "graph")
+        graphs.COUNTS.reset()
+        gen = torch.Generator(device=device).manual_seed(5)
+        counters = graphs.COUNTED
+        before = [fn.LAUNCHES for fn in counters]
+        carry, got = carry0, []
+        for eps, leap, n in chunks:
+            carry, trace = run(carry, eps, leap, n, gen)
+            got.append((carry, trace))
+        torch.cuda.synchronize()
+        out[eager] = (got, gen.get_state(),
+                      [fn.LAUNCHES - b for fn, b in zip(counters, before)],
+                      graphs.COUNTS.as_dict())
+    for (cg, tg), (ce, te) in zip(out[False][0], out[True][0]):
+        _same_bits(cg, ce, "carry")
+        _same_bits(tg, te, "trace")
+    assert torch.equal(out[False][1], out[True][1])
+    assert out[False][2] == out[True][2] and out[True][2][0] > 0
+    counts = out[False][3]
+    keys = 1 if cell == "classification" else len({n for *_, n in chunks})
+    assert (counts["captures"], counts["warmups"]) == (keys, 1), counts
+    assert out[True][3]["captures"] == 0
+
+
+def _resume_net(device, seed=5):
+    from tensorbnn_tpu_torch import Network
+    x = np.linspace(-1, 1, 9).astype(np.float32)
+    y = np.sin(x * np.pi).astype(np.float32)
+    net = Network(torch.float32, 1, x, y, x, y, seed=seed, device=device)
+    net.add(GaussianDenseLayer(1, 5)).add(Tanh())
+    net.add(GaussianDenseLayer(5, 1))
+    net.setup_mcmc(step_size_start=1e-3, leapfrog_start=6, leapfrog_min=4,
+                   leapfrog_max=10, burnin=10, averaging_steps=5,
+                   hyper_leapfrog=5, random_steps=2, adapter_seed=0)
+    return net, FixedGaussianLikelihood(sd=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["buffered", "tempered", "uturn"])
+def test_graph_run_resumed_is_bit_equal_on_the_card(device, tmp_path, case,
+                                                    monkeypatch):
+    """A run on the graph runner stopped at a checkpoint (epoch 15) and
+    resumed equals the uninterrupted run bit for bit (samples, acceptance,
+    SJD), and the uninterrupted run equals the same run on the eager
+    runner: the checkpoint's generator state stands where the eager
+    run's does after the replays."""
+    from tensorbnn_tpu_torch.parallel import chains, graphs
+    kw = {"buffered": dict(n_chains=4),
+          "tempered": dict(n_chains=4, tempering=2,
+                           tempering_beta_min=0.5),
+          "uturn": dict(n_chains=4, trajectory="uturn")}[case]
+    kw |= dict(verbose=False, chain_jitter=0.05)
+
+    def train(epochs, ckpt=None):
+        net, lik = _resume_net(device)
+        return net.train(epochs, 2, lik, checkpoint_dir=ckpt,
+                         checkpoint_every=1, **kw)
+
+    full = train(30)
+    assert full.main_path == "K1" and full.chunk_runner == "graph"
+    ckpt = str(tmp_path / "ckpt")
+    first = train(15, ckpt)
+    assert first.n_epochs == 15
+    res = train(30, ckpt)
+    assert res.resume_epoch == 15 and res.chunk_runner == "graph"
+    np.testing.assert_array_equal(res.theta_samples, full.theta_samples)
+    np.testing.assert_array_equal(res.eta_samples, full.eta_samples)
+    for name in ("main_accept", "hyper_accept", "sjd", "leapfrog"):
+        np.testing.assert_array_equal(getattr(res, name),
+                                      getattr(full, name)[15:])
+    # the same run on the eager runner
+    monkeypatch.setattr(chains, "graph_runner_applies", lambda *a: False)
+    eager = train(30)
+    assert eager.chunk_runner == "eager"
+    np.testing.assert_array_equal(eager.theta_samples, full.theta_samples)
+    for name in ("main_accept", "hyper_accept", "sjd"):
+        np.testing.assert_array_equal(getattr(eager, name),
+                                      getattr(full, name))
+    assert graphs.COUNTS.replays > 0
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(device):
+    """An epoch that copies from pageable host memory cannot be captured:
+    the graph runner raises (it never carries on eagerly), and the
+    kernels' launch counters read as they did before."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
+        make_multichain_chunk_runner
+    model, lik, flat, x, y, c, hyper_steps, _, _, chunks = _graph_cell(
+        device, "flagship")
+    h = flat.eta.numel()
+    traj = fused_mlp.try_build_fused_trajectory(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+
+    def copying_traj(*args):
+        torch.as_tensor(np.zeros(4, np.float32), device=device)
+        return traj(*args)
+
+    run = make_multichain_chunk_runner(
+        model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+        adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
+        hyper_step_size_init=1e-3, eta_dim=h,
+        batched_main_traj=copying_traj)
+    assert run.runner == "graph"
+    carry = init_multichain_state(flat.theta.to(device), flat.eta.to(device),
+                                  1e-3, c)
+    before = [fn.LAUNCHES for fn in graphs.COUNTED]
+    captures = graphs.COUNTS.captures
+    eps, leap, n = chunks[0]
+    with pytest.raises(RuntimeError, match="capture"):
+        run(carry, eps, leap, n, torch.Generator(device=device))
+    torch.cuda.synchronize()
+    assert [fn.LAUNCHES for fn in graphs.COUNTED] == before
+    assert graphs.COUNTS.captures == captures
+
+
+@pytest.mark.cuda
+def test_driver_takes_the_graph_runner_for_k1_alone(device):
+    """``Network.train`` on the card: K1 cells run on graphs, a K3 cell
+    (a 256-wide layer) stays eager."""
+    from tensorbnn_tpu_torch import Network
+    net, lik = _resume_net(device)
+    assert net.train(4, 1, lik, n_chains=4,
+                     verbose=False).chunk_runner == "graph"
+    x = np.random.default_rng(0).normal(size=(32, 4)).astype(np.float32)
+    wide = Network(torch.float32, 4, x, x[:, 0], x, x[:, 0], seed=0,
+                   device=device)
+    wide.add(GaussianDenseLayer(4, 256)).add(Tanh())
+    wide.add(GaussianDenseLayer(256, 256)).add(Tanh())
+    wide.add(GaussianDenseLayer(256, 1))
+    wide.setup_mcmc(leapfrog_start=5, leapfrog_min=5, leapfrog_max=5,
+                    hyper_leapfrog=5, step_size_start=1e-4)
+    res = wide.train(2, 1, GaussianLikelihood(sd=0.1), n_chains=4,
+                     verbose=False)
+    assert res.main_path == "K3" and res.chunk_runner == "eager"
+
+
+@pytest.mark.cuda
+def test_graph_runs_leave_no_memory_behind(device):
+    """Tempered runs (cuBLAS inside the graph) on the graph runner: after
+    the first (which gives the side stream its cuBLAS workspace), each run
+    leaves the card's allocated memory where it found it."""
+    import gc
+    held = []
+    for _ in range(3):
+        net, lik = _resume_net(device)
+        res = net.train(12, 2, lik, n_chains=8, tempering=2,
+                        tempering_beta_min=0.5, chain_jitter=0.05,
+                        verbose=False)
+        assert res.chunk_runner == "graph"
+        del net, res
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert held[1] == held[0] and held[2] == held[0], held

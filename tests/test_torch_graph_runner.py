@@ -1,0 +1,359 @@
+"""The graph chunk runner of the torch port (parallel/graphs.py) on the CPU.
+
+A CUDA graph runs only on a card, so these tests drive the runner with a
+stand-in graph (``EagerGraph``: capture keeps the body, each replay runs it
+again) and hold:
+
+* the runner against the eager runner bit for bit over two chunks whose
+  (eps, L) differ, the generator's state included, in the K1 twins'
+  shared, per-chain, tempered, U-turn and variant (d) paths (the
+  ``classification`` stack's plain hyper block takes one-epoch graphs);
+* the body (``StaticChunk``, every chunk argument read from its buffers)
+  against the JAX package's epochs fed the JAX package's own draws, with
+  the tolerances of the injected-draw tests of test_torch_sampler.py;
+* one body run at (eps, L) = A and then, its buffers refilled, at B
+  against a fresh body at B (a value baked into the body at its first run
+  would show);
+* the graph-or-eager decision, from the configuration alone.
+
+tests/test_torch_cuda.py holds the real graphs against the eager runner on
+the card.
+"""
+
+import math
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorbnn_tpu.parallel.chains import init_multichain_state as j_init
+from tensorbnn_tpu.sampler import tempering as j_tempering
+from tensorbnn_tpu.sampler.gibbs import make_epoch_fn as j_epoch
+from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
+from tensorbnn_tpu_torch.parallel import graphs
+from tensorbnn_tpu_torch.parallel.chains import make_multichain_chunk_runner
+from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
+    StaticChunk, graph_runner_applies, leap_mode, whole_chunk
+from tensorbnn_tpu_torch.parallel.mesh import Mesh
+from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
+    make_epoch_fn as t_epoch
+from test_torch_classification import _classification, _data, _flats, \
+    _lik, _multiclass
+from test_torch_sampler import _flagship, _jax_draws
+from test_torch_tempering import _jax_tempered_draws, _pair
+
+torch.set_num_threads(1)
+
+MU = math.log(100 * 1e-3)
+
+
+class EagerGraph:
+    """A stand-in for ``graphs.CudaGraph`` on the CPU: capture keeps the
+    body, each replay runs it again, the warm-up runs it once."""
+
+    def __init__(self, fn, generator, device):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+    @staticmethod
+    def warm_up(fn, device):
+        fn()
+
+
+def _case(name):
+    """A model, its data and both packages' pieces for one runner path:
+    ``a`` and ``b`` are two chunks' (eps, L), the U-turn case's L one
+    count an epoch."""
+    tempering_beta = None
+    if name in ("shared", "per_chain"):
+        j_model, j_lik, t_model, t_lik, x, y = _flagship()
+        c, hyper_steps = 4, 10
+    elif name in ("tempered", "uturn"):
+        j_model, j_lik, t_model, t_lik = _pair([(1, 6), (6, 1)])
+        x = np.linspace(-1, 1, 9).astype(np.float32)[:, None]
+        y = np.sin(np.pi * x[:, 0]).astype(np.float32)
+        c, hyper_steps = (6, 6) if name == "tempered" else (8, 10)
+        if name == "tempered":
+            tempering_beta = (3, np.repeat(j_tempering.make_ladder(3, 0.3),
+                                           2))
+    elif name == "classification":
+        (j_model, t_model), (j_lik, t_lik) = _classification(4, 6), _lik(
+            "BernoulliLikelihood")
+        x, y = _data(j_lik, 16, 4, seed=2)
+        c, hyper_steps = 4, 10
+    else:
+        (j_model, t_model), (j_lik, t_lik) = _multiclass(), _lik(
+            "CategoricalLikelihood")
+        x, y = _data(j_lik, 16, 2, seed=3, n_classes=3)
+        c, hyper_steps = 4, 5
+    args = {"shared": ((3e-3, 8), (2e-3, 5)),
+            "per_chain": ((np.asarray([2e-3, 2e-3, 4e-3, 4e-3], np.float32),
+                           np.asarray([8, 8, 5, 5])),
+                          (np.asarray([3e-3, 3e-3, 1e-3, 1e-3], np.float32),
+                           np.asarray([4, 4, 9, 9]))),
+            "tempered": ((np.repeat(np.asarray([5e-3, 1e-2, 2e-2],
+                                               np.float32), 2),
+                          np.repeat([9, 6, 4], 2)),
+                         (np.repeat(np.asarray([4e-3, 8e-3, 1e-2],
+                                               np.float32), 2),
+                          np.repeat([7, 8, 5], 2))),
+            "uturn": ((5e-3, np.asarray([60, 40, 60])),
+                      (4e-3, np.asarray([30, 60, 50]))),
+            "classification": ((2e-2, 8), (1e-2, 10)),
+            "multiclass": ((1e-2, 10), (5e-3, 6))}[name]
+    params, hypers, j_flat, t_flat = _flats(j_model, j_lik)
+    h = j_flat.eta.size
+    uturn = name == "uturn"
+    kw = dict(adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
+              mu=MU, eta_dim=h, tempering_beta=tempering_beta,
+              record_uturn=uturn)
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    traj = fused_mlp.try_build_fused_trajectory(
+        t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta, xt, yt, h,
+        tempered=tempering_beta is not None, record_uturn=uturn)
+    hyper = fused_hyper.try_build_fused_hyper_trajectory(
+        t_model, t_lik, t_flat.unravel_eta, h, hyper_steps)
+    assert traj is not None
+    assert (hyper is None) == (name == "classification")
+    epoch_fn = t_epoch(t_model, t_lik, xt, yt, t_flat.unravel_theta,
+                       t_flat.unravel_eta, batched_main_traj=traj,
+                       batched_hyper_traj=hyper, **kw)
+    j_carry = j_init(j_flat.theta, j_flat.eta, jax.random.key(1), 1e-3, c,
+                     jitter=0.05 if name != "tempered" else 0.3)
+    t_carry = ChainState(*(torch.tensor(np.asarray(getattr(j_carry, f)))
+                           for f in ChainState._fields))
+
+    def eager_runner():
+        return make_multichain_chunk_runner(
+            t_model, t_lik, xt, yt, t_flat.unravel_theta,
+            t_flat.unravel_eta, adjust_hypers=True,
+            hyper_leapfrog=hyper_steps, burnin=100.0,
+            hyper_step_size_init=1e-3, eta_dim=h, batched_main_traj=traj,
+            batched_hyper_traj=hyper, tempering_beta=tempering_beta,
+            record_uturn=uturn, per_epoch_leapfrog=uturn)
+
+    def graph_runner():
+        return GraphChunkRunner(epoch_fn, h=h,
+                                tempered=tempering_beta is not None,
+                                per_epoch_leapfrog=uturn,
+                                whole=whole_chunk(True, hyper),
+                                graph_type=EagerGraph)
+
+    return SimpleNamespace(
+        name=name, j_model=j_model, j_lik=j_lik, x=x, y=y, j_flat=j_flat,
+        kw=kw, epoch_fn=epoch_fn, j_carry=j_carry, t_carry=t_carry, a=args[0],
+        b=args[1], h=h, tempered=tempering_beta is not None, uturn=uturn,
+        eager_runner=eager_runner, graph_runner=graph_runner,
+        hyper=hyper)
+
+
+def _equal(got, want, what):
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), (what, field)
+        if g is not None:
+            assert torch.equal(g, w), (what, field)
+
+
+CASES = ["shared", "per_chain", "tempered", "uturn", "classification",
+         "multiclass"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_graph_runner_matches_eager_runner(name):
+    """Two chunks through the graph runner (one capture, replayed) and
+    through the eager runner from one carry and one generator seed: carry,
+    traces and the generator's state bit-equal after each. The second
+    chunk's (eps, L) differ from the first's, and (classification's
+    one-epoch graphs) so does its length."""
+    case = _case(name)
+    graphs.COUNTS.reset()
+    eager, graph = case.eager_runner(), case.graph_runner()
+    assert eager.runner == "eager" and graph.runner == "graph"
+    ge, gg = (torch.Generator().manual_seed(5) for _ in range(2))
+    ce = cg = case.t_carry
+    lengths = (3, 2) if name == "classification" else (3, 3)
+    for (eps, leap), n in zip((case.a, case.b), lengths):
+        ce, te = eager(ce, eps, leap, n, ge)
+        cg, tg = graph(cg, eps, leap, n, gg)
+        _equal(cg, ce, "carry")
+        _equal(tg, te, "trace")
+        assert torch.equal(gg.get_state(), ge.get_state())
+    whole = name != "classification"
+    assert graph.whole == whole
+    counts = graphs.COUNTS.as_dict()
+    assert (counts["captures"], counts["warmups"]) == (1, 1), counts
+    assert counts["replays"] == (2 if whole else sum(lengths)), counts
+    if name == "tempered":
+        assert tg.swap_accept is not None
+    if name == "uturn":
+        assert tg.uturn.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_static_chunk_matches_jax(name, monkeypatch):
+    """Two epochs of the body (K1's twin, K2's or the plain hyper block)
+    against two of the JAX package's ``make_epoch_fn`` (its XLA path) from
+    one state, fed the JAX package's own draws. Tolerances of
+    test_torch_sampler.py::test_three_epochs_match_jax_with_injected_draws;
+    U-turn steps and swap decisions equal."""
+    case = _case(name)
+    j_fn = jax.jit(j_epoch(case.j_model, case.j_lik, jnp.asarray(case.x),
+                           jnp.asarray(case.y), case.j_flat.unravel_theta,
+                           case.j_flat.unravel_eta, **case.kw))
+    eps, leap = case.a
+    n = 2
+    leaps = leap[:n] if case.uturn else leap
+    mode = leap_mode(leaps, case.uturn)
+    chunk = StaticChunk(case.epoch_fn, case.t_carry, n, mode, case.h,
+                        case.tempered)
+    chunk.fill(case.t_carry, eps, leaps)
+    j_carry, draws, j_traces = case.j_carry, [], []
+    d = case.j_flat.theta.size
+    for j in range(n):
+        draw = _jax_tempered_draws if case.tempered else _jax_draws
+        draws.append(draw(j_carry.key, d, case.h))
+        l_j = leap[j] if case.uturn else leap
+        j_carry, j_tr = j_fn(j_carry, jnp.asarray(eps, jnp.float32),
+                             jnp.asarray(l_j, jnp.int32))
+        j_traces.append(j_tr)
+    monkeypatch.setattr(graphs, "draw_epoch", lambda *a: draws.pop(0))
+    chunk.run(None)
+    t_carry, t_trace = chunk.result(leaps)
+    assert not draws
+    for field, rtol, atol in (("theta", 1e-3, 1e-4), ("eta", 1e-3, 1e-4),
+                              ("hyper_step", 1e-4, 0.0),
+                              ("log_eps_bar", 1e-4, 1e-5), ("h", 1e-4, 1e-5)):
+        np.testing.assert_allclose(getattr(t_carry, field).numpy(),
+                                   np.asarray(getattr(j_carry, field)),
+                                   rtol=rtol, atol=atol, err_msg=field)
+    for j, j_tr in enumerate(j_traces):
+        for field in ("main_accept", "hyper_accept", "sjd"):
+            np.testing.assert_allclose(
+                getattr(t_trace, field)[j].numpy(),
+                np.asarray(getattr(j_tr, field)), rtol=1e-3, atol=1e-3,
+                err_msg=f"{field} epoch {j}")
+        np.testing.assert_allclose(t_trace.theta[j].numpy(),
+                                   np.asarray(j_tr.theta), rtol=1e-3,
+                                   atol=1e-4)
+        if case.tempered:
+            np.testing.assert_array_equal(t_trace.swap_accept[j].numpy(),
+                                          np.asarray(j_tr.swap_accept))
+        if case.uturn:
+            np.testing.assert_array_equal(t_trace.uturn[j].numpy(),
+                                          np.asarray(j_tr.uturn))
+
+
+@pytest.mark.parametrize("name", ["shared", "per_chain", "uturn"])
+def test_body_refilled_matches_a_fresh_body(name):
+    """One body run at (eps, L) = A, then refilled and run at B, equals a
+    fresh body run at B from the same carry and generator state; and B's
+    run differs from A's (the arguments reach the body)."""
+    case = _case(name)
+    n = 2
+
+    def args(pair):
+        eps, leap = pair
+        return eps, (leap[:n] if case.uturn else leap)
+
+    mode = leap_mode(args(case.a)[1], case.uturn)
+    body = StaticChunk(case.epoch_fn, case.t_carry, n, mode, case.h,
+                       case.tempered)
+    gen = torch.Generator().manual_seed(3)
+    state = gen.get_state()
+    body.fill(case.t_carry, *args(case.a))
+    body.run(gen)
+    at_a = body.result(args(case.a)[1])
+    gen.set_state(state)
+    body.fill(case.t_carry, *args(case.b))
+    body.run(gen)
+    got = body.result(args(case.b)[1])
+    fresh = StaticChunk(case.epoch_fn, case.t_carry, n, mode, case.h,
+                        case.tempered)
+    gen.set_state(state)
+    fresh.fill(case.t_carry, *args(case.b))
+    fresh.run(gen)
+    want = fresh.result(args(case.b)[1])
+    _equal(got[0], want[0], "carry")
+    _equal(got[1], want[1], "trace")
+    assert not torch.equal(at_a[0].theta, got[0].theta)
+
+
+def _applies(k1, mesh, device):
+    return graph_runner_applies(object() if k1 else None, mesh, device)
+
+
+@pytest.mark.parametrize("path,mesh,device,want", [
+    ("K1", None, "cuda", True),
+    ("K1", (1, 1), "cuda", True),
+    ("K1", None, "cuda:0", True),
+    ("K3", None, "cuda", False),
+    ("plain", None, "cuda", False),
+    ("K1", (2, 1), "cuda", False),
+    ("K1", (1, 2), "cuda", False),
+    ("K1", None, "cpu", False),
+    ("K1", (1, 1), "cpu", False),
+])
+def test_graph_or_eager_follows_the_configuration(path, mesh, device, want):
+    """A graph where K1 runs the main block on a 1x1 CUDA mesh (or none);
+    K3 and the plain main block (no ``batched_main_traj``), a mesh of more
+    than one shard or data peer, and the CPU run eagerly. The decision
+    reads the configuration only (no card is needed to make it)."""
+    m = None if mesh is None else Mesh(
+        [[torch.device(device)] * mesh[1]] * mesh[0])
+    assert _applies(path == "K1", m, torch.device(device)) == want
+
+
+def test_whole_chunk_unless_the_hyper_block_is_plain():
+    """A graph holds the whole chunk unless the hyper block runs the plain
+    potential (it runs, without K2); and the counts' forms."""
+    assert whole_chunk(True, object()) and whole_chunk(False, None)
+    assert not whole_chunk(True, None)
+    assert leap_mode(8, False) == "shared"
+    assert leap_mode(np.asarray([8, 5]), False) == "per_chain"
+    assert leap_mode(np.asarray([8, 5]), True) == "per_epoch"
+
+
+def test_cpu_runs_stay_eager():
+    """On the CPU the factory builds the eager loop even for K1, and a
+    run through ``Network.train`` reports it."""
+    case = _case("shared")
+    assert case.eager_runner().runner == "eager"
+    import tensorbnn_tpu_torch as T
+    x = np.linspace(-2, 2, 11).astype(np.float32)
+    y = np.sin(x)
+    net = T.Network(torch.float32, 1, x, y, x, y, device="cpu")
+    net.add(T.GaussianDenseLayer(1, 6)).add(T.Tanh())
+    net.add(T.GaussianDenseLayer(6, 1))
+    net.setup_mcmc(burnin=0, leapfrog_start=5, leapfrog_min=5,
+                   leapfrog_max=5, hyper_leapfrog=5)
+    res = net.train(2, 1, T.FixedGaussianLikelihood(sd=0.1), n_chains=2,
+                    verbose=False)
+    assert res.main_path == "K1" and res.chunk_runner == "eager"
+
+
+def test_graph_runner_refuses_a_missing_generator():
+    """The graph runner registers the run's generator with its graphs: it
+    needs one."""
+    case = _case("shared")
+    with pytest.raises(ValueError, match="torch.Generator"):
+        case.graph_runner()(case.t_carry, *case.a, 2, None)
+
+
+def test_trace_is_a_copy():
+    """The traces and the carry the runner hands out are copies: the next
+    replay does not overwrite them."""
+    case = _case("shared")
+    graph = case.graph_runner()
+    gen = torch.Generator().manual_seed(5)
+    carry, trace = graph(case.t_carry, *case.a, 2, gen)
+    kept = EpochTrace(*(None if f is None else f.clone() for f in trace))
+    kept_theta = carry.theta.clone()
+    graph(carry, *case.a, 2, gen)
+    _equal(trace, kept, "trace")
+    assert torch.equal(carry.theta, kept_theta)
