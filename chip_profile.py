@@ -26,6 +26,13 @@ picks:
   chains at its (eps, L) = (5e-4, 50), 10 hyper steps from 1e-4: K1
   variant (d), and the plain hyper block (no stats layout for
   SquarePrelu);
+- ``mesh 4x1``: the flagship cell over a 4x1 mesh whose entries are all
+  the first card (16 chains a shard): K1 + K2 a shard, a captured graph a
+  shard (parallel/graphs.py), the shards replayed one after another;
+- ``mesh 4 cards``: the flagship at 4 x 64 chains over a 4x1 mesh of four
+  distinct cards (64 chains a card, the flagship cell's on each), the
+  graphs replayed on the four cards at once; on a machine with fewer
+  cards it prints that it was skipped. Its busy ms are also given a card;
 - ``surrogate``: the JAX bench's 1M-point ``surrogate_quality_exact``
   (``chip_smoke.surrogate_network``: 8-64-64-1 tanh over 1M x 8 points,
   MAP warm start, learned sd) at 32 chains on the plain path that
@@ -33,8 +40,9 @@ picks:
   (3.2e-5, 15) (where the JAX package's full-length run settled), 5
   hyper steps from 1e-6: the plain main and hyper blocks.
 
-``python3 chip_profile.py <cell>`` profiles one of the cells above alone
-(``flagship``, ``wide_deep``, ...), ``python3 chip_profile.py surrogate``
+``python3 chip_profile.py <cell>`` profiles the cells above whose names
+begin with ``<cell>`` (``flagship``, ``wide_deep``, ``mesh``, ...),
+``python3 chip_profile.py surrogate``
 the ``surrogate`` cell; with ``--full`` it then runs the bench's whole schedule through
 ``Network.train`` (600 epochs, burn-in 200, every second epoch recorded)
 and prints its quality line (post-burn-in acceptance, the settled (eps,
@@ -62,8 +70,9 @@ and the torch ops around them), the kernels that take the most time, the
 host's launches (kernel and graph launches, copies and fills), and the
 idle share, 1 - busy / median wall. One JSON line per cell, with the
 runner that ran it: the K1 cells (flagship, tempered, U-turn,
-classification) run on the graph runner (parallel/graphs.py), whose
-captures happen in the warm-up, before any window; the others eagerly.
+classification, the mesh cells) run on the graph runner
+(parallel/graphs.py), whose captures happen in the warm-up, before any
+window; the others eagerly.
 """
 
 import json
@@ -105,9 +114,10 @@ def timed(run, carry, eps, steps, epochs, gen):
 
 
 def device_breakdown(run, carry, eps, steps, epochs, gen):
-    """Busy ms, per-group and top per-kernel ms and launches per epoch,
-    and the host's launches per epoch (kernel and graph launches, copies
-    and fills), from a chrome trace of ``epochs`` profiled epochs."""
+    """Busy ms (the busiest card's), per-group and top per-kernel ms and
+    launches per epoch, the host's launches per epoch (kernel and graph
+    launches, copies and fills) and each card's busy ms, from a chrome
+    trace of ``epochs`` profiled epochs."""
     state = [carry]
 
     def chunk():
@@ -116,7 +126,14 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
     everything = trace_events(chunk, 1)
     events = device_events(None, events=everything)
     carry = state[0]
-    busy = 1e3 * busy_ms(events)
+    # each card's busy ms, and the busiest card's as the busy ms: on four
+    # cards the union of all cards' intervals exceeded the wall (their
+    # timestamps are not on one clock)
+    cards = sorted({e.get("args", {}).get("device") for e in events},
+                   key=str)
+    per_card = {str(i): busy_ms([e for e in events
+                                 if e.get("args", {}).get("device") == i])
+                / epochs for i in cards}
     groups, kernels = {}, {}
     for e in events:
         name = e.get("name", "")
@@ -128,8 +145,8 @@ def device_breakdown(run, carry, eps, steps, epochs, gen):
                   for g, (ms, n) in sorted(groups.items())}
     top = [[name, ms / epochs, n / epochs] for name, (ms, n) in
            sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
-    return (carry, busy / 1e3 / epochs, group_rows, top,
-            host_launches(everything) / epochs)
+    return (carry, max(per_card.values()), group_rows, top,
+            host_launches(everything) / epochs, per_card)
 
 
 def glue_breakdown(glue, reps=50):
@@ -161,7 +178,7 @@ def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
         carry, e_ms, w_ms = timed(run, carry, eps, steps, window, gen)
         enqueue.append(e_ms)
         wall.append(w_ms)
-    carry, busy, groups, top, launches = device_breakdown(
+    carry, busy, groups, top, launches, per_card = device_breakdown(
         run, carry, eps, steps, profiled, gen)
     if not torch.isfinite(carry.theta).all():
         raise AssertionError(f"{name}: the chains left the finite range")
@@ -171,6 +188,7 @@ def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
            "wall_ms_per_epoch": wall,
            "enqueue_ms_per_epoch": enqueue, "device_busy_ms_per_epoch": busy,
            "idle_share": 1.0 - busy / median,
+           "device_busy_ms_per_epoch_by_card": per_card,
            "host_launches_per_epoch": launches, "groups": groups,
            "top_kernels": top}
     if glue is not None:
@@ -229,6 +247,7 @@ def main(argv=None) -> int:
 
     from chip_smoke import card_line, chunk_runner, \
         classification_network, flagship_network, wide_network
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
         make_potentials
@@ -249,27 +268,38 @@ def main(argv=None) -> int:
     tempering_beta = (n_rungs, np.repeat(ladder, n_cold))
     fleet = n_rungs * n_cold
     only = argv[0] if argv else None
+    four = [torch.device("cuda", i) for i in range(4)]
     for name, build, eps, steps, hyper_steps, hyper_eps, sizes, temper, \
-            chains, uturn in (
+            chains, uturn, devices in (
             ("flagship", flagship_network, 1e-3, 100, 100, 1e-3,
-             (10, 50, 20), False, 64, False),
+             (10, 50, 20), False, 64, False, None),
+            ("mesh 4x1", flagship_network, 1e-3, 100, 100, 1e-3,
+             (10, 50, 20), False, 64, False, [dev] * 4),
+            ("mesh 4 cards", flagship_network, 1e-3, 100, 100, 1e-3,
+             (10, 50, 20), False, 256, False, four),
             ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
-             False, 64, False),
+             False, 64, False, None),
             ("tempered 512 x 4", flagship_network,
              np.full(fleet, 2e-3, np.float32), np.full(fleet, 50), 30, 1e-3,
-             (10, 50, 20), True, fleet, False),
+             (10, 50, 20), True, fleet, False, None),
             ("uturn 512", flagship_network, 3e-3, 200, 30, 1e-3,
-             (10, 50, 20), False, 512, True),
+             (10, 50, 20), False, 512, True, None),
             ("classification 128", classification_network, 5e-4, 50, 10,
-             1e-4, (10, 50, 20), False, 128, False)):
-        if only not in (None, name):
+             1e-4, (10, 50, 20), False, 128, False, None)):
+        if only is not None and not name.startswith(only):
             continue
+        cards = 1 if devices is None else len(set(devices))
+        if cards > torch.cuda.device_count():
+            print(json.dumps({"cell": name, "card": card, "skipped":
+                              f"needs {cards} cards"}), flush=True)
+            continue
+        mesh = None if devices is None else make_mesh(4, 1, devices=devices)
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
         run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
                            tempering_beta if temper else None,
-                           record_uturn=uturn)
+                           record_uturn=uturn, mesh=mesh)
         carry = init_multichain_state(flat.theta, flat.eta, hyper_eps,
                                       chains, gen, jitter=0.01)
         glue = None

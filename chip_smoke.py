@@ -110,10 +110,11 @@ script exits non-zero:
    10 alone);
 11. the ``(chains, data)`` mesh on a virtual mesh whose entries are all
    this card: the flagship at 64 chains on 4x1 (K1 and K2 on each chain
-   shard) against the mesh-less run, then 200 epochs of each (walls and
-   launches an epoch); ``wide_deep`` on 2x2 (K3 and the coupled K2)
-   against the mesh-less run, with the stats' R and K summed over the data
-   peers (and the flagship's 11 rows refused there); the 1M-point
+   shard, on the graph runner as in phase 13) against the mesh-less run,
+   then 200 epochs of each (walls and launches an epoch); ``wide_deep``
+   on 2x2 (K3 and the coupled K2) against the mesh-less run, with the
+   stats' R and K summed over the data peers (and the flagship's 11 rows
+   refused there); the 1M-point
    surrogate on 1x4: K3 on four 250,000-row shards against the mesh-less
    K3 and the plain path, and 10 epochs under ``numerics="exact"``; a
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
@@ -129,7 +130,16 @@ script exits non-zero:
    generator's state), then each runner's host ms an epoch over 200 steady
    epochs, the card's busy ms, the idle share, the host's launches an
    epoch and the graph runner's captures with their ms, as a ``{"graph":
-   ...}`` line (``--graph-only`` runs phases 1, 2 and 12 alone).
+   ...}`` line (``--graph-only`` runs phases 1, 2 and 12 alone);
+13. the graph runner over chains-only meshes of this card (a graph a
+   chain shard, parallel/graphs.py), which phase 11 (a) takes, against the
+   eager mesh runner: the flagship at 64 chains and the G = 4 block at 512
+   (one adapter group a shard) on 4x1, the U-turn block at 512 and
+   ``multiclass`` at 128 on 2x1, as phase 12 holds and times its cells
+   (bit-equal over two chunks, generator state included; host ms, busy
+   ms, idle share and host launches an epoch; captures, one a shard), as
+   a ``{"mesh_graph": ...}`` line (``--mesh-graph-only`` runs phases 1, 2
+   and 13 alone).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -327,6 +337,10 @@ MESH_ACCEPT_TOL = 0.05
 MESH_PREDICT_TOL = 1e-6
 # phase 12: the steady epochs each runner is timed over in each K1 cell
 GRAPH_STEADY = 200
+# phase 13: the cells of phase 12 that run over a chains-only mesh of this
+# card, and its chains axis (the G = 4 block one adapter group a shard)
+MESH_GRAPH_CELLS = {"flagship 64": 4, "G = 4 512": 4,
+                    "U-turn 512 alternate": 2, "multiclass 128": 2}
 
 
 def phase(name):
@@ -538,7 +552,8 @@ def stack_network(device, n_blocks, learned_sd=False, seed=0):
 
 
 def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
-                 record_uturn=False, eager=False, per_epoch_leapfrog=False):
+                 record_uturn=False, eager=False, per_epoch_leapfrog=False,
+                 mesh=None):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
     hyper block where the stats layout applies, else the plain block),
@@ -549,7 +564,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
     the profile of chip_profile.py. It is the graph runner where one
     applies (K1 on this card), unless ``eager``; ``per_epoch_leapfrog``
     takes a U-turn run's per-epoch counts (the driver's) for a shared
-    one."""
+    one; over ``mesh`` (a chains-only one for K1) when given."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
@@ -571,7 +586,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
         hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
         batched_main_vg=vg, batched_hyper_traj=hyper,
         tempering_beta=tempering_beta, record_uturn=record_uturn,
-        per_epoch_leapfrog=per_epoch_leapfrog, eager=eager)
+        per_epoch_leapfrog=per_epoch_leapfrog, eager=eager, mesh=mesh)
 
 
 def rung_groups(c, n_rungs=4):
@@ -1774,9 +1789,10 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     are all this card (``make_mesh(..., devices=[dev] * n)``), which runs
     the code that would run over distinct cards. (a) the flagship at 64
     chains on 4x1 through ``Network.train`` (K1 and K2 on each chain
-    shard): 3 epochs against the mesh-less run from the same seed (the MH
-    decisions and the samples), then 200 epochs of each, their walls and
-    launches an epoch (the host's cost of four shards on one thread); (b)
+    shard, a graph a shard): 3 epochs against the mesh-less run from the
+    same seed (the MH decisions and the samples), then 200 epochs of each,
+    their walls and launches an epoch (four shards' graphs on one card);
+    (b)
     the flagship refused on 2x2 (11 rows), ``wide_deep`` on 2x2 (K3 and
     the coupled K2): 3 epochs against the mesh-less K3 run, and the stats
     columns R and K at the final state against the mesh-less ones; (c)
@@ -2146,7 +2162,8 @@ def graph_cells(dev):
     """Phase 12's cells: each K1 cell of phase 6 at its chains, hyper
     steps and hyper step size; two chunks' (eps, L) (``a``, ``b``: shared,
     per chain in 4 groups, or a U-turn run's per-epoch counts), the chunk
-    length of the steady window and the profiled epochs."""
+    length of the steady window, its epochs (``steady``, else
+    ``GRAPH_STEADY``) and the profiled epochs."""
     from tensorbnn_tpu_torch.sampler.tempering import make_ladder
 
     rng = np.random.default_rng(12)
@@ -2171,9 +2188,11 @@ def graph_cells(dev):
              hyper=(30, 1e-3), chunk=50, prof=50, uturn=True,
              a=(3e-3, rng.integers(20, 201, 50)),
              b=(2e-3, rng.integers(20, 201, 50))),
+        # its eager epoch takes ~0.18 s (the plain hyper block): one
+        # chunk of steady epochs
         dict(name="classification 128",
              build=lambda: classification_network(dev), chains=CLS_CHAINS,
-             hyper=(cls["hyper_steps"], 1e-4), chunk=50, prof=5,
+             hyper=(cls["hyper_steps"], 1e-4), chunk=50, prof=5, steady=50,
              a=(cls["eps"], cls["steps"]), b=CLS_GROUPS[1]),
         dict(name="multiclass 128", build=lambda: multiclass_network(dev),
              chains=CLS_CHAINS, hyper=(multi["hyper_steps"], 1e-4),
@@ -2182,108 +2201,141 @@ def graph_cells(dev):
     ]
 
 
-def graph_phase(dev, card) -> dict:
-    """Phase 12: each cell of ``graph_cells`` through the eager and the
-    graph runner, from one carry and one generator seed: two chunks whose
-    (eps, L) differ, held bit for bit (carry, every trace and the
-    generator's state); then ``GRAPH_STEADY`` epochs in chunks of the
-    cell's length, their host ms an epoch (the host clock around work
-    ending in a synchronize), and one profiled chunk: the card's busy ms an
-    epoch, the idle share (1 - busy / host ms) and the host's launches an
-    epoch (kernel and graph launches, copies and fills); with the graph
-    runner's captures and their ms."""
+def compare_runners(dev, spec, mesh=None) -> dict:
+    """One cell of ``graph_cells`` (over ``mesh``, None: no mesh) through
+    the eager and the graph runner, from one carry and one generator seed:
+    two chunks whose (eps, L) differ, held bit for bit (carry, every trace
+    and the generator's state); then the cell's steady epochs in chunks of
+    its length, their host ms an epoch (the host clock around work
+    ending in a synchronize), and one profiled chunk: the card's busy ms
+    an epoch, the idle share (1 - busy / host ms) and the host's launches
+    an epoch (kernel and graph launches, copies and fills); with the graph
+    runner's captures (one a chain shard) and their ms. Returns the
+    cell's row."""
     from tensorbnn_tpu_torch.parallel import graphs
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.potential import flatten_state
 
-    out = {"card": card, "steady_epochs": GRAPH_STEADY}
+    net, lik = spec["build"]()
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    hyper_steps, hyper_eps = spec["hyper"]
+    n, uturn = spec["chunk"], spec.get("uturn", False)
+    steady = spec.get("steady", GRAPH_STEADY)
+    shards = 1 if mesh is None else len(mesh.devices)
+    row, chunks = {"chains": spec["chains"], "chunk": n,
+                   "steady_epochs": steady, "chain_shards": shards}, {}
+    for kind in ("eager", "graph"):
+        run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
+                           spec.get("tempering"), record_uturn=uturn,
+                           eager=kind == "eager",
+                           per_epoch_leapfrog=uturn, mesh=mesh)
+        assert run.runner == kind, (run.runner, kind)
+        graphs.COUNTS.reset()
+        gen = torch.Generator(device=dev).manual_seed(12)
+        carry = init_multichain_state(
+            flat.theta, flat.eta, hyper_eps, spec["chains"],
+            torch.Generator(device=dev).manual_seed(13), jitter=0.01)
+        got = []
+        for eps, leap in (spec["a"], spec["b"]):
+            carry, trace = run(carry, eps, leap, n, gen)
+            got.append((carry, trace))
+        torch.cuda.synchronize()
+        chunks[kind] = (got, gen.get_state())
+        eps, leap = spec["a"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steady // n):
+            carry, _ = run(carry, eps, leap, n, gen)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / steady
+        if not torch.isfinite(carry.theta).all():
+            raise AssertionError(f"{spec['name']}: the chains left the "
+                                 f"finite range")
+        prof = spec["prof"]
+        events = trace_events(lambda: run(carry, eps, leap[:prof] if
+                                          uturn else leap, prof, gen))
+        busy = busy_ms(device_events(None, events=events)) / prof
+        row[kind] = {
+            "host_ms_per_epoch": host_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / host_ms,
+            "host_launches_per_epoch": host_launches(events) / prof,
+            "device_ops_per_epoch": len(device_events(
+                None, events=events)) / prof,
+            **({"captures": graphs.COUNTS.captures,
+                "capture_ms": [1e3 * t for t in
+                               graphs.COUNTS.capture_seconds],
+                "replays": graphs.COUNTS.replays}
+               if kind == "graph" else {})}
+        del run, carry, got, trace
+    (g_chunks, g_state), (e_chunks, e_state) = (chunks["graph"],
+                                                chunks["eager"])
+    for j, ((cg, tg), (ce, te)) in enumerate(zip(g_chunks, e_chunks)):
+        same_bits(cg, ce, f"{spec['name']} chunk {j} carry")
+        same_bits(tg, te, f"{spec['name']} chunk {j} trace")
+    if not torch.equal(g_state, e_state):
+        raise AssertionError(f"{spec['name']}: the generators' states "
+                             f"differ")
+    row["bit_equal"] = True
+    g, e = row["graph"], row["eager"]
+    # one capture a key and chain shard: the chunk length (whole-chunk
+    # graphs) and, for the classification stack's plain hyper block, one
+    # epoch
+    if g["captures"] != shards:
+        raise AssertionError(f"{spec['name']}: {g['captures']} captures "
+                             f"for one chunk key over {shards} shards")
+    if g["host_launches_per_epoch"] >= e["host_launches_per_epoch"]:
+        raise AssertionError(f"{spec['name']}: the graph runner issues "
+                             f"no fewer host launches an epoch: {row}")
+    where = "" if mesh is None else f" on {shards}x1"
+    print(f"{spec['name']}{where}: graph and eager runners bit-equal over "
+          f"two chunks of {n}; host ms/epoch {e['host_ms_per_epoch']:.3f} "
+          f"eager, {g['host_ms_per_epoch']:.3f} graph; host launches "
+          f"an epoch {e['host_launches_per_epoch']:.1f} eager, "
+          f"{g['host_launches_per_epoch']:.1f} graph; idle share "
+          f"{e['idle_share']:.2f} eager, {g['idle_share']:.2f} graph; "
+          f"captures {g['captures']}", flush=True)
+    del net, chunks, g_chunks, e_chunks
+    torch.cuda.empty_cache()
+    return row
+
+
+def graph_phase(dev, card) -> dict:
+    """Phase 12: each cell of ``graph_cells`` through the eager and the
+    graph runner without a mesh (``compare_runners``)."""
+    out = {"card": card}
     for spec in graph_cells(dev):
-        net, lik = spec["build"]()
-        params, hypers = net.init_state()
-        flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
-        hyper_steps, hyper_eps = spec["hyper"]
-        n, uturn = spec["chunk"], spec.get("uturn", False)
-        row, chunks = {"chains": spec["chains"], "chunk": n}, {}
-        for kind in ("eager", "graph"):
-            run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
-                               spec.get("tempering"), record_uturn=uturn,
-                               eager=kind == "eager",
-                               per_epoch_leapfrog=uturn)
-            assert run.runner == kind, (run.runner, kind)
-            graphs.COUNTS.reset()
-            gen = torch.Generator(device=dev).manual_seed(12)
-            carry = init_multichain_state(
-                flat.theta, flat.eta, hyper_eps, spec["chains"],
-                torch.Generator(device=dev).manual_seed(13), jitter=0.01)
-            got = []
-            for eps, leap in (spec["a"], spec["b"]):
-                carry, trace = run(carry, eps, leap, n, gen)
-                got.append((carry, trace))
-            torch.cuda.synchronize()
-            chunks[kind] = (got, gen.get_state())
-            eps, leap = spec["a"]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(GRAPH_STEADY // n):
-                carry, _ = run(carry, eps, leap, n, gen)
-            torch.cuda.synchronize()
-            host_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_STEADY
-            if not torch.isfinite(carry.theta).all():
-                raise AssertionError(f"{spec['name']}: the chains left the "
-                                     f"finite range")
-            prof = spec["prof"]
-            events = trace_events(lambda: run(carry, eps, leap[:prof] if
-                                              uturn else leap, prof, gen))
-            busy = busy_ms(device_events(None, events=events)) / prof
-            row[kind] = {
-                "host_ms_per_epoch": host_ms, "device_busy_ms": busy,
-                "idle_share": 1.0 - busy / host_ms,
-                "host_launches_per_epoch": host_launches(events) / prof,
-                "device_ops_per_epoch": len(device_events(
-                    None, events=events)) / prof,
-                **({"captures": graphs.COUNTS.captures,
-                    "capture_ms": [1e3 * t for t in
-                                   graphs.COUNTS.capture_seconds],
-                    "replays": graphs.COUNTS.replays}
-                   if kind == "graph" else {})}
-            del run, carry, got, trace
-        (g_chunks, g_state), (e_chunks, e_state) = (chunks["graph"],
-                                                    chunks["eager"])
-        for j, ((cg, tg), (ce, te)) in enumerate(zip(g_chunks, e_chunks)):
-            same_bits(cg, ce, f"{spec['name']} chunk {j} carry")
-            same_bits(tg, te, f"{spec['name']} chunk {j} trace")
-        if not torch.equal(g_state, e_state):
-            raise AssertionError(f"{spec['name']}: the generators' states "
-                                 f"differ")
-        row["bit_equal"] = True
-        g, e = row["graph"], row["eager"]
-        # one capture a key: the chunk length (whole-chunk graphs) and, for
-        # the classification stack's plain hyper block, one epoch
-        if g["captures"] != 1:
-            raise AssertionError(f"{spec['name']}: {g['captures']} captures "
-                                 f"for one chunk key")
-        if g["host_launches_per_epoch"] >= e["host_launches_per_epoch"]:
-            raise AssertionError(f"{spec['name']}: the graph runner issues "
-                                 f"no fewer host launches an epoch: {row}")
-        print(f"{spec['name']}: graph and eager runners bit-equal over two "
-              f"chunks of {n}; host ms/epoch {e['host_ms_per_epoch']:.3f} "
-              f"eager, {g['host_ms_per_epoch']:.3f} graph; host launches "
-              f"an epoch {e['host_launches_per_epoch']:.1f} eager, "
-              f"{g['host_launches_per_epoch']:.1f} graph", flush=True)
-        out[spec["name"]] = row
-        del net, chunks, g_chunks, e_chunks
-        torch.cuda.empty_cache()
+        out[spec["name"]] = compare_runners(dev, spec)
+    return out
+
+
+def mesh_graph_phase(dev, card) -> dict:
+    """Phase 13: the cells of ``MESH_GRAPH_CELLS`` through the eager and
+    the graph runner over a chains-only mesh whose entries are all this
+    card (a graph a chain shard; ``compare_runners``)."""
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"card": card}
+    for spec in graph_cells(dev):
+        if spec["name"] in MESH_GRAPH_CELLS:
+            n_chain = MESH_GRAPH_CELLS[spec["name"]]
+            mesh = make_mesh(n_chain, 1, devices=[dev] * n_chain)
+            out[f"{spec['name']} on {n_chain}x1"] = compare_runners(
+                dev, spec, mesh)
     return out
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    # --surrogate-only / --mesh-only / --graph-only: phases 1, 2 and 10 /
-    # 11 / 12 alone (a quick check of that phase; no kernels line)
+    # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only:
+    # phases 1, 2 and 10 / 11 / 12 / 13 alone (a quick check of that
+    # phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
-    if argv and not (surrogate_only or mesh_only or graph_only):
+    mesh_graph_only = argv == ["--mesh-graph-only"]
+    if argv and not (surrogate_only or mesh_only or graph_only
+                     or mesh_graph_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -2342,9 +2394,13 @@ def main(argv=None) -> int:
                   f"{json.dumps(graphs.COUNTS.as_dict())}")
         return got
 
-    if graph_only:
-        phase("12 the graph chunk runner against the eager runner")
-        print(json.dumps({"graph": graph_phase(dev, card)}))
+    if graph_only or mesh_graph_only:
+        if graph_only:
+            phase("12 the graph chunk runner against the eager runner")
+            print(json.dumps({"graph": graph_phase(dev, card)}))
+        else:
+            phase("13 the mesh graph runner against the eager mesh runner")
+            print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card)}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -3469,6 +3525,9 @@ def main(argv=None) -> int:
 
     phase("12 the graph chunk runner against the eager runner")
     print(json.dumps({"graph": graph_phase(dev, card)}))
+
+    phase("13 the mesh graph runner against the eager mesh runner")
+    print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card)}))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

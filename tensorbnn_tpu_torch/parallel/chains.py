@@ -3,12 +3,14 @@ device or over a ``(chains, data)`` mesh.
 
 Counterpart of ``init_multichain_state`` and
 ``make_multichain_chunk_runner`` of ``tensorbnn_tpu/parallel/chains.py``.
-Chains batch as ``(C, D)`` blocks. Where K1 runs the main block on one
-CUDA device (no mesh, or a 1x1 one), a chunk is a captured CUDA graph,
-the port of the JAX package's compiled chunk (parallel/graphs.py). Else
-the chunk runner is a Python loop over epochs (the eager runner) whose
-per-epoch outputs stay on the device, so a chunk enqueues its work without
-a host synchronization.
+Chains batch as ``(C, D)`` blocks. Where K1 runs the main block on CUDA
+devices of one kind, without a mesh or over a mesh whose data axis is 1,
+a chunk is a captured CUDA graph a chain shard on its home card, the port
+of the JAX package's compiled (``shard_map``) chunk (parallel/graphs.py).
+Else (K3 or the plain main block, which every data axis above 1 takes,
+and the CPU) the chunk runner is a Python loop over epochs (the eager
+runner) whose per-epoch outputs stay on the device, so a chunk enqueues
+its work without a host synchronization.
 
 One runner serves every run: without a mesh it runs a 1x1 mesh of the
 data's device. Over a ``(chains, data)`` mesh (parallel/mesh.py) the
@@ -16,10 +18,11 @@ chains split over the ``chains`` axis, a block a mesh row, and the rows
 over the ``data`` axis; each chain shard runs its own epoch, whose
 likelihood terms are summed over the row's data peers. The fleet's draws
 are made once an epoch on the mesh's first device (``draw_epoch``, the
-order every epoch draws in) and each shard takes its slice, so a
-chains-only mesh reproduces the mesh-less run from the same generator. The
-carry and the traces are gathered in chain order on the first device: the
-driver sees the arrays it sees without a mesh.
+order every epoch draws in) and each shard takes its slice (the graph
+runner draws the fleet's epoch on each shard's card from the same
+generator state), so a chains-only mesh reproduces the mesh-less run from
+the same generator. The carry and the traces are gathered in chain order
+on the first device: the driver sees the arrays it sees without a mesh.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
     graph_runner_applies, whole_chunk
-from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DataPeers, Mesh
+from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DataPeers, Mesh, \
+    gather
 from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
     draw_epoch, make_epoch_fn
 
@@ -88,15 +92,6 @@ def _shard_tuple(value, homes: list) -> list:
             for fields in zip(*(_shard(f, homes) for f in value))]
 
 
-def _gather(blocks: list, dim: int = 0):
-    """The blocks concatenated along ``dim`` on the first one's device;
-    one block as it is."""
-    if len(blocks) == 1:
-        return blocks[0]
-    first = blocks[0].device
-    return torch.cat([b.to(first, non_blocking=True) for b in blocks], dim)
-
-
 def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  x, y, unravel_theta, unravel_eta, *,
                                  adjust_hypers: bool,
@@ -145,9 +140,10 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     carry and the traces in chain order at the chunk's end. Tempering needs
     a chains axis of 1 (``check_tempering_mesh``).
 
-    Where ``graph_runner_applies`` (K1, a 1x1 mesh, a CUDA device) the
-    returned runner is a ``GraphChunkRunner`` (parallel/graphs.py), with
-    the same signature and results bit for bit; else the eager loop. Its
+    Where ``graph_runner_applies`` (K1, a data axis of 1, CUDA devices of
+    one kind) the returned runner is a ``GraphChunkRunner``
+    (parallel/graphs.py, a graph a chain shard on its home), with the same
+    signature and results bit for bit; else the eager loop. Its
     ``runner`` attribute says which ("graph" or "eager"). ``eager`` keeps
     the eager loop where a graph would apply (the runners' comparisons on
     the card; the driver never sets it).
@@ -175,7 +171,7 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     tempered = tempering_beta is not None
     if graph:
         return GraphChunkRunner(
-            epoch_fns[0], h=h, tempered=tempered,
+            epoch_fns, homes, h=h, tempered=tempered,
             per_epoch_leapfrog=per_epoch_leapfrog,
             whole=whole_chunk(adjust_hypers, batched_hyper_traj))
 
@@ -219,9 +215,9 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
             # otherwise be alive while the traces are stacked (the peak)
             draws = None
         # the whole fleet on the first device, traces (n_epochs, C, ...)
-        return ChainState(*(_gather(list(f)) for f in zip(*states))), \
+        return ChainState(*(gather(list(f)) for f in zip(*states))), \
             EpochTrace(*(None if f[0][0] is None else
-                         _gather([torch.stack(t) for t in f], dim=1)
+                         gather([torch.stack(t) for t in f], dim=1)
                          for f in zip(*(zip(*t) for t in traces))))
 
     run_chunk.runner = "eager"

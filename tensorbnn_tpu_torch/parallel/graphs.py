@@ -1,22 +1,27 @@
-"""The chunk runner as a captured CUDA graph.
+"""The chunk runner as captured CUDA graphs.
 
 Counterpart of the JAX package's compiled chunk: there a chunk of epochs
 (one GP-adapter cycle) is ``jax.jit`` of a ``lax.scan`` over ``epoch_fn``
 with ``n_epochs`` static (``tensorbnn_tpu/parallel/chains.py:207-228``,
-``:272-274``), compiled once for each ``n_epochs`` and dispatched once.
-Here a chunk is captured once for each key as a ``torch.cuda.CUDAGraph``
-and replayed, so the host issues one launch where the eager runner issues
-every kernel and glue operation of every epoch.
+``:272-274``), compiled once for each ``n_epochs`` and dispatched once;
+over a mesh, ``jax.jit`` of ``shard_map`` of that scan (``:234-284``),
+each chip running its chain shard's chunk. Here a chunk is captured once
+for each key as a ``torch.cuda.CUDAGraph`` a chain shard, on the shard's
+home card, and replayed, so the host issues one launch a shard where the
+eager runner issues every kernel and glue operation of every epoch.
 
 Where it applies (``graph_runner_applies``, decided from the configuration
-when the runner is built): K1 runs the main block, the mesh is 1x1 and the
-chains live on a CUDA device. The K3 and plain main blocks, a mesh with
-more than one shard or data peer, and the CPU keep the eager runner
-(parallel/chains.py).
+when the runner is built): K1 runs the main block, the mesh (if any) has a
+data axis of 1 and the chains live on CUDA devices of one kind. The K3 and
+plain main blocks, a data axis above 1 (whose main block is K3 or the
+plain path: a trajectory cannot sum over data peers mid-flight), and the
+CPU keep the eager runner (parallel/chains.py). A tempered run needs a
+chains axis of 1 (``check_tempering_mesh``), so on a mesh it has a data
+axis above 1 and runs eagerly too.
 
 A key is the graph's epochs, the carry's shape, the form of the leapfrog
 counts (shared, per chain or per epoch) and whether a step scale is given;
-the run's generator is registered with the graph, so another generator
+the run's generator is registered with the graphs, so another generator
 captures anew. A graph holds the whole chunk, the port of ``jit(scan)``,
 unless the hyper block runs the plain ``torch.func`` potential
 (``whole_chunk``): that block issues ~6,300 launches an epoch at the JAX
@@ -27,19 +32,29 @@ chunk's.
 
 ``StaticChunk`` is the body a graph captures. Every chunk argument enters
 through its static buffers, which the runner fills before each replay: the
-carry, the step size ``(C,)`` float32, the leapfrog counts (``(C,)`` int32,
-or the ``(n,)`` per-epoch counts of a U-turn run, epoch j reading slot j)
-and the step scale. Nothing of a chunk is baked into a graph as a Python
-scalar, so a graph captured at one ``(eps, L)`` runs another. The body's
-last operations copy the new carry into the static carry; the traces are
-the graph's outputs, and the runner hands out copies of both.
+shard's block of the carry, of the step size ``(C,)`` float32 and of the
+leapfrog counts (``(C,)`` int32, or the ``(n,)`` per-epoch counts of a
+U-turn run, epoch j reading slot j, which every shard shares) and the step
+scale. Nothing of a chunk is baked into a graph as a Python scalar, so a
+graph captured at one ``(eps, L)`` runs another. The body's last
+operations copy the new carry into the static carry; the traces are the
+graph's outputs, and the runner hands out copies of both, gathered in
+chain order on the first device.
 
-Three things keep a replay bit-equal to the eager runner:
+Four things keep a replay bit-equal to the eager runner:
 
-* the epochs draw inside the graph from the run's generator
-  (``CUDAGraph.register_generator_state``), in ``draw_epoch``'s order: a
-  replay draws what the eager runner draws and leaves the generator's state
-  (which a checkpoint stores) where the eager run leaves it;
+* the epochs draw inside the graph, in ``draw_epoch``'s order (the JAX
+  package's replicated keys in the port's scheme): each shard's graph
+  draws the whole fleet's epoch from its own generator and keeps its own
+  rows, as the eager runner draws the fleet's epoch once on the first
+  device and hands each shard its rows. The first shard's generator is the
+  run's; every other shard's is a generator of its home card set to the
+  run's state before each chunk. Each is registered with its graphs
+  (``CUDAGraph.register_generator_state``), so a replay draws what the
+  eager runner draws and leaves every generator's state (the run's is
+  what a checkpoint stores) where the eager run leaves the run's. The
+  draws of a state are those of the card's launch grid, so the cards of
+  a mesh must be of one kind;
 * the SJD of a shared or per-epoch count is divided after the replay by
   the count's square root as a Python float, the eager epoch's own
   operation (torch on CUDA multiplies by the float's float32 reciprocal,
@@ -48,14 +63,21 @@ Three things keep a replay bit-equal to the eager runner:
 * the kernel wrappers count their launches in Python, so at capture: the
   runner takes the capture's counts back out and adds them at each replay,
   so the counters read as the eager runner's. ``COUNTS`` keeps the
-  captures (with their seconds), replays and warm-up epochs.
+  captures (one a shard and key, with their seconds), replays and warm-up
+  epochs;
+* a chunk fills every shard's buffers (a copy of its block of the carry
+  from the first device), then replays every shard's graph before the host
+  waits on anything: graphs on distinct cards run at the same time, and
+  the shards of a card replay one after another on its current stream
+  (they were captured on one side stream, whose cuBLAS workspace they
+  share).
 
-A runner's first capture follows one eager epoch on the device's side
-stream (the one stream every capture runs on), on a copy of the carry,
-with the generator's state put back afterwards and its launches
-uncounted: it creates what a kernel creates on its first call (K1's prior
-table on the device, the library's first launch, the stream's cuBLAS
-workspace, which the process then keeps: 32 MiB). Capture runs in
+A shard's first capture follows one eager epoch on its card's side stream
+(the one stream every capture on that card runs on), on a copy of its
+block, with the generator's state put back afterwards and its launches
+uncounted: it creates what a kernel creates on its first call on a card
+(K1's prior table, the library's first launch, the stream's cuBLAS
+workspace, which the process then keeps: 32 MiB a card). Capture runs in
 "global" mode, so a forbidden call during capture (a copy from pageable
 memory, a synchronization, ``.item()``) raises. A failed capture or replay
 raises; nothing falls back to the eager runner.
@@ -71,9 +93,9 @@ import numpy as np
 import torch
 
 from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
-from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DATA_AXIS
-from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
-    draw_epoch
+from tensorbnn_tpu_torch.parallel.mesh import DATA_AXIS, gather
+from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochDraws, \
+    EpochTrace, draw_epoch
 
 #: the kernel wrappers whose ``LAUNCHES`` a replay adds its captured
 #: launches to
@@ -105,13 +127,31 @@ COUNTS = GraphCounts()
 
 
 def graph_runner_applies(batched_main_traj, mesh, device) -> bool:
-    """Whether a chunk runs as a captured graph: K1 runs the main block
-    (``batched_main_traj``), the mesh (None: no mesh) is 1x1 and the chains
-    live on a CUDA ``device``."""
-    one = mesh is None or (mesh.shape[CHAIN_AXIS], mesh.shape[DATA_AXIS]) \
-        == (1, 1)
-    return (batched_main_traj is not None and one
-            and torch.device(device).type == "cuda")
+    """Whether a chunk runs as captured graphs: K1 runs the main block
+    (``batched_main_traj``), the mesh (None: no mesh, the chains on
+    ``device``) has a data axis of 1, and its chain shards live on CUDA
+    devices of one kind (``card_kind``; a card that repeats is asked
+    nothing)."""
+    if batched_main_traj is None:
+        return False
+    if mesh is None:
+        homes = [torch.device(device)]
+    elif mesh.shape[DATA_AXIS] != 1:
+        return False
+    else:
+        homes = [row[0] for row in mesh.devices]
+    if any(d.type != "cuda" for d in homes):
+        return False
+    cards = {d.index for d in homes}
+    return len(cards) == 1 or len({card_kind(i) for i in cards}) == 1
+
+
+def card_kind(index: int) -> tuple:
+    """What sets a draw's bits on a card besides the generator's state:
+    torch's random kernels take their launch grid from the card's name and
+    multiprocessor count."""
+    props = torch.cuda.get_device_properties(index)
+    return props.name, props.multi_processor_count
 
 
 def whole_chunk(adjust_hypers: bool, batched_hyper_traj) -> bool:
@@ -137,16 +177,20 @@ class StaticChunk:
 
     ``mode`` is ``leap_mode``'s; ``h`` the hyper dimension (None: no hyper
     block); ``tempered`` draws the swap coins; ``step_scale`` a ``(D,)``
-    tensor whose shape the scale buffer takes (None: no scale)."""
+    tensor whose shape the scale buffer takes (None: no scale). ``shard =
+    (i, k)``: the body runs chain shard ``i`` of ``k`` (``carry`` its
+    block), drawing the fleet's ``k`` blocks an epoch and keeping block
+    ``i``; the buffers live on ``device`` (None: the carry's)."""
 
     def __init__(self, epoch_fn, carry: ChainState, n: int, mode: str,
                  h: Optional[int], tempered: bool,
-                 step_scale: Optional[torch.Tensor] = None):
+                 step_scale: Optional[torch.Tensor] = None,
+                 device=None, shard: tuple = (0, 1)):
         c = carry.theta.shape[0]
-        dev = carry.theta.device
+        dev = carry.theta.device if device is None else torch.device(device)
         self.epoch_fn, self.n, self.mode = epoch_fn, n, mode
-        self.h, self.tempered = h, tempered
-        self.carry = ChainState(*(f.clone() for f in carry))
+        self.h, self.tempered, self.shard = h, tempered, shard
+        self.carry = ChainState(*(f.to(dev, copy=True) for f in carry))
         self.eps = torch.empty(c, dtype=torch.float32, device=dev)
         self.leap = torch.empty(n if mode == "per_epoch" else c,
                                 dtype=torch.int32, device=dev)
@@ -183,10 +227,14 @@ class StaticChunk:
         ``self.trace`` and the new carry copied into the static one."""
         c, d = self.carry.theta.shape
         dtype, dev = self.carry.theta.dtype, self.carry.theta.device
+        i, k = self.shard
         state, traces = self.carry, []
         for j in range(self.n):
-            draws = draw_epoch(generator, c, d, self.h, dtype, dev,
+            draws = draw_epoch(generator, c * k, d, self.h, dtype, dev,
                                self.tempered)
+            if k > 1:
+                draws = EpochDraws(*(None if f is None else
+                                     f[i * c:(i + 1) * c] for f in draws))
             leap = (self.leap[j].expand(c) if self.mode == "per_epoch"
                     else self.leap)
             state, trace = self.epoch_fn(
@@ -241,34 +289,42 @@ def _side_stream(device) -> torch.cuda.Stream:
 
 class CudaGraph:
     """``fn`` captured as a CUDA graph on ``device`` in "global" mode, the
-    run's ``generator`` registered with it; ``replay`` runs it on the
-    current stream. ``warm_up`` runs a function eagerly on the side stream
-    (torch's recipe before a first capture)."""
+    ``generator`` it draws from registered with it; ``replay`` runs it on
+    the device's current stream. ``warm_up`` runs a function eagerly on
+    the device's side stream (torch's recipe before a first capture)."""
 
     def __init__(self, fn, generator: torch.Generator, device):
         self.graph = torch.cuda.CUDAGraph()
-        device = torch.device(device)
-        if generator is not torch.cuda.default_generators[device.index]:
-            self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, stream=_side_stream(device),
-                              capture_error_mode="global"):
-            fn()
+        self.device = torch.device(device)
+        with torch.cuda.device(self.device):
+            # a generator's first registration puts the seed and offset its
+            # graphs read on the current device: it must be the graph's
+            if generator is not torch.cuda.default_generators[
+                    self.device.index]:
+                self.graph.register_generator_state(generator)
+            with torch.cuda.graph(self.graph,
+                                  stream=_side_stream(self.device),
+                                  capture_error_mode="global"):
+                fn()
 
     def replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
 
     @staticmethod
     def warm_up(fn, device) -> None:
-        current = torch.cuda.current_stream(device)
-        side = _side_stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            fn()
-        current.wait_stream(side)
+        with torch.cuda.device(device):
+            current = torch.cuda.current_stream(device)
+            side = _side_stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                fn()
+            current.wait_stream(side)
 
 
 class _Captured:
-    """One key's graph, its body and the launches it captured."""
+    """One shard's graph for one key, its body and the launches it
+    captured."""
 
     def __init__(self, graph, chunk: StaticChunk, launched: list,
                  generator):
@@ -282,10 +338,21 @@ class _Captured:
         COUNTS.replays += 1
 
 
+def _blocks(value, k: int) -> list:
+    """A chain-major tensor, host array or scalar split into ``k`` blocks
+    of chains in order (a scalar is every block's)."""
+    if torch.is_tensor(value):
+        return list(value.chunk(k))
+    if np.ndim(value) > 0:
+        return np.split(np.asarray(value), k)
+    return [value] * k
+
+
 class GraphChunkRunner:
     """``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
     step_scale=None) -> (carry, trace)`` of parallel/chains.py through
-    captured graphs of ``epoch_fn`` (see the module docstring): a whole
+    captured graphs (see the module docstring): chain shard ``i`` runs
+    ``epoch_fns[i]`` on ``homes[i]`` (one shard without a mesh), a whole
     chunk a graph when ``whole``, else one epoch. ``h``, ``tempered`` as
     ``StaticChunk``'s; ``per_epoch_leapfrog`` as the runner's.
     ``graph_type`` captures and replays (``CudaGraph``; the CPU tests give
@@ -293,14 +360,17 @@ class GraphChunkRunner:
 
     runner = "graph"
 
-    def __init__(self, epoch_fn, *, h: Optional[int], tempered: bool,
-                 per_epoch_leapfrog: bool, whole: bool,
+    def __init__(self, epoch_fns, homes, *, h: Optional[int],
+                 tempered: bool, per_epoch_leapfrog: bool, whole: bool,
                  graph_type=CudaGraph):
-        self.epoch_fn, self.h, self.tempered = epoch_fn, h, tempered
+        self.epoch_fns = list(epoch_fns)
+        self.homes = [torch.device(d) for d in homes]
+        self.h, self.tempered = h, tempered
         self.per_epoch_leapfrog, self.whole = per_epoch_leapfrog, whole
         self.graph_type = graph_type
         self.graphs = {}
-        self.warm = False
+        self.warm = [False] * len(self.homes)
+        self.generators = [None] * len(self.homes)
 
     def __call__(self, carry: ChainState, step_size, leapfrog,
                  n_epochs: int, generator: torch.Generator,
@@ -317,51 +387,73 @@ class GraphChunkRunner:
         leaps = leapfrog
         if mode == "per_epoch":
             leaps = np.asarray(leapfrog, np.int64).reshape(n_epochs)
-        # the counts the graph's n epochs take first
-        first = leaps[:n] if mode == "per_epoch" else leaps
+        # the counts the graphs' n epochs take first, a block a shard
+        k = len(self.homes)
+        firsts = ([leaps[:n]] * k if mode == "per_epoch"
+                  else _blocks(leaps, k))
+        blocks = [ChainState(*f) for f in zip(*(_blocks(f, k)
+                                                for f in carry))]
+        steps = _blocks(step_size, k)
         key = (n, tuple(carry.theta.shape), tuple(carry.eta.shape), mode,
                step_scale is not None)
-        entry = self.graphs.get(key)
-        if entry is None or entry.generator is not generator:
-            entry = self.graphs[key] = self._capture(
-                carry, step_size, first, n, mode, generator, step_scale)
-        chunk = entry.chunk
-        chunk.fill(carry, step_size, first, step_scale)
+        gens = self._generators(generator)
+        entries = self.graphs.get(key)
+        if entries is None or entries[0].generator is not generator:
+            entries = self.graphs[key] = [
+                self._capture(i, blocks[i], steps[i], firsts[i], n, mode,
+                              gens[i], step_scale) for i in range(k)]
+        state = generator.get_state()
+        for g in gens[1:]:
+            g.set_state(state)
+        for entry, block, eps, leap in zip(entries, blocks, steps, firsts):
+            entry.chunk.fill(block, eps, leap, step_scale)
         if self.whole:
-            entry.replay()
-            return chunk.result(leaps)
-        rows = None
+            for entry in entries:
+                entry.replay()
+            return _gathered([e.chunk.result(leaps) for e in entries])
+        rows = [None] * k
         for j in range(n_epochs):
-            if mode == "per_epoch" and j:
-                chunk.leap.fill_(int(leaps[j]))
-            entry.replay()
-            if rows is None:
-                rows = EpochTrace(*(None if f is None else torch.empty(
-                    (n_epochs,) + f.shape[1:], dtype=f.dtype,
-                    device=f.device) for f in chunk.trace))
-            for dst, src in zip(rows, chunk.trace):
-                if dst is not None:
-                    dst[j].copy_(src[0])
-        return chunk.result(leaps, rows)
+            for i, entry in enumerate(entries):
+                chunk = entry.chunk
+                if mode == "per_epoch" and j:
+                    chunk.leap.fill_(int(leaps[j]))
+                entry.replay()
+                if rows[i] is None:
+                    rows[i] = EpochTrace(*(None if f is None else torch.empty(
+                        (n_epochs,) + f.shape[1:], dtype=f.dtype,
+                        device=f.device) for f in chunk.trace))
+                for dst, src in zip(rows[i], chunk.trace):
+                    if dst is not None:
+                        dst[j].copy_(src[0])
+        return _gathered([e.chunk.result(leaps, r)
+                          for e, r in zip(entries, rows)])
 
-    def _capture(self, carry: ChainState, step_size, leapfrog, n: int,
-                 mode: str, generator, step_scale) -> _Captured:
-        """Captures ``n`` epochs of the body for this key (after the
-        runner's warm-up epoch, the first time); the kernel counters read
-        afterwards as they read before."""
+    def _generators(self, generator) -> list:
+        """Each shard's generator: the run's for the first shard, and for
+        every other one of its home card, made once a run generator."""
+        if self.generators[0] is not generator:
+            self.generators = [generator] + [torch.Generator(device=hd)
+                                             for hd in self.homes[1:]]
+        return self.generators
+
+    def _capture(self, i: int, carry: ChainState, step_size, leapfrog,
+                 n: int, mode: str, generator, step_scale) -> _Captured:
+        """Captures ``n`` epochs of shard ``i``'s body for this key on its
+        home (after the shard's warm-up epoch, the first time); the kernel
+        counters read afterwards as they read before."""
         t0 = time.perf_counter()
-        dev = carry.theta.device
+        home, shard = self.homes[i], (i, len(self.homes))
         before = [fn.LAUNCHES for fn in COUNTED]
         try:
-            if not self.warm:
-                self._warm_up(carry, step_size, leapfrog, mode, generator,
+            if not self.warm[i]:
+                self._warm_up(i, carry, step_size, leapfrog, mode, generator,
                               step_scale)
-            chunk = StaticChunk(self.epoch_fn, carry, n, mode, self.h,
-                                self.tempered, step_scale)
+            chunk = StaticChunk(self.epoch_fns[i], carry, n, mode, self.h,
+                                self.tempered, step_scale, home, shard)
             chunk.fill(carry, step_size, leapfrog, step_scale)
             mid = [fn.LAUNCHES for fn in COUNTED]
             graph = self.graph_type(lambda: chunk.run(generator), generator,
-                                    dev)
+                                    home)
             launched = [fn.LAUNCHES - m for fn, m in zip(COUNTED, mid)]
         finally:
             for fn, b in zip(COUNTED, before):
@@ -370,17 +462,28 @@ class GraphChunkRunner:
         COUNTS.capture_seconds.append(time.perf_counter() - t0)
         return _Captured(graph, chunk, launched, generator)
 
-    def _warm_up(self, carry, step_size, leapfrog, mode, generator,
+    def _warm_up(self, i: int, carry, step_size, leapfrog, mode, generator,
                  step_scale) -> None:
-        """One eager epoch of the body on a side stream, on a copy of the
-        carry; the generator's state is put back afterwards."""
+        """One eager epoch of shard ``i``'s body on its home's side stream,
+        on a copy of its block; the generator's state is put back
+        afterwards."""
         state = generator.get_state()
-        warm = StaticChunk(self.epoch_fn, carry, 1, mode, self.h,
-                           self.tempered, step_scale)
+        home = self.homes[i]
+        warm = StaticChunk(self.epoch_fns[i], carry, 1, mode, self.h,
+                           self.tempered, step_scale, home,
+                           (i, len(self.homes)))
         warm.fill(carry, step_size, leapfrog[:1] if mode == "per_epoch"
                   else leapfrog, step_scale)
-        self.graph_type.warm_up(lambda: warm.run(generator),
-                                carry.theta.device)
+        self.graph_type.warm_up(lambda: warm.run(generator), home)
         generator.set_state(state)
-        self.warm = True
+        self.warm[i] = True
         COUNTS.warmups += 1
+
+
+def _gathered(results: list):
+    """The shards' ``(carry, trace)`` pairs as the fleet's, in chain order
+    on the first shard's device (one shard's as they are)."""
+    carries, traces = zip(*results)
+    return (ChainState(*(gather(list(f)) for f in zip(*carries))),
+            EpochTrace(*(None if f[0] is None else gather(list(f), dim=1)
+                         for f in zip(*traces))))

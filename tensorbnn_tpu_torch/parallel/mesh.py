@@ -152,6 +152,15 @@ def data_sum(parts: Sequence, device: torch.device):
     return total
 
 
+def gather(blocks: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The chain shards' blocks concatenated along ``dim`` on the first
+    one's device (copied with ``non_blocking``); one block as it is."""
+    if len(blocks) == 1:
+        return blocks[0]
+    first = blocks[0].device
+    return torch.cat([b.to(first, non_blocking=True) for b in blocks], dim)
+
+
 class DataPeers:
     """The data peers of one chain shard: their devices (the mesh's row)
     and each one's rows ``(x_j, y_j)``, placed on it once. The first

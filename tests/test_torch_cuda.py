@@ -10,8 +10,10 @@ bits with TF32 switched on, "high" differs within TF32's tolerance) and
 the chunked likelihood on the card against the CPU in float64; and the
 ``(chains, data)`` mesh on the card (K1 + K2 on 4x1, K3 + K2 on 2x2, K3
 on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
-the mesh, each on a mesh of this card repeated and on one of distinct
-cards (which skips on a machine with fewer).
+the mesh; and the graph chunk runner against the eager runner, without a
+mesh and on chains-only meshes (a graph a chain shard); each mesh test on
+a mesh of this card repeated and on one of distinct cards (which skips on
+a machine with fewer).
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -694,6 +696,7 @@ def test_chains_mesh_on_k1_and_k2_matches_the_meshless_run(device, layout):
         launches.append((fused_mlp.fused_trajectory.LAUNCHES - k1,
                          fused_hyper.fused_hyper_trajectory.LAUNCHES - k2))
     assert res[1].main_path == "K1" and res[1].fused_hyper
+    assert [r.chunk_runner for r in res] == ["graph", "graph"]
     assert launches == [(3, 3), (12, 12)]
     want = res[0].theta_samples
     np.testing.assert_array_equal(_moves(res[1].theta_samples),
@@ -881,7 +884,7 @@ def _graph_cell(device, cell):
             chunks)
 
 
-def _runner(device, pieces, eager):
+def _runner(device, pieces, eager, mesh=None):
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
     model, lik, flat, x, y, c, hyper_steps, tempering_beta, uturn, _ = \
@@ -898,22 +901,22 @@ def _runner(device, pieces, eager):
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
         hyper_step_size_init=1e-3, eta_dim=h, batched_main_traj=traj,
         batched_hyper_traj=hyper, tempering_beta=tempering_beta,
-        record_uturn=uturn, per_epoch_leapfrog=uturn, eager=eager)
+        record_uturn=uturn, per_epoch_leapfrog=uturn, eager=eager,
+        mesh=mesh)
 
 
 GRAPH_CELLS = ["flagship", "g4", "tempered", "uturn", "classification",
                "multiclass"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cell", GRAPH_CELLS)
-def test_graph_runner_matches_eager_runner_on_the_card(device, cell):
+def _graph_against_eager(device, cell, mesh=None):
     """Two chunks whose (eps, L) differ through the graph runner and the
-    eager runner on the card, from one carry and one generator seed: the
-    carry, every trace (samples, acceptances, SJD, swap flags, U-turn
-    steps) and the generator's state bit for bit, and the kernels' launch
-    counters equal; one capture a chunk key (classification's one-epoch
-    graph serves both chunks) and one warm-up epoch a runner."""
+    eager runner of ``cell`` on ``mesh`` (None: no mesh), from one carry
+    and one generator seed: the carry, every trace (samples, acceptances,
+    SJD, swap flags, U-turn steps) and the generator's state bit for bit,
+    and the kernels' launch counters equal; one capture a chunk key and
+    chain shard (classification's one-epoch graph serves both chunks) and
+    one warm-up epoch a shard."""
     from tensorbnn_tpu_torch.parallel import graphs
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     pieces = _graph_cell(device, cell)
@@ -923,7 +926,7 @@ def test_graph_runner_matches_eager_runner_on_the_card(device, cell):
         torch.Generator(device=device).manual_seed(2), jitter=0.01)
     out = {}
     for eager in (True, False):
-        run = _runner(device, pieces, eager)
+        run = _runner(device, pieces, eager, mesh)
         assert run.runner == ("eager" if eager else "graph")
         graphs.COUNTS.reset()
         gen = torch.Generator(device=device).manual_seed(5)
@@ -943,9 +946,33 @@ def test_graph_runner_matches_eager_runner_on_the_card(device, cell):
     assert torch.equal(out[False][1], out[True][1])
     assert out[False][2] == out[True][2] and out[True][2][0] > 0
     counts = out[False][3]
+    shards = 1 if mesh is None else len(mesh.devices)
     keys = 1 if cell == "classification" else len({n for *_, n in chunks})
-    assert (counts["captures"], counts["warmups"]) == (keys, 1), counts
+    assert (counts["captures"], counts["warmups"]) == (keys * shards,
+                                                       shards), counts
     assert out[True][3]["captures"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", GRAPH_CELLS)
+def test_graph_runner_matches_eager_runner_on_the_card(device, cell):
+    """``_graph_against_eager`` without a mesh."""
+    _graph_against_eager(device, cell)
+
+
+#: the mesh graph runner's cells: each a chains-only mesh
+MESH_GRAPH_CELLS = [("flagship", 4), ("g4", 4), ("uturn", 2),
+                    ("multiclass", 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+@pytest.mark.parametrize("cell,n_chain", MESH_GRAPH_CELLS)
+def test_mesh_graph_runner_matches_eager_mesh_runner_on_the_card(
+        device, cell, n_chain, layout):
+    """``_graph_against_eager`` on an ``n_chain`` x 1 mesh (a graph a chain
+    shard on its home card; the G = 4 cell one adapter group a shard)."""
+    _graph_against_eager(device, cell, _mesh(device, n_chain, 1, layout))
 
 
 def _resume_net(device, seed=5):
@@ -1005,11 +1032,11 @@ def test_graph_run_resumed_is_bit_equal_on_the_card(device, tmp_path, case,
     assert graphs.COUNTS.replays > 0
 
 
-@pytest.mark.cuda
-def test_graph_capture_failure_raises(device):
+def _capture_failure_raises(device, mesh=None):
     """An epoch that copies from pageable host memory cannot be captured:
-    the graph runner raises (it never carries on eagerly), and the
-    kernels' launch counters read as they did before."""
+    the graph runner (on ``mesh``, None: no mesh) raises (it never carries
+    on eagerly), and the kernels' launch counters read as they did
+    before."""
     from tensorbnn_tpu_torch.parallel import graphs
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
         make_multichain_chunk_runner
@@ -1020,14 +1047,14 @@ def test_graph_capture_failure_raises(device):
         model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
 
     def copying_traj(*args):
-        torch.as_tensor(np.zeros(4, np.float32), device=device)
+        torch.as_tensor(np.zeros(4, np.float32), device=args[0].device)
         return traj(*args)
 
     run = make_multichain_chunk_runner(
         model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
         hyper_step_size_init=1e-3, eta_dim=h,
-        batched_main_traj=copying_traj)
+        batched_main_traj=copying_traj, mesh=mesh)
     assert run.runner == "graph"
     carry = init_multichain_state(flat.theta.to(device), flat.eta.to(device),
                                   1e-3, c)
@@ -1039,6 +1066,19 @@ def test_graph_capture_failure_raises(device):
     torch.cuda.synchronize()
     assert [fn.LAUNCHES for fn in graphs.COUNTED] == before
     assert graphs.COUNTS.captures == captures
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(device):
+    """``_capture_failure_raises`` without a mesh."""
+    _capture_failure_raises(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_mesh_graph_capture_failure_raises(device, layout):
+    """``_capture_failure_raises`` on a 2x1 mesh."""
+    _capture_failure_raises(device, _mesh(device, 2, 1, layout))
 
 
 @pytest.mark.cuda
@@ -1079,4 +1119,27 @@ def test_graph_runs_leave_no_memory_behind(device):
         gc.collect()
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated())
+    assert held[1] == held[0] and held[2] == held[0], held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_mesh_graph_runs_leave_no_memory_behind(device, layout):
+    """Runs on a 2x1 mesh through ``Network.train`` take the graph runner,
+    and after the first (which gives each card's side stream what it
+    keeps) each run leaves every card's allocated memory where it found
+    it."""
+    import gc
+    mesh = _mesh(device, 2, 1, layout)
+    cards = sorted({row[0].index for row in mesh.devices})
+    held = []
+    for _ in range(3):
+        net, lik = _resume_net(device)
+        res = net.train(12, 2, lik, n_chains=8, chain_jitter=0.05,
+                        mesh=mesh, verbose=False)
+        assert res.chunk_runner == "graph"
+        del net, res
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append([torch.cuda.memory_allocated(i) for i in cards])
     assert held[1] == held[0] and held[2] == held[0], held

@@ -38,8 +38,8 @@ from tensorbnn_tpu_torch.parallel.chains import make_multichain_chunk_runner
 from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
     StaticChunk, graph_runner_applies, leap_mode, whole_chunk
 from tensorbnn_tpu_torch.parallel.mesh import Mesh
-from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
-    make_epoch_fn as t_epoch
+from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochDraws, \
+    EpochTrace, make_epoch_fn as t_epoch
 from test_torch_classification import _classification, _data, _flats, \
     _lik, _multiclass
 from test_torch_sampler import _flagship, _jax_draws
@@ -128,17 +128,17 @@ def _case(name):
     t_carry = ChainState(*(torch.tensor(np.asarray(getattr(j_carry, f)))
                            for f in ChainState._fields))
 
-    def eager_runner():
+    def eager_runner(mesh=None):
         return make_multichain_chunk_runner(
             t_model, t_lik, xt, yt, t_flat.unravel_theta,
             t_flat.unravel_eta, adjust_hypers=True,
             hyper_leapfrog=hyper_steps, burnin=100.0,
             hyper_step_size_init=1e-3, eta_dim=h, batched_main_traj=traj,
             batched_hyper_traj=hyper, tempering_beta=tempering_beta,
-            record_uturn=uturn, per_epoch_leapfrog=uturn)
+            record_uturn=uturn, per_epoch_leapfrog=uturn, mesh=mesh)
 
     def graph_runner():
-        return GraphChunkRunner(epoch_fn, h=h,
+        return GraphChunkRunner([epoch_fn], [xt.device], h=h,
                                 tempered=tempering_beta is not None,
                                 per_epoch_leapfrog=uturn,
                                 whole=whole_chunk(True, hyper),
@@ -195,29 +195,43 @@ def test_graph_runner_matches_eager_runner(name):
         assert tg.uturn.dtype == torch.int32
 
 
-@pytest.mark.parametrize("name", CASES)
-def test_static_chunk_matches_jax(name, monkeypatch):
-    """Two epochs of the body (K1's twin, K2's or the plain hyper block)
-    against two of the JAX package's ``make_epoch_fn`` (its XLA path) from
-    one state, fed the JAX package's own draws. Tolerances of
-    test_torch_sampler.py::test_three_epochs_match_jax_with_injected_draws;
-    U-turn steps and swap decisions equal."""
-    case = _case(name)
+def body_against_jax(case, epoch_fn, monkeypatch, shard=(0, 1)):
+    """Two epochs of a body (``StaticChunk`` of ``epoch_fn``, running
+    chain shard ``shard = (i, k)``: block i of the case's chains) against
+    two of the JAX package's ``make_epoch_fn`` (its XLA path) on the same
+    chains from one state, fed the JAX package's own draws for them. A
+    shard's body draws the fleet's epoch and keeps its rows: the other
+    shards' rows are NaN here, so a body that took them fails. Tolerances
+    of test_torch_sampler.py::test_three_epochs_match_jax_with_injected_
+    draws; U-turn steps and swap decisions equal."""
+    i, k = shard
+    c = case.t_carry.theta.shape[0] // k
+    rows = slice(i * c, (i + 1) * c)
     j_fn = jax.jit(j_epoch(case.j_model, case.j_lik, jnp.asarray(case.x),
                            jnp.asarray(case.y), case.j_flat.unravel_theta,
                            case.j_flat.unravel_eta, **case.kw))
     eps, leap = case.a
+    eps = eps[rows] if np.ndim(eps) else eps
+    leap = leap[rows] if np.ndim(leap) and not case.uturn else leap
     n = 2
     leaps = leap[:n] if case.uturn else leap
     mode = leap_mode(leaps, case.uturn)
-    chunk = StaticChunk(case.epoch_fn, case.t_carry, n, mode, case.h,
-                        case.tempered)
-    chunk.fill(case.t_carry, eps, leaps)
-    j_carry, draws, j_traces = case.j_carry, [], []
+    block = ChainState(*(f[rows] for f in case.t_carry))
+    chunk = StaticChunk(epoch_fn, block, n, mode, case.h, case.tempered,
+                        shard=shard)
+    chunk.fill(block, eps, leaps)
+    j_carry = jax.tree.map(lambda f: f[rows], case.j_carry)
+    draws, j_traces = [], []
     d = case.j_flat.theta.size
     for j in range(n):
         draw = _jax_tempered_draws if case.tempered else _jax_draws
-        draws.append(draw(j_carry.key, d, case.h))
+        own = draw(j_carry.key, d, case.h)
+        fleet = [None if f is None else torch.full(
+            (c * k,) + f.shape[1:], float("nan")) for f in own]
+        for dst, src in zip(fleet, own):
+            if dst is not None:
+                dst[rows] = src
+        draws.append(EpochDraws(*fleet))
         l_j = leap[j] if case.uturn else leap
         j_carry, j_tr = j_fn(j_carry, jnp.asarray(eps, jnp.float32),
                              jnp.asarray(l_j, jnp.int32))
@@ -247,6 +261,15 @@ def test_static_chunk_matches_jax(name, monkeypatch):
         if case.uturn:
             np.testing.assert_array_equal(t_trace.uturn[j].numpy(),
                                           np.asarray(j_tr.uturn))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_static_chunk_matches_jax(name, monkeypatch):
+    """Two epochs of the body (K1's twin, K2's or the plain hyper block)
+    against two of the JAX package's ``make_epoch_fn`` from one state, fed
+    the JAX package's own draws (``body_against_jax``)."""
+    case = _case(name)
+    body_against_jax(case, case.epoch_fn, monkeypatch)
 
 
 @pytest.mark.parametrize("name", ["shared", "per_chain", "uturn"])
@@ -294,16 +317,21 @@ def _applies(k1, mesh, device):
     ("K1", None, "cuda:0", True),
     ("K3", None, "cuda", False),
     ("plain", None, "cuda", False),
-    ("K1", (2, 1), "cuda", False),
+    ("K1", (2, 1), "cuda", True),
+    ("K1", (4, 1), "cuda", True),
     ("K1", (1, 2), "cuda", False),
+    ("K1", (2, 2), "cuda", False),
+    ("K3", (2, 1), "cuda", False),
+    ("K1", (2, 1), "cpu", False),
     ("K1", None, "cpu", False),
     ("K1", (1, 1), "cpu", False),
 ])
 def test_graph_or_eager_follows_the_configuration(path, mesh, device, want):
-    """A graph where K1 runs the main block on a 1x1 CUDA mesh (or none);
-    K3 and the plain main block (no ``batched_main_traj``), a mesh of more
-    than one shard or data peer, and the CPU run eagerly. The decision
-    reads the configuration only (no card is needed to make it)."""
+    """A graph where K1 runs the main block on CUDA chains without a mesh
+    or on a mesh whose data axis is 1 (here a card repeated); K3 and the
+    plain main block (no ``batched_main_traj``), a data axis above 1 and
+    the CPU run eagerly. The decision reads the configuration only (no
+    card is needed to make it)."""
     m = None if mesh is None else Mesh(
         [[torch.device(device)] * mesh[1]] * mesh[0])
     assert _applies(path == "K1", m, torch.device(device)) == want

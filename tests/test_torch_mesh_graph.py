@@ -1,0 +1,171 @@
+"""The graph chunk runner over a ``(chains, 1)`` mesh (parallel/graphs.py:
+a graph a chain shard on its home card) on the CPU.
+
+A CUDA graph runs only on a card, so these tests build the mesh graph
+runner through ``make_multichain_chunk_runner`` with the decision forced
+and the stand-in graph of tests/test_torch_graph_runner.py
+(``EagerGraph``), on meshes of repeated CPU entries, and hold:
+
+* the mesh graph runner against the eager mesh runner on the same mesh,
+  bit for bit over two chunks whose (eps, L) differ, every shard's
+  generator state included, in the shared, per-chain, U-turn and
+  one-epoch (``classification``) modes and ``multiclass``, on 2x1 and 4x1;
+* each shard's body (``StaticChunk`` of the shard's epoch function)
+  against the JAX package's ``make_epoch_fn`` on that shard's chains, fed
+  the JAX package's own draws (``body_against_jax``);
+* the graph-or-eager decision over distinct cards (alike or not) and for
+  tempered runs;
+* a run stopped and resumed under a 2x1 mesh on the graph runner,
+  bit-equal to the uninterrupted one and to the eager mesh run.
+
+tests/test_torch_cuda.py holds the real graphs against the eager mesh
+runner on the card.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from tensorbnn_tpu_torch.parallel import chains, graphs
+from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
+    graph_runner_applies
+from tensorbnn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from test_torch_graph_runner import EagerGraph, _case, _equal, \
+    body_against_jax
+from test_torch_mesh import _net
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+def _graphs_on_the_cpu(monkeypatch):
+    """Makes the factory take the graph runner on the CPU, with the
+    stand-in graph."""
+    monkeypatch.setattr(chains, "graph_runner_applies", lambda *a: True)
+    monkeypatch.setattr(chains, "GraphChunkRunner", functools.partial(
+        GraphChunkRunner, graph_type=EagerGraph))
+
+
+def _runners(case, shape, monkeypatch):
+    """The eager and the graph runner of ``case`` on a mesh of ``shape``
+    whose entries are all the CPU."""
+    mesh = make_mesh(*shape, devices=[CPU] * (shape[0] * shape[1]))
+    eager = case.eager_runner(mesh)
+    _graphs_on_the_cpu(monkeypatch)
+    return eager, case.eager_runner(mesh)
+
+
+MODES = ["shared", "per_chain", "uturn", "classification", "multiclass"]
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1)])
+@pytest.mark.parametrize("name", MODES)
+def test_mesh_graph_runner_matches_eager_mesh_runner(name, shape,
+                                                     monkeypatch):
+    """Two chunks through the mesh graph runner (a capture a shard,
+    replayed) and the eager mesh runner from one carry and one generator
+    seed: carry, traces, the run generator's state and every shard
+    generator's bit-equal after each chunk."""
+    case = _case(name)
+    graphs.COUNTS.reset()
+    eager, graph = _runners(case, shape, monkeypatch)
+    k = shape[0]
+    assert eager.runner == "eager" and graph.runner == "graph"
+    assert len(graph.homes) == len(graph.epoch_fns) == k
+    ge, gg = (torch.Generator().manual_seed(5) for _ in range(2))
+    ce = cg = case.t_carry
+    lengths = (3, 2) if name == "classification" else (3, 3)
+    for (eps, leap), n in zip((case.a, case.b), lengths):
+        ce, te = eager(ce, eps, leap, n, ge)
+        cg, tg = graph(cg, eps, leap, n, gg)
+        _equal(cg, ce, "carry")
+        _equal(tg, te, "trace")
+        assert graph.generators[0] is gg
+        for g in graph.generators:
+            assert torch.equal(g.get_state(), ge.get_state())
+    counts = graphs.COUNTS.as_dict()
+    assert (counts["captures"], counts["warmups"]) == (k, k), counts
+    replays = 2 if graph.whole else sum(lengths)
+    assert counts["replays"] == k * replays, counts
+    assert tg.theta.shape == (lengths[1],) + tuple(case.t_carry.theta.shape)
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("name", MODES)
+def test_shard_body_matches_jax(name, shard, monkeypatch):
+    """Each shard's body of the 2x1 mesh graph runner against the JAX
+    package's epochs on that shard's chains, fed the JAX package's own
+    draws."""
+    case = _case(name)
+    _, graph = _runners(case, (2, 1), monkeypatch)
+    body_against_jax(case, graph.epoch_fns[shard], monkeypatch,
+                     shard=(shard, 2))
+
+
+@pytest.mark.parametrize("kinds,want", [
+    ((("H100", 132),) * 4, True),
+    ((("H100", 132),) * 3 + (("H100", 114),), False),
+    ((("H100", 132), ("A100", 108)), False),
+])
+def test_distinct_cards_take_graphs_if_alike(kinds, want, monkeypatch):
+    """On distinct cards the graph runner applies only where every card is
+    of one kind (name and multiprocessor count, which set the draws'
+    bits); a data axis above 1 stays eager whatever the cards."""
+    monkeypatch.setattr(graphs, "card_kind", lambda i: kinds[i])
+    cards = [torch.device("cuda", i) for i in range(len(kinds))]
+    assert graph_runner_applies(object(), Mesh([[d] for d in cards]),
+                                cards[0]) == want
+    if len(cards) % 2 == 0:
+        data = Mesh([cards[j:j + 2] for j in range(0, len(cards), 2)])
+        assert not graph_runner_applies(object(), data, cards[0])
+
+
+def test_tempered_mesh_runs_stay_eager():
+    """A tempered run needs a chains axis of 1: the factory refuses a 2x1
+    mesh before it builds anything, and the 1 x n meshes it takes have a
+    data axis above 1, where no graph applies."""
+    case = _case("tempered")
+    with pytest.raises(ValueError, match="chains axis to be 1"):
+        case.eager_runner(make_mesh(2, 1, devices=[CPU] * 2))
+    cuda = torch.device("cuda", 0)
+    assert not graph_runner_applies(object(), Mesh([[cuda, cuda]]), cuda)
+
+
+def test_resume_under_a_chains_mesh_on_the_graph_runner(tmp_path,
+                                                        monkeypatch):
+    """A run on the mesh graph runner (2x1) stopped at epoch 15 and
+    resumed by a fresh Network of the same seed under the same mesh
+    equals the uninterrupted run bit for bit, which equals the same run
+    on the eager mesh runner: the checkpoint stores the run generator's
+    state, where the replays leave it."""
+    kw = dict(n_chains=4, verbose=False, chain_jitter=0.05,
+              checkpoint_every=1)
+
+    def train(epochs, ckpt=None):
+        net, lik = _net()
+        return net.train(epochs, 2, lik, checkpoint_dir=ckpt,
+                         mesh=make_mesh(2, 1, devices=[CPU] * 2), **kw)
+
+    eager = train(30)
+    assert eager.main_path == "K1" and eager.chunk_runner == "eager"
+    _graphs_on_the_cpu(monkeypatch)
+    graphs.COUNTS.reset()
+    full = train(30)
+    assert full.chunk_runner == "graph" and graphs.COUNTS.replays > 0
+    ckpt = str(tmp_path / "ckpt")
+    assert train(15, ckpt).n_epochs == 15
+    res = train(30, ckpt)
+    assert res.resume_epoch == 15 and res.chunk_runner == "graph"
+    for name in ("theta_samples", "eta_samples"):
+        np.testing.assert_array_equal(getattr(res, name),
+                                      getattr(full, name))
+        np.testing.assert_array_equal(getattr(full, name),
+                                      getattr(eager, name))
+    for name in ("main_accept", "hyper_accept", "sjd", "leapfrog"):
+        np.testing.assert_array_equal(getattr(res, name),
+                                      getattr(full, name)[15:])
+        np.testing.assert_array_equal(getattr(full, name),
+                                      getattr(eager, name))
