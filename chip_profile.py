@@ -49,6 +49,17 @@ and prints its quality line (post-burn-in acceptance, the settled (eps,
 L), ESS of the predictive mean at the first input row per second of the
 run's wall) beside the TPU capture's statistics.
 
+Then ``pretrain`` (alone: ``python3 chip_profile.py pretrain``):
+``chip_smoke.pretrain_runners`` at the JAX bench's surrogate pretraining
+(1M x 8 points, 2 x 64 tanh, batch 8,192, 4 epochs) and at the
+tutorial's first cycle (784-20-20-1 with trained slopes, batch 32, 10
+epochs): the eager epochs and the graph of a step, bit-equal, each with
+a steady epoch's seconds, device ms by kernel, host launches and idle
+share, and the capture's seconds; then, at each shape, a graph of the
+whole epoch against the graph of a step: the seconds of each capture
+(the epoch's split into ``gc.collect``, recording and instantiation) and
+of each one's replayed epochs.
+
 Then ``K3 tutorial call``: one K3 call (value and gradient) at the
 tutorial-shaped classifier (784-20-20-1 with SquarePrelu, sigmoid and
 Bernoulli over 9,585 rows, 64 chains, 0.3 N(0, 1) weights), kernel by
@@ -75,6 +86,7 @@ classification, the mesh cells) run on the graph runner
 window; the others eagerly.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -262,6 +274,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["surrogate"]:
         surrogate_cell(dev, gen, card, full=argv[1:] == ["--full"])
         return 0
+    if argv[:1] == ["pretrain"]:
+        pretrain_cells(dev, card)
+        return 0
 
     n_rungs, n_cold = 4, 512
     ladder = make_ladder(n_rungs, 0.5)
@@ -324,9 +339,75 @@ def main(argv=None) -> int:
     if only is not None:
         return 0
     surrogate_cell(dev, gen, card)
+    pretrain_cells(dev, card)
     k3_call_breakdown(dev, gen, card)
     predict_breakdown(dev, card)
     return 0
+
+
+def pretrain_cells(dev, card):
+    """The two pretraining shapes of ``chip_smoke.pretrain_shapes`` through
+    both runners (``chip_smoke.pretrain_runners``), then the two graph
+    designs (``capture_designs``), a JSON line each."""
+    import chip_smoke as cs
+
+    x, y = cs.surrogate_data()
+    for label, run, epochs, n_batches in cs.pretrain_shapes(dev, x, y):
+        row, _ = cs.pretrain_runners(label, run, epochs, n_batches, card)
+        print(json.dumps({"cell": f"pretrain {label}", "card": card,
+                          **row}), flush=True)
+        print(json.dumps({"cell": f"pretrain capture {label}", "card": card,
+                          **capture_designs(run)}), flush=True)
+
+
+def capture_designs(run, reps=5) -> dict:
+    """Why pretraining captures a step and not its epoch: in a 2-epoch
+    call of ``run(epochs, eager, hook)``, at the one capture, a graph of
+    the whole epoch (the body's gather, every step and the validation
+    loss) in the steps of ``torch.cuda.graph`` (the ``gc.collect`` before
+    it, the recording, ``capture_end``'s instantiation) against the graph
+    of a step the trainer keeps, then ``reps`` epochs of each replayed
+    (host clock to the validation loss's read). The call's weights go on
+    training in these replays: its result is not used."""
+    from tensorbnn_tpu_torch.parallel import graphs
+
+    out = {}
+
+    class Measured(graphs.CudaGraph):
+        def __init__(self, fn, generator, device):
+            body = fn.__self__
+            whole = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gc.collect()
+            out["epoch_gc_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            with torch.cuda.device(device), \
+                    torch.cuda.stream(graphs._side_stream(device)):
+                whole.capture_begin(capture_error_mode="global")
+                t0 = time.perf_counter()
+                body.run(body.step)
+                out["epoch_record_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                whole.capture_end()
+                out["epoch_instantiate_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            super().__init__(fn, generator, device)
+            torch.cuda.synchronize()
+            out["step_capture_s"] = time.perf_counter() - t0
+            for name, epoch in (("epoch", whole.replay),
+                                ("step", lambda: body.run(self.replay))):
+                walls = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    epoch()
+                    float(body.val)
+                    walls.append(time.perf_counter() - t0)
+                out[f"{name}_graph_epoch_s"] = walls
+
+    run(2, False, None, graph_type=Measured)
+    return out
 
 
 def predict_breakdown(dev, card, reps=10):

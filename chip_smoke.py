@@ -87,10 +87,16 @@ script exits non-zero:
 9. MAP pretraining, the tensorBNN shim and the examples on the card, from
    generators of their own: pretraining at the JAX bench's surrogate shape
    (1M x 8 points, 2 x 64 tanh, batch 8,192, 4 epochs) and at the
-   tutorial's (784-20-20-1 with trained slopes over the tutorial-shaped
-   rows, batch 32, 3 cycles x 10 epochs), each with its seconds an epoch,
-   optimizer steps a second, launches a step and idle share, the
-   tutorial's first cycle held against the same call on the CPU;
+   tutorial's first cycle (784-20-20-1 with trained slopes over the
+   tutorial-shaped rows, batch 32, 10 epochs), each through the eager
+   epochs and the graph of a step (``eager=True`` and the default),
+   bit-equal (weights, biases, slopes, every epoch's validation loss),
+   each runner with its call's seconds, its capture's seconds, a steady
+   epoch's seconds, device ms, host launches and idle share; the
+   configured calls through ``train_basic_regression`` (the
+   surrogate's 4 epochs) and ``train_basic_classification`` (the
+   tutorial's 3 cycles x 10 epochs), one capture each, the tutorial's
+   first cycle held against the same call on the CPU;
    ``extended_regression --smoke`` (K1 + K2) and ``classification
    --smoke`` (K1) through their ``main``, held to the JAX examples'
    figures; the tutorial-shaped BNN warm-started from its pretraining, on
@@ -1172,59 +1178,202 @@ def host_loss(out, x, y, classification, tanh=False):
     return float(-np.mean(y * np.log(p) + (1 - y) * np.log1p(-p)))
 
 
-def pretrain_cell(label, run, cycles, epochs, n_batches, card) -> tuple:
-    """Times pretraining at one shape on the card. ``run(cycles, epochs)``
-    calls the entry point with the shape's configuration at ``cycles``
-    cycles of ``epochs`` epochs and returns its result. An epoch's wall is
-    that of the configured call less that of the same call with no epoch
-    (data to the card, init); launches a step and device time an epoch
-    come from ``torch.profiler`` over a one-epoch call less a no-epoch
-    call. Returns the configured call's result and the statistics."""
-    def wall(c, e):
+def first_difference(got, want):
+    """The first of two ``(weights, biases, activations)`` results whose
+    arrays differ in their bits, as ``(name, largest difference)``, or
+    None."""
+    for part, g_list, w_list in zip(("weights", "biases", "activations"),
+                                    got, want):
+        for i, (g, w) in enumerate(zip(g_list, w_list)):
+            g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+            if not np.array_equal(g.view(np.uint32), w.view(np.uint32)):
+                return (f"{part}[{i}]", float(np.max(np.abs(
+                    g.astype(np.float64) - w))))
+    return None
+
+
+class EpochClock:
+    """A pretraining epoch hook: each epoch's validation loss and the host
+    clock after it (the loss was read from the card, so the epoch's work
+    is done); with ``profiled=(first, n)``, ``torch.profiler`` records
+    epochs ``first`` to ``first + n - 1`` (from 0) into ``events``."""
+
+    def __init__(self, profiled=None):
+        self.vals, self.times, self.events = [], [time.perf_counter()], None
+        self.profiled, self.prof = profiled, None
+
+    def __call__(self, val: float) -> None:
+        self.vals.append(val)
+        self.times.append(time.perf_counter())
+        if self.profiled is None:
+            return
+        first, n = self.profiled
+        if len(self.vals) == first:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+        elif len(self.vals) == first + n:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+                path = os.path.join(tmp, "trace.json")
+                self.prof.export_chrome_trace(path)
+                with open(path) as f:
+                    self.events = [e for e in json.load(f)["traceEvents"]
+                                   if "dur" in e]
+
+    def epoch_s(self, first: int) -> list:
+        """The seconds of each epoch from ``first`` on."""
+        return list(np.diff(self.times)[first:])
+
+
+#: pretraining's steady epochs start at the third: the graph path's first
+#: is its warm-up, its second holds the capture
+PRETRAIN_STEADY_FROM = 2
+
+
+def pretrain_runners(label, run, epochs, n_batches, card) -> tuple:
+    """One cycle of ``epochs`` epochs at one shape through the eager epoch
+    and the graph of a step: ``run(epochs, eager, hook)`` calls
+    ``_train_mlp`` with the shape's configuration and ``epoch_hook=hook``.
+    Raises unless the two give the same bits (every returned array, every
+    epoch's validation loss, the epochs run). For each runner: the call's
+    seconds, its capture's seconds, the seconds of each steady epoch (from
+    the third: the graph's first is its warm-up and its second holds the
+    capture; the host clock between epochs) and, from ``torch.profiler``
+    over two steady epochs of a 4-epoch call, a steady epoch's device ms
+    (the sum of its device events; the six largest by name), device ops,
+    host launches (kernel and graph launches, copies and fills) and idle
+    share (1 - device ms / the mean steady epoch). Returns the rows and
+    the graph runner's result."""
+    from tensorbnn_tpu_torch.parallel import graphs
+
+    row, results = {"epochs": epochs, "steps_per_epoch": n_batches}, {}
+    for kind in ("eager", "graph"):
+        eager = kind == "eager"
+        graphs.COUNTS.reset()
+        clock = EpochClock()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = run(c, e)
+        res = run(epochs, eager, clock)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        call_s = time.perf_counter() - t0
+        counts = graphs.COUNTS.as_dict()
+        results[kind] = (res, clock.vals)
+        steady = clock.epoch_s(PRETRAIN_STEADY_FROM)
+        epoch_s = float(np.mean(steady))
+        prof = EpochClock(profiled=(PRETRAIN_STEADY_FROM, 2))
+        run(PRETRAIN_STEADY_FROM + 2, eager, prof)
+        dev_events = device_events(None, events=prof.events)
+        device_s = sum(float(e["dur"]) for e in dev_events) / 2e6
+        # a steady epoch's device time by kernel or copy
+        top = {}
+        for e in dev_events:
+            ms, n = top.get(e["name"][:60], (0.0, 0))
+            top[e["name"][:60]] = (ms + float(e["dur"]) / 2e3, n + 0.5)
+        row[kind] = {
+            "call_s": call_s, "epoch_s": epoch_s, "steady_epoch_s": steady,
+            "first_epochs_s": clock.epoch_s(0)[:PRETRAIN_STEADY_FROM],
+            "steps_per_sec": n_batches / epoch_s,
+            "device_ms_per_epoch": 1e3 * device_s,
+            "idle_share": 1.0 - device_s / epoch_s,
+            "host_launches_per_epoch": host_launches(prof.events) / 2,
+            "device_ops_per_epoch": len(dev_events) / 2,
+            "captures": counts["captures"],
+            "capture_s": [ms / 1e3 for ms in counts["capture_ms"]],
+            "top_device_ms_and_ops_per_epoch": [
+                [name, ms, n] for name, (ms, n) in sorted(
+                    top.items(), key=lambda kv: -kv[1][0])[:6]]}
+        r = row[kind]
+        print(f"pretraining, {label}, {kind} epochs: the call "
+              f"({epochs} epochs) {call_s:.4f} s, the set-up and first "
+              f"epoch, the second "
+              f"{', '.join(f'{t:.4f}' for t in r['first_epochs_s'])} s, "
+              f"captures {r['captures']} "
+              f"({', '.join(f'{t:.4f}' for t in r['capture_s']) or '-'} s);"
+              f" a steady epoch {epoch_s:.4f} s ({min(steady):.4f}-"
+              f"{max(steady):.4f}; {r['steps_per_sec']:,.1f} optimizer "
+              f"steps/sec), device {r['device_ms_per_epoch']:.3f} ms in "
+              f"{r['device_ops_per_epoch']:.1f} ops, idle share "
+              f"{r['idle_share']:.4f}, {r['host_launches_per_epoch']:.1f} "
+              f"host launches ({card})", flush=True)
+    (g_res, g_vals), (e_res, e_vals) = results["graph"], results["eager"]
+    diff = first_difference(g_res, e_res)
+    if diff is not None or g_vals != e_vals:
+        raise AssertionError(
+            f"pretraining, {label}: the graph and the eager epochs differ: "
+            f"first differing tensor {diff}; validation losses graph "
+            f"{g_vals}, eager {e_vals}")
+    if row["graph"]["captures"] != 1 or row["eager"]["captures"]:
+        raise AssertionError(f"pretraining, {label}: expected one capture "
+                             f"on the graph path alone: {row}")
+    row["bit_equal"], row["val_losses"] = True, g_vals
+    print(f"pretraining, {label}: graph and eager epochs bit-equal over "
+          f"{len(g_vals)} epochs (weights, biases, slopes, each epoch's "
+          f"validation loss, the last {g_vals[-1]:.8f}) ({card})",
+          flush=True)
+    return row, g_res
 
-    out, total_s = wall(cycles, epochs)
-    _, setup_s = wall(cycles, 0)
-    epoch_s = (total_s - setup_s) / (cycles * epochs)
-    one, none = (device_events(lambda e=e: run(1, e)) for e in (1, 0))
-    busy_s = (sum(float(e["dur"]) for e in one)
-              - sum(float(e["dur"]) for e in none)) / 1e6
-    # the epoch's device time by kernel (the set-up's few launches in)
-    kernels = {}
-    for e in one:
-        ms, n = kernels.get(e["name"][:60], (0.0, 0))
-        kernels[e["name"][:60]] = (ms + float(e["dur"]) / 1e3, n + 1)
-    top = [[name, ms, n / n_batches] for name, (ms, n) in sorted(
-        kernels.items(), key=lambda kv: -kv[1][0])[:6]]
-    stats = {"epoch_s": epoch_s, "steps_per_sec": n_batches / epoch_s,
-             "launches_per_step": (len(one) - len(none)) / n_batches,
-             "device_ms_per_epoch": 1e3 * busy_s,
-             "idle_share": 1.0 - busy_s / epoch_s, "call_s": total_s,
-             "setup_s": setup_s, "steps_per_epoch": n_batches,
-             "top_kernels_ms_per_epoch_and_launches_per_step": top}
-    print(f"pretraining, {label}: {epoch_s:.4f} s an epoch, "
-          f"{stats['steps_per_sec']:,.1f} optimizer steps/sec, "
-          f"{stats['launches_per_step']:.2f} launches a step "
-          f"(torch.profiler over one epoch), device "
-          f"{stats['device_ms_per_epoch']:.3f} ms an epoch, idle share "
-          f"{stats['idle_share']:.4f}; the call {total_s:.3f} s "
-          f"({cycles} x {epochs} epochs of {n_batches} steps, set-up "
-          f"{setup_s:.3f} s) ({card})", flush=True)
-    return out, stats
+
+def tutorial_pretrain_data():
+    """The tutorial's pretraining data: the tutorial-shaped rows and
+    labels, and the validation rows (MNIST's other 20% of 3s and 8s,
+    default_rng(15)) labelled by the same plane."""
+    tx, ty, plane = tutorial_data()
+    vx = np.random.default_rng(15).uniform(
+        size=(TUTORIAL_VAL_ROWS, 784)).astype(np.float32)
+    vy = ((vx - 0.5) @ plane > 0).astype(np.float32)
+    return tx, ty, vx, vy
+
+
+def pretrain_shapes(dev, x, y) -> list:
+    """Phase 9 (a)'s two shapes at one cycle, each ``(label, run, epochs,
+    steps an epoch)``: ``run(epochs, eager, hook, device=dev, **kw)`` calls
+    ``_train_mlp`` as ``train_basic_regression`` calls it for the JAX
+    bench's surrogate pretraining (over the surrogate's ``(x, y)``) and
+    as ``train_basic_classification`` calls it for the tutorial's first
+    cycle, with ``eager``, ``epoch_hook=hook`` and ``kw`` (such as a
+    ``graph_type``). The init is drawn on the host from the seed: the
+    same on every device."""
+    from tensorbnn_tpu_torch.training import pretrain
+
+    def surrogate(epochs, eager, hook, device=dev, **kw):
+        return pretrain._train_mlp(
+            2, SURROGATE_IN, 1, SURROGATE_WIDTH, 1, epochs, 0.1, x, y,
+            x[:4096], y[:4096], classification=False, base_lr=0.01,
+            batch_size=SURROGATE_BATCH, callbacks=False,
+            hidden_activation="tanh", device=device, eager=eager,
+            epoch_hook=hook, **kw)
+
+    tx, ty, vx, vy = tutorial_pretrain_data()
+
+    def tutorial(epochs, eager, hook, device=dev, **kw):
+        return pretrain._train_mlp(
+            2, 784, 1, 20, 1, epochs, 0.1, tx, ty, vx, vy,
+            classification=True, base_lr=0.001, patience=10,
+            train_slopes=True, device=device, eager=eager, epoch_hook=hook,
+            **kw)
+
+    return [(f"surrogate {SURROGATE_POINTS:,} x {SURROGATE_IN}, 2 x "
+             f"{SURROGATE_WIDTH} tanh, batch {SURROGATE_BATCH}", surrogate,
+             SURROGATE_EPOCHS, SURROGATE_POINTS // SURROGATE_BATCH),
+            (f"tutorial {TUTORIAL_ROWS:,} x 784, 20-20 leaky relu with "
+             f"slopes, batch 32, first cycle", tutorial, TUTORIAL_EPOCHS,
+             TUTORIAL_ROWS // 32)]
 
 
 def pretrain_phase(dev, card, x, y, reset_counts, read_counts) -> tuple:
     """Phase 9: MAP pretraining, the tensorBNN shim and the examples on the
     card, from generators of its own. (a) pretraining at the JAX bench's
-    surrogate shape and at the tutorial's, each timed (seconds an epoch,
-    optimizer steps a second, launches a step, idle share), the
-    tutorial's first cycle held against the same call on the CPU (same
-    init, same batches); (b) ``extended_regression --smoke`` and
-    ``classification --smoke`` through their ``main`` on the card, their
+    surrogate shape and at the tutorial's first cycle through the eager
+    epochs and the graph of a step, held bit for bit and timed
+    (``pretrain_runners``), then the configured calls through the public
+    entry points (one capture each), the tutorial's first cycle held
+    against the same call on the CPU (same init, same batches); (b)
+    ``extended_regression --smoke`` and ``classification --smoke``
+    through their ``main`` on the card, their
     launches counted and their figures held against the JAX examples'; (c)
     the tutorial-shaped BNN warm-started from (a)'s weights and slopes, on
     K3; (d) the reference-style shim script (the JAX shim's test script
@@ -1235,51 +1384,58 @@ def pretrain_phase(dev, card, x, y, reset_counts, read_counts) -> tuple:
     from tensorbnn_tpu_torch.examples import classification, \
         extended_regression
     from tensorbnn_tpu_torch.ops import _build
+    from tensorbnn_tpu_torch.parallel import graphs
     from tensorbnn_tpu_torch.training import pretrain
 
     out = {"card": card}
 
-    # (a) the surrogate's pretraining
-    def surrogate(cycles, epochs):
-        return surrogate_pretrain(dev, x, y, cycles, epochs)
-
-    res, out["surrogate"] = pretrain_cell(
-        f"surrogate {SURROGATE_POINTS:,} x {SURROGATE_IN}, 2 x "
-        f"{SURROGATE_WIDTH} tanh, batch {SURROGATE_BATCH}", surrogate, 1,
-        SURROGATE_EPOCHS, SURROGATE_POINTS // SURROGATE_BATCH, card)
+    # (a) one cycle of each shape through both runners, then the
+    # configured calls through the public entry points (graphs)
+    (s_label, surrogate, s_epochs, s_steps), \
+        (t_label, tutorial, t_epochs, t_steps) = pretrain_shapes(dev, x, y)
+    out["surrogate"], res = pretrain_runners(s_label, surrogate, s_epochs,
+                                             s_steps, card)
+    graphs.COUNTS.reset()
+    surrogate_warm = surrogate_pretrain(dev, x, y)
+    if first_difference(surrogate_warm, res) or graphs.COUNTS.captures != 1:
+        raise AssertionError("the surrogate's pretraining through "
+                             "train_basic_regression is not the graph "
+                             "runner's")
     # the fit against the data's noise floor (sd 0.1: an MSE of 0.01)
     out["surrogate"]["val_mse"] = host_loss(res, x[:4096], y[:4096], False,
                                             tanh=True)
     print(f"surrogate pretraining: validation MSE "
           f"{out['surrogate']['val_mse']:.5f} ({card})")
-    surrogate_warm = res
 
-    # the tutorial's pretraining
-    tx, ty, plane = tutorial_data()
-    vx = np.random.default_rng(15).uniform(
-        size=(TUTORIAL_VAL_ROWS, 784)).astype(np.float32)
-    vy = ((vx - 0.5) @ plane > 0).astype(np.float32)
-
-    def tutorial(cycles, epochs, device=dev):
-        # the init is drawn on the host from the seed: the same on every
-        # device
-        return pretrain.train_basic_classification(
-            2, 784, 1, 20, cycles, epochs, 0.1, tx, ty, vx, vy,
-            patience=10, train_slopes=True, device=device)
-
-    warm, out["tutorial"] = pretrain_cell(
-        f"tutorial {TUTORIAL_ROWS:,} x 784, 20-20 leaky relu with slopes, "
-        f"batch 32", tutorial, TUTORIAL_CYCLES, TUTORIAL_EPOCHS,
-        TUTORIAL_ROWS // 32, card)
-    # the first cycle on the card and on the CPU
-    first = {}
-    for label, device in (("card", dev), ("cpu", "cpu")):
-        t0 = time.perf_counter()
-        res = tutorial(1, TUTORIAL_EPOCHS, device=device)
-        wall_s = time.perf_counter() - t0
-        first[label] = {
-            "train_loss": host_loss(res, tx, ty, True),
-            "val_loss": host_loss(res, vx, vy, True), "wall_s": wall_s}
+    tx, ty, vx, vy = tutorial_pretrain_data()
+    out["tutorial"], card_res = pretrain_runners(t_label, tutorial, t_epochs,
+                                                 t_steps, card)
+    # the configured call (3 cycles) through the public entry point
+    graphs.COUNTS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = pretrain.train_basic_classification(
+        2, 784, 1, 20, TUTORIAL_CYCLES, TUTORIAL_EPOCHS, 0.1, tx, ty, vx, vy,
+        patience=10, train_slopes=True, device=dev)
+    torch.cuda.synchronize()
+    call = {"call_s": time.perf_counter() - t0, **graphs.COUNTS.as_dict()}
+    out["tutorial"]["configured_call"] = call
+    print(f"tutorial pretraining through train_basic_classification, "
+          f"{TUTORIAL_CYCLES} x {TUTORIAL_EPOCHS} epochs: "
+          f"{call['call_s']:.3f} s, {call['captures']} capture "
+          f"({call['capture_ms']} ms), {call['replays']} replays ({card})",
+          flush=True)
+    if call["captures"] != 1 or call["warmups"] != 1:
+        raise AssertionError(f"the tutorial's call: expected one warm-up "
+                             f"and one capture: {call}")
+    # the first cycle on the card (the graph's) and on the CPU
+    t0 = time.perf_counter()
+    cpu_res = tutorial(t_epochs, False, None, device="cpu")
+    first = {"card": {"wall_s": out["tutorial"]["graph"]["call_s"]},
+             "cpu": {"wall_s": time.perf_counter() - t0}}
+    for label, res in (("card", card_res), ("cpu", cpu_res)):
+        first[label].update(train_loss=host_loss(res, tx, ty, True),
+                            val_loss=host_loss(res, vx, vy, True))
         assert all(np.isfinite(a).all() for part in res for a in part)
     card_first, cpu_first = first["card"], first["cpu"]
     rel = {k: abs(card_first[k] - cpu_first[k]) / abs(cpu_first[k])
@@ -2327,15 +2483,16 @@ def mesh_graph_phase(dev, card) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only:
-    # phases 1, 2 and 10 / 11 / 12 / 13 alone (a quick check of that
-    # phase; no kernels line)
+    # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only /
+    # --pretrain-only: phases 1, 2 and 10 / 11 / 12 / 13 / 9 alone (a quick
+    # check of that phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
     mesh_graph_only = argv == ["--mesh-graph-only"]
+    pretrain_only = argv == ["--pretrain-only"]
     if argv and not (surrogate_only or mesh_only or graph_only
-                     or mesh_graph_only):
+                     or mesh_graph_only or pretrain_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -2407,13 +2564,17 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    if surrogate_only or mesh_only:
+    if surrogate_only or mesh_only or pretrain_only:
         x, y = surrogate_data()
-        warm = surrogate_pretrain(dev, x, y)
-        if surrogate_only:
+        if pretrain_only:
+            phase("9 pretraining, the shim and the examples on the card")
+            pretrain_phase(dev, card, x, y, reset_counts, read_counts)
+        elif surrogate_only:
+            warm = surrogate_pretrain(dev, x, y)
             phase("10 the 1M-point surrogate on the card")
             surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
         else:
+            warm = surrogate_pretrain(dev, x, y)
             phase("11 the mesh on the card")
             mesh_phase(dev, card, x, y, warm, reset_counts, read_counts)
         print(card)

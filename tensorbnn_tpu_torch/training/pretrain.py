@@ -8,25 +8,37 @@ parameters in the reference layout for warm starts of
 :class:`tensorbnn_tpu_torch.models.layers.GaussianDenseLayer` and friends
 through ``Network.add(layer, parameters=...)``.
 
-The JAX package runs an epoch as one jitted ``lax.scan``; here an epoch is
-eager torch on ``device`` (the CUDA card unless the caller names another):
-the data stays on the device, each epoch's permutation is moved there once
-and the batches gathered from it, and the one host read an epoch is the
-validation loss that early stopping needs. The update is optax's amsgrad
-written out (:func:`amsgrad_update`), which ``torch.optim.Adam(amsgrad=
-True)`` is not: optax keeps the running max of the bias-corrected second
-moment, torch the max of the raw one. The initial weights come from a
-``torch.Generator`` seeded by ``seed`` (the JAX package draws them from
-``jax.random``, which torch cannot reproduce); ``_train_mlp``'s
-``init_params`` takes given ones instead.
+The JAX package runs an epoch as one jitted ``lax.scan`` over the batches;
+here an epoch is one body (``_EpochBody``) over static buffers on
+``device`` (the CUDA card unless the caller names another): the data stays
+on the device, each epoch's permutation is copied into a device buffer
+(from pinned memory on the card) and the batches gathered from it, the
+optimizer step reads its batch through a device index, the amsgrad state
+(moments, step count, learning rate) lives in device tensors that each
+cycle refills in place, and the epoch ends with the validation loss, the
+one host read an epoch, which early stopping needs. On a CUDA device the
+first epoch of a call runs eagerly and every step after it replays one
+captured CUDA graph of the step (``parallel/graphs.py::StepGraph``; a
+graph of a step captures in milliseconds where one of a whole epoch took
+seconds, and replays as fast); on the CPU every epoch runs eagerly. Both
+run the same operations on the same buffers, so they give the same bits.
+The update is optax's amsgrad written out (:func:`amsgrad_update`), which
+``torch.optim.Adam(amsgrad=True)`` is not: optax keeps the running max of
+the bias-corrected second moment, torch the max of the raw one. The
+initial weights come from a ``torch.Generator`` seeded by ``seed`` (the
+JAX package draws them from ``jax.random``, which torch cannot
+reproduce); ``_train_mlp``'s ``init_params`` takes given ones instead.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from tensorbnn_tpu_torch.parallel import graphs
 
 #: optax.amsgrad's defaults: b1, b2, eps (eps_root is 0)
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -71,28 +83,42 @@ def _mlp_apply(dense, slopes, x, alpha: float, final_sigmoid: bool,
     return x
 
 
-def amsgrad_init(params: Sequence[torch.Tensor]) -> dict:
-    """Zero moments for :func:`amsgrad_update`."""
-    return {"count": 0,
-            **{k: [torch.zeros_like(p) for p in params]
-               for k in ("mu", "nu", "nu_max")}}
+def amsgrad_init(params: Sequence[torch.Tensor], lr: float = 0.0,
+                 state: Optional[dict] = None) -> dict:
+    """Zero moments and step count for :func:`amsgrad_update` at learning
+    rate ``lr``; the count and ``lr`` are float32 scalars on the
+    parameters' device. Given ``state`` (of the same parameters), fills it
+    in place and returns it: a captured graph keeps the addresses it
+    read."""
+    if state is None:
+        dev = params[0].device
+        return {"count": torch.zeros((), dtype=torch.float32, device=dev),
+                "lr": torch.full((), lr, dtype=torch.float32, device=dev),
+                **{k: [torch.zeros_like(p) for p in params]
+                   for k in ("mu", "nu", "nu_max")}}
+    state["count"].zero_()
+    state["lr"].fill_(lr)
+    for k in ("mu", "nu", "nu_max"):
+        torch._foreach_zero_(state[k])
+    return state
 
 
 @torch.no_grad()
 def amsgrad_update(params: Sequence[torch.Tensor],
-                   grads: Sequence[torch.Tensor], state: dict,
-                   lr: float) -> None:
+                   grads: Sequence[torch.Tensor], state: dict) -> None:
     """One ``optax.amsgrad(lr)`` step, in place, in optax's order of
     operations: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``,
     bias-corrected ``mu_hat`` and ``nu_hat``, ``nu_max = max(nu_max,
     nu_hat)``, ``p += -lr * mu_hat / (sqrt(nu_max) + eps)``. Multi-tensor
-    (``torch._foreach_*``) ops, so a step is a fixed ~15 launches whatever
-    the number of parameter tensors."""
-    state["count"] += 1
-    t = np.float32(state["count"])
-    # the bias corrections in float32, as optax computes 1 - decay**count
-    bc1 = float(np.float32(1) - np.float32(_B1) ** t)
-    bc2 = float(np.float32(1) - np.float32(_B2) ** t)
+    (``torch._foreach_*``) ops, so a step is a fixed ~20 launches whatever
+    the number of parameter tensors. The count, the bias corrections and
+    ``lr`` are device scalars, so the step reads nothing from the host and
+    a graph of it runs at any count and rate."""
+    count = state["count"]
+    count.add_(1)
+    # the bias corrections 1 - decay**count in float32, as optax's
+    bc1 = 1 - torch.pow(_B1, count)
+    bc2 = 1 - torch.pow(_B2, count)
     mu, nu, nu_max = state["mu"], state["nu"], state["nu_max"]
     torch._foreach_mul_(mu, _B1)
     torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - _B1))
@@ -104,24 +130,71 @@ def amsgrad_update(params: Sequence[torch.Tensor],
     denom = torch._foreach_sqrt(nu_max)
     torch._foreach_add_(denom, _EPS)
     update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-    torch._foreach_mul_(update, -lr)
-    torch._foreach_add_(params, update)
+    # p - lr u: the bits of p + (-lr) u
+    torch._foreach_mul_(update, state["lr"])
+    torch._foreach_sub_(params, update)
 
 
-def _epoch(params: List[torch.Tensor], state: dict, bx: torch.Tensor,
-           by: torch.Tensor, lr: float, loss_fn) -> List[torch.Tensor]:
-    """One pass over the batches ``bx (B, rows, in)``, ``by (B, rows,
-    out)``: a gradient and an amsgrad step each. Returns the batch losses
-    as device scalars (nothing is read back)."""
-    losses = []
-    for i in range(bx.shape[0]):
-        loss = loss_fn(params, bx[i], by[i])
+class _EpochBody:
+    """One epoch of the JAX ``run_epoch`` over static buffers on the data's
+    device: ``fill`` writes an epoch's permutation, ``run(step)`` gathers
+    the batches into ``bx (B, rows, in)`` and ``by (B, rows, out)``, calls
+    ``step`` once a batch and ends with the validation loss in ``val``.
+    ``step`` (the body's own, or a replay of a graph of it) takes batch
+    ``i`` (a device index, which it advances), its gradient and an amsgrad
+    step (``state``), and keeps its loss in ``losses (B,)``; it reads
+    nothing from the host, so one graph of it replays every step of every
+    epoch and cycle (each cycle refills ``state`` in place:
+    ``amsgrad_init(..., state=)``)."""
+
+    def __init__(self, params: List[torch.Tensor], loss_fn, x, y, xv, yv,
+                 n_batches: int, batch_size: int):
+        dev = x.device
+        self.params, self.loss_fn = params, loss_fn
+        self.x, self.y, self.xv, self.yv = x, y, xv, yv
+        self.n_batches = n_batches
+        # n_batches * batch_size rows, or all of them if there are fewer
+        n = min(x.shape[0], n_batches * batch_size)
+        self.perm = torch.empty(n, dtype=torch.int64, device=dev)
+        # pinned on the card: the copy is asynchronous, ordered after the
+        # epoch that read the last permutation
+        self.host_perm = torch.empty(n, dtype=torch.int64,
+                                     pin_memory=dev.type == "cuda")
+        self.bx, self.by = (torch.empty((n_batches, n // n_batches,
+                                         a.shape[1]), dtype=a.dtype,
+                                        device=dev) for a in (x, y))
+        self.i = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.losses = torch.empty(n_batches, dtype=torch.float32, device=dev)
+        self.val = torch.empty((), dtype=torch.float32, device=dev)
+        self.state = amsgrad_init(params)
+
+    def fill(self, perm: np.ndarray) -> None:
+        """Copies an epoch's permutation into the device buffer. The
+        caller reads the last epoch's ``val`` first, which orders this
+        write after the copy that read the pinned buffer before."""
+        self.host_perm.numpy()[:] = perm
+        self.perm.copy_(self.host_perm, non_blocking=True)
+
+    def run(self, step) -> None:
+        for a, out in ((self.x, self.bx), (self.y, self.by)):
+            torch.index_select(a, 0, self.perm, out=out.view(-1, a.shape[1]))
+        self.i.zero_()
+        for _ in range(self.n_batches):
+            step()
+        with torch.no_grad():
+            self.val.copy_(self.loss_fn(self.params, self.xv, self.yv))
+
+    def step(self) -> None:
+        bx = torch.index_select(self.bx, 0, self.i)[0]
+        by = torch.index_select(self.by, 0, self.i)[0]
+        loss = self.loss_fn(self.params, bx, by)
         # slopes a tanh stack never reads get zero gradients, as in JAX
-        grads = torch.autograd.grad(loss, params, allow_unused=True,
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True,
                                     materialize_grads=True)
-        amsgrad_update(params, grads, state, lr)
-        losses.append(loss.detach())
-    return losses
+        amsgrad_update(self.params, grads, self.state)
+        with torch.no_grad():
+            self.losses.index_copy_(0, self.i, loss.reshape(1))
+            self.i.add_(1)
 
 
 def _train_mlp(hidden: int, input_dims: int, output_dims: int, width: int,
@@ -132,11 +205,24 @@ def _train_mlp(hidden: int, input_dims: int, output_dims: int, width: int,
                callbacks: bool = True, verbose: bool = False,
                train_slopes: bool = False,
                hidden_activation: str = "leakyrelu", device="cuda",
-               init_params: Optional[Sequence] = None):
+               init_params: Optional[Sequence] = None, graph_type=None,
+               eager: bool = False,
+               epoch_hook: Optional[Callable[[float], None]] = None):
     """The trainer behind both public entry points (JAX ``_train_mlp``).
     ``init_params``, a sequence of ``(w (in, out), b (out,))`` array
-    pairs, replaces the glorot draw (slopes still start at ``alpha``)."""
+    pairs, replaces the glorot draw (slopes still start at ``alpha``).
+    Every epoch after a call's first runs its steps as replays of one
+    graph of a step captured by ``graph_type`` (None: ``graphs.CudaGraph``
+    on a CUDA device; on the CPU every epoch runs eagerly; the CPU tests
+    give a stand-in); ``eager=True`` runs every epoch eagerly on any
+    device.
+    ``epoch_hook`` is called after each epoch with its validation loss
+    (read on the host, so the epoch's work on the device is done)."""
     dev = _device(device)
+    if eager:
+        graph_type = None
+    elif graph_type is None and dev.type == "cuda":
+        graph_type = graphs.CudaGraph
     dtype = torch.float32
 
     def put(a, cols):
@@ -177,30 +263,42 @@ def _train_mlp(hidden: int, input_dims: int, output_dims: int, width: int,
 
     n = x.shape[0]
     n_batches = max(n // batch_size, 1)
+    body = _EpochBody(params, loss_fn, x, y, xv, yv, n_batches, batch_size)
+    run_epoch = (functools.partial(body.run, body.step)
+                 if graph_type is None
+                 else graphs.StepGraph(body.run, body.step, dev, graph_type))
+    best = [p.detach().clone() for p in params] if callbacks else None
 
     for cycle in range(cycles):
-        lr = base_lr * (10.0 ** (-cycle))
-        state = amsgrad_init(params)
+        amsgrad_init(params, base_lr * (10.0 ** (-cycle)), body.state)
         best_val = float("inf")
-        best = [p.detach().clone() for p in params] if callbacks else None
+        if callbacks:
+            torch._foreach_copy_(best, [p.detach() for p in params])
         strikes = 0
         rng = np.random.default_rng(seed + cycle)
+        perm = None
         for epoch in range(epochs):
-            perm = torch.as_tensor(
-                rng.permutation(n)[: n_batches * batch_size]).to(dev)
-            bx = x[perm].reshape(n_batches, -1, input_dims)
-            by = y[perm].reshape(n_batches, -1, output_dims)
-            losses = _epoch(params, state, bx, by, lr, loss_fn)
-            with torch.no_grad():
-                val_loss = float(loss_fn(params, xv, yv))
+            if perm is None:
+                perm = rng.permutation(n)
+            body.fill(perm[: n_batches * batch_size])
+            run_epoch()
+            # one permutation an epoch, as the JAX trainer draws: the next
+            # epoch's is drawn while the card runs this one where this one
+            # cannot end the cycle, else after its validation loss
+            go_on = epoch + 1 < epochs and (not callbacks
+                                            or strikes + 1 < patience)
+            perm = rng.permutation(n) if go_on else None
+            val_loss = float(body.val)
+            if epoch_hook is not None:
+                epoch_hook(val_loss)
             if val_loss < best_val:
                 best_val, strikes = val_loss, 0
                 if callbacks:
-                    best = [p.detach().clone() for p in params]
+                    torch._foreach_copy_(best, [p.detach() for p in params])
             else:
                 strikes += 1
             if verbose and epoch % 20 == 0:
-                train_loss = float(torch.stack(losses).mean())
+                train_loss = float(body.losses.mean())
                 print(f"cycle {cycle} epoch {epoch}: "
                       f"train {train_loss:.5f} val {val_loss:.5f}")
             if callbacks and strikes >= patience:

@@ -13,7 +13,8 @@ on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
 the mesh; and the graph chunk runner against the eager runner, without a
 mesh and on chains-only meshes (a graph a chain shard); each mesh test on
 a mesh of this card repeated and on one of distinct cards (which skips on
-a machine with fewer).
+a machine with fewer); and MAP pretraining, its optimizer steps as
+replays of one captured graph, against its eager epochs.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -1143,3 +1144,97 @@ def test_mesh_graph_runs_leave_no_memory_behind(device, layout):
         torch.cuda.synchronize()
         held.append([torch.cuda.memory_allocated(i) for i in cards])
     assert held[1] == held[0] and held[2] == held[0], held
+
+
+# MAP pretraining: an epoch a replay of one captured graph ----------------
+
+def _pretrain_case(case):
+    """``_train_mlp``'s positional and keyword arguments: a regression
+    whose validation curve is the training curve mirrored (its loss
+    rises, so patience 2 stops both cycles early), or a classification
+    with trained slopes."""
+    rng = np.random.default_rng(4)
+    if case == "regression":
+        x = np.linspace(-2, 2, 256)
+        y = np.sin(np.pi * x) * x
+        return ((2, 1, 1, 16, 2, 12, 0.1, x, y, x, -y),
+                dict(classification=False, base_lr=0.01, patience=2,
+                     batch_size=16))
+    x = rng.normal(size=(320, 4)).astype(np.float32)
+    y = (x[:, 0] * x[:, 1] + x[:, 2] > 0).astype(np.float32)
+    return ((2, 4, 1, 12, 2, 5, 0.1, x[:256], y[:256], x[256:], y[256:]),
+            dict(classification=True, base_lr=0.001, train_slopes=True,
+                 batch_size=32))
+
+
+def _host_launches_per_epoch(run) -> float:
+    """The host's calls that put work on the card (kernel and graph
+    launches, copies and fills) an epoch, from ``torch.profiler`` over
+    epochs 2 and 3 of ``run(epoch_hook)``, a 4-epoch call: after the
+    graph path's warm-up epoch and capture, which are not profiled."""
+    names = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    seen = []
+
+    def hook(val):
+        seen.append(val)
+        if len(seen) in (2, 4):
+            torch.cuda.synchronize()
+            (prof.start if len(seen) == 2 else prof.stop)()
+
+    run(hook)
+    assert len(seen) == 4
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and any(k in e.name for k in names)) / 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["regression", "classification_slopes"])
+def test_pretraining_graph_matches_eager_on_the_card(device, case):
+    """Two cycles through the graph path (every optimizer step after the
+    first epoch a replay of one captured graph of a step) and the eager
+    path: every returned array bit for bit, every epoch's validation loss
+    and the epochs run (the regression stops both cycles early); one
+    capture a call, a replay a step; the graph path's host launches an
+    epoch at most its steps and 40 (the eager path's over 5 times as
+    many)."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.training.pretrain import _train_mlp
+    args, kw = _pretrain_case(case)
+    out = {}
+    for eager in (True, False):
+        graphs.COUNTS.reset()
+        vals = []
+        res = _train_mlp(*args, seed=1, device=device, eager=eager,
+                         epoch_hook=vals.append, **kw)
+        out[eager] = (res, vals, graphs.COUNTS.as_dict())
+    (g_res, g_vals, g_counts), (e_res, e_vals, e_counts) = (out[False],
+                                                            out[True])
+    assert g_vals == e_vals and all(np.isfinite(g_vals))
+    if case == "regression":
+        assert len(g_vals) < 2 * args[5], len(g_vals)   # stopped early
+    for g_part, e_part in zip(g_res, e_res):
+        for g, e in zip(g_part, e_part):
+            np.testing.assert_array_equal(
+                np.asarray(g, np.float32).view(np.uint32),
+                np.asarray(e, np.float32).view(np.uint32))
+    n_batches = len(args[7]) // kw["batch_size"]
+    assert (g_counts["warmups"], g_counts["captures"],
+            g_counts["replays"]) == (1, 1, (len(g_vals) - 1) * n_batches), \
+        g_counts
+    assert e_counts["captures"] == 0
+    one = dict(kw, patience=100)
+
+    def run(eager):
+        return lambda hook: _train_mlp(*args[:4], 1, 4, *args[6:], seed=1,
+                                       device=device, eager=eager,
+                                       epoch_hook=hook, **one)
+
+    graph_launches = _host_launches_per_epoch(run(False))
+    eager_launches = _host_launches_per_epoch(run(True))
+    assert graph_launches <= n_batches + 40, graph_launches
+    assert eager_launches > 5 * graph_launches, (eager_launches,
+                                                 graph_launches)
