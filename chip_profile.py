@@ -10,7 +10,13 @@ picks:
   (1e-3, 100), 100 hyper steps per epoch: K1 + K2;
 - ``wide_deep``: 10x256 tanh over 128 rows, learned sd, 64 chains,
   (eps, L) = (1e-5, 20), 5 hyper steps per epoch (the JAX bench's shape,
-  hyper step 1e-4): K3 + K2;
+  hyper step 1e-4): K3 + K2, on the stepped runner and (``wide_deep
+  eager``) on the eager one;
+- ``tutorial 64``: the tutorial-shaped classifier
+  (``chip_smoke.tutorial_network``: 784-20-20-1 SquarePrelu, sigmoid,
+  Bernoulli over 9,585 rows, the Network's init), 64 chains at (eps, L) =
+  (1e-3, 50), 30 hyper steps from 1e-4: K3 and the plain hyper block, on
+  the stepped runner and (``tutorial 64 eager``) on the eager one;
 - ``tempered``: the flagship's tempered quality block, 512 chains x 4
   rungs at beta_min 0.5 (2,048 replicas), per-chain (eps, L) = (2e-3, 50)
   (``ess_run``'s start), 30 hyper steps from 1e-3: tempered K1 + K2, then
@@ -82,8 +88,10 @@ host's launches (kernel and graph launches, copies and fills), and the
 idle share, 1 - busy / median wall. One JSON line per cell, with the
 runner that ran it: the K1 cells (flagship, tempered, U-turn,
 classification, the mesh cells) run on the graph runner
-(parallel/graphs.py), whose captures happen in the warm-up, before any
-window; the others eagerly.
+(parallel/graphs.py), the K3 and plain-path cells (``wide_deep``, the
+tutorial, the surrogate) on the stepped runner, whose captures happen in
+the warm-up, before any window; the cells named ``eager`` on the eager
+runner.
 """
 
 import gc
@@ -104,7 +112,7 @@ GROUPS = (("K1", ("trajectory_kernel",)), ("K2", ("hyper_kernel",)),
           ("K3", ("gemm_kernel", "tail_kernel", "slope_grad_kernel",
                   "slice_sum_kernel")))
 #: kernels listed by name, the most expensive first
-TOP_KERNELS = 8
+TOP_KERNELS = 16
 
 
 def group_of(name: str) -> str:
@@ -258,7 +266,8 @@ def main(argv=None) -> int:
         return 2
 
     from chip_smoke import card_line, chunk_runner, \
-        classification_network, flagship_network, wide_network
+        classification_network, flagship_network, tutorial_network, \
+        wide_network
     from tensorbnn_tpu_torch.parallel.mesh import make_mesh
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
@@ -294,6 +303,12 @@ def main(argv=None) -> int:
              (10, 50, 20), False, 256, False, four),
             ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
              False, 64, False, None),
+            ("wide_deep eager", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
+             False, 64, False, None),
+            ("tutorial 64", tutorial_network, 1e-3, 50, 30, 1e-4, (1, 3, 2),
+             False, 64, False, None),
+            ("tutorial 64 eager", tutorial_network, 1e-3, 50, 30, 1e-4,
+             (1, 3, 2), False, 64, False, None),
             ("tempered 512 x 4", flagship_network,
              np.full(fleet, 2e-3, np.float32), np.full(fleet, 50), 30, 1e-3,
              (10, 50, 20), True, fleet, False, None),
@@ -314,7 +329,8 @@ def main(argv=None) -> int:
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
         run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
                            tempering_beta if temper else None,
-                           record_uturn=uturn, mesh=mesh)
+                           record_uturn=uturn, mesh=mesh,
+                           eager=name.endswith("eager"), n_chains=chains)
         carry = init_multichain_state(flat.theta, flat.eta, hyper_eps,
                                       chains, gen, jitter=0.01)
         glue = None

@@ -135,15 +135,27 @@ script exits non-zero:
    two chunks whose (eps, L) differ, bit-equal (carry, traces, the
    generator's state), then each runner's host ms an epoch over 200 steady
    epochs, the card's busy ms, the idle share, the host's launches an
-   epoch and the graph runner's captures with their ms, as a ``{"graph":
-   ...}`` line (``--graph-only`` runs phases 1, 2 and 12 alone);
-13. the graph runner over chains-only meshes of this card (a graph a
-   chain shard, parallel/graphs.py), which phase 11 (a) takes, against the
-   eager mesh runner: the flagship at 64 chains and the G = 4 block at 512
-   (one adapter group a shard) on 4x1, the U-turn block at 512 and
-   ``multiclass`` at 128 on 2x1, as phase 12 holds and times its cells
-   (bit-equal over two chunks, generator state included; host ms, busy
-   ms, idle share and host launches an epoch; captures, one a shard), as
+   epoch, each runner's peak memory and the graph runner's captures with
+   their ms; and the stepped runner (a head, a step and a tail graph of
+   the epoch, the step replayed L times), which phases 6-11 take wherever
+   K3 or the plain path runs the main block on this card, against the
+   eager runner in the same way: ``wide_deep`` at 64 chains (K3, K2) with
+   a shared count and per-chain counts in four groups, the tutorial-shaped
+   classifier at 64 (K3, the plain hyper block at 30 steps), the 1M-point
+   surrogate at 32 under exact numerics (the plain path, Kahan,
+   ``data_chunk``, a diagonal metric) and under default numerics (K3
+   over 1M rows, its peak memory within 1.1x the eager runner's), each
+   with three captures, ``wide_deep`` within L + 10 host launches an
+   epoch; as a ``{"graph": ...}`` line (``--graph-only`` runs phases 1, 2
+   and 12 alone);
+13. the graph runners over chains-only meshes of this card (a graph a
+   chain shard, the stepped runner's three; parallel/graphs.py), which
+   phase 11 (a) takes, against the eager mesh runner: the flagship at 64
+   chains and the G = 4 block at 512 (one adapter group a shard) on 4x1,
+   the U-turn block at 512, ``multiclass`` at 128 and ``wide_deep`` at 64
+   (stepped) on 2x1, as phase 12 holds and times its cells (bit-equal
+   over two chunks, generator state included; host ms, busy ms, idle
+   share and host launches an epoch; captures, one a shard or three), as
    a ``{"mesh_graph": ...}`` line (``--mesh-graph-only`` runs phases 1, 2
    and 13 alone).
 
@@ -343,10 +355,18 @@ MESH_ACCEPT_TOL = 0.05
 MESH_PREDICT_TOL = 1e-6
 # phase 12: the steady epochs each runner is timed over in each K1 cell
 GRAPH_STEADY = 200
+# phase 12's stepped cells: wide_deep's per-chain (eps, L) in four groups
+# of 16 chains; the host launches an epoch the stepped runner may issue
+# at wide_deep over L (head and tail replays and the trace's row copies);
+# the default-numerics surrogate's peak memory over the eager runner's
+WIDE_GROUPS = ((1e-5, 20), (5e-6, 25), (2e-5, 15), (1e-5, 10))
+STEPPED_LAUNCHES_OVER_L = 10
+STEPPED_PEAK_OVER_EAGER = 1.1
 # phase 13: the cells of phase 12 that run over a chains-only mesh of this
 # card, and its chains axis (the G = 4 block one adapter group a shard)
 MESH_GRAPH_CELLS = {"flagship 64": 4, "G = 4 512": 4,
-                    "U-turn 512 alternate": 2, "multiclass 128": 2}
+                    "U-turn 512 alternate": 2, "multiclass 128": 2,
+                    "wide_deep 64": 2}
 
 
 def phase(name):
@@ -559,7 +579,7 @@ def stack_network(device, n_blocks, learned_sd=False, seed=0):
 
 def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
                  record_uturn=False, eager=False, per_epoch_leapfrog=False,
-                 mesh=None):
+                 mesh=None, n_chains=None, data_chunk=None):
     """The chunk runner of ``(net, lik)`` with the kernels that
     ``sample_posterior`` picks (K1, else K3, for the main block; K2 for the
     hyper block where the stats layout applies, else the plain block),
@@ -567,10 +587,13 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
     tempered by ``tempering_beta = (K, per-chain betas)`` when given (K1's
     tempered program, never K3), recording U-turn steps with
     ``record_uturn`` (K1's recording program): the steady rates here and
-    the profile of chip_profile.py. It is the graph runner where one
-    applies (K1 on this card), unless ``eager``; ``per_epoch_leapfrog``
-    takes a U-turn run's per-epoch counts (the driver's) for a shared
-    one; over ``mesh`` (a chains-only one for K1) when given."""
+    the profile of chip_profile.py. It is a graph runner where one
+    applies (K1's graph of the chunk, else the stepped runner, on this
+    card), unless ``eager``; ``per_epoch_leapfrog`` takes a U-turn run's
+    per-epoch counts (the driver's) for a shared one; over ``mesh`` (a
+    chains-only one) when given; ``n_chains`` the fleet the stepped
+    runner's workspace gate is decided for (None: not gated);
+    ``data_chunk`` the stats potential's row chunks."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
@@ -592,7 +615,8 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
         hyper_step_size_init=hyper_eps, eta_dim=h, batched_main_traj=traj,
         batched_main_vg=vg, batched_hyper_traj=hyper,
         tempering_beta=tempering_beta, record_uturn=record_uturn,
-        per_epoch_leapfrog=per_epoch_leapfrog, eager=eager, mesh=mesh)
+        per_epoch_leapfrog=per_epoch_leapfrog, eager=eager, mesh=mesh,
+        n_chains=n_chains, data_chunk=data_chunk)
 
 
 def rung_groups(c, n_rungs=4):
@@ -1656,9 +1680,11 @@ def surrogate_network(dev, x, y, warm, burnin, precision=None):
     return net, GaussianLikelihood(sd=0.1)
 
 
-def surrogate_runner(net, lik, flat, model, data_chunk, compensated):
+def surrogate_runner(net, lik, flat, model, data_chunk, compensated,
+                     eager=False, n_chains=None):
     """The chunk runner ``sample_posterior`` builds for the surrogate on
-    the plain path (``model`` with the preset's precisions)."""
+    the plain path (``model`` with the preset's precisions): the stepped
+    runner on the card, unless ``eager``."""
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
     return make_multichain_chunk_runner(
@@ -1668,7 +1694,7 @@ def surrogate_runner(net, lik, flat, model, data_chunk, compensated):
         burnin=float(net.config.burnin),
         hyper_step_size_init=SURR_MCMC["hyper_step_size"],
         eta_dim=flat.eta.numel(), data_chunk=data_chunk,
-        compensated=compensated)
+        compensated=compensated, eager=eager, n_chains=n_chains)
 
 
 def last_state(res, dev, c=None):
@@ -2357,17 +2383,87 @@ def graph_cells(dev):
     ]
 
 
+def stepped_cells(dev, warm=None):
+    """Phase 12's cells on the stepped runner (K3 or the plain main block:
+    a head, a step and a tail graph an epoch, the step replayed L times):
+    ``wide_deep`` at 64 chains (K3, K2's coupled block) with a shared and
+    a per-chain count in four groups (masked); the tutorial-shaped
+    classifier at 64 chains (K3, the plain hyper block at 30 steps); the
+    1M-point surrogate at 32 chains under exact numerics (the plain path,
+    the Kahan leapfrog, ``data_chunk``, a diagonal metric) and under
+    default numerics (K3 over the 1M rows unchunked, K2), from the MAP
+    warm start ``warm`` (pretrained here when None), with chunks of 2 and
+    a short steady window. Each spec's ``make(net, lik, flat, eager,
+    mesh)`` builds its runner, and ``scale(d)`` gives its step scale."""
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+
+    data = {}
+
+    def surrogate_net():
+        # the 1M rows and the warm start, made at the first cell that
+        # needs them
+        if not data:
+            data["x"], data["y"] = surrogate_data()
+            data["warm"] = warm if warm is not None else surrogate_pretrain(
+                dev, data["x"], data["y"])
+        return surrogate_network(dev, data["x"], data["y"], data["warm"],
+                                 200)
+
+    w_eps, w_l = (np.repeat(np.asarray(v), 16) for v in zip(*WIDE_GROUPS))
+    w_eps = w_eps.astype(np.float32)
+    flip = lambda e, l: (e[::-1].copy(), l[::-1].copy())  # noqa: E731
+
+    def scale(d):
+        # a diagonal metric's step scale over the surrogate's d weights
+        return torch.as_tensor(np.random.default_rng(4).uniform(
+            0.5, 1.5, d).astype(np.float32), device=dev)
+
+    def surrogate(exact):
+        def make(net, lik, flat, eager, mesh):
+            assert mesh is None
+            if exact:
+                return surrogate_runner(
+                    net, lik, flat, exact_numerics_model(net.model),
+                    SURR_CHUNK, True, eager=eager, n_chains=SURR_CHAINS)
+            return chunk_runner(net, lik, flat, SURR_MCMC["hyper_leapfrog"],
+                                SURR_MCMC["hyper_step_size"], eager=eager,
+                                n_chains=SURR_CHAINS, data_chunk=SURR_CHUNK)
+        return make
+
+    surr = dict(build=surrogate_net, chains=SURR_CHAINS, chunk=2, prof=2,
+                steady=4, a=(5e-7, 10), b=(4e-7, 15), runner="stepped")
+    return [
+        dict(name="wide_deep 64", build=lambda: wide_network(dev),
+             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
+             a=(1e-5, 20), b=(1e-5, 25), runner="stepped",
+             max_launches=20 + STEPPED_LAUNCHES_OVER_L),
+        dict(name="wide_deep 64 G = 4", build=lambda: wide_network(dev),
+             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
+             a=(w_eps, w_l), b=flip(w_eps, w_l), runner="stepped"),
+        dict(name="tutorial 64", build=lambda: tutorial_network(dev),
+             chains=64, hyper=(30, 1e-4), chunk=5, prof=2, steady=10,
+             a=(1e-3, 50), b=(1e-3, 40), runner="stepped"),
+        dict(surr, name="surrogate 32 exact", make=surrogate(True),
+             scale=scale),
+        dict(surr, name="surrogate 32 default", make=surrogate(False),
+             peak_over_eager=STEPPED_PEAK_OVER_EAGER),
+    ]
+
+
 def compare_runners(dev, spec, mesh=None) -> dict:
-    """One cell of ``graph_cells`` (over ``mesh``, None: no mesh) through
-    the eager and the graph runner, from one carry and one generator seed:
-    two chunks whose (eps, L) differ, held bit for bit (carry, every trace
-    and the generator's state); then the cell's steady epochs in chunks of
-    its length, their host ms an epoch (the host clock around work
-    ending in a synchronize), and one profiled chunk: the card's busy ms
-    an epoch, the idle share (1 - busy / host ms) and the host's launches
-    an epoch (kernel and graph launches, copies and fills); with the graph
-    runner's captures (one a chain shard) and their ms. Returns the
-    cell's row."""
+    """One cell of ``graph_cells`` or ``stepped_cells`` (over ``mesh``,
+    None: no mesh) through the eager and the graph runner (the cell's
+    ``runner``: "graph" of the chunk, or "stepped"), from one carry and
+    one generator seed: two chunks whose (eps, L) differ, held bit for bit
+    (carry, every trace and the generator's state); then the cell's steady
+    epochs in chunks of its length, their host ms an epoch (the host clock
+    around work ending in a synchronize), and one profiled chunk: the
+    card's busy ms an epoch, the idle share (1 - busy / host ms) and the
+    host's launches an epoch (kernel and graph launches, copies and
+    fills); each runner's peak memory over what the process held before
+    it (``max_memory_allocated``, the cache emptied first); with the graph
+    runner's captures (one a chain shard; the stepped runner's three) and
+    their ms. Returns the cell's row."""
     from tensorbnn_tpu_torch.parallel import graphs
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.potential import flatten_state
@@ -2375,17 +2471,27 @@ def compare_runners(dev, spec, mesh=None) -> dict:
     net, lik = spec["build"]()
     params, hypers = net.init_state()
     flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
-    hyper_steps, hyper_eps = spec["hyper"]
+    hyper_steps, hyper_eps = spec.get("hyper", (
+        SURR_MCMC["hyper_leapfrog"], SURR_MCMC["hyper_step_size"]))
     n, uturn = spec["chunk"], spec.get("uturn", False)
     steady = spec.get("steady", GRAPH_STEADY)
+    scale = spec["scale"](flat.theta.numel()) if "scale" in spec else None
     shards = 1 if mesh is None else len(mesh.devices)
+    graph_kind = spec.get("runner", "graph")
     row, chunks = {"chains": spec["chains"], "chunk": n,
-                   "steady_epochs": steady, "chain_shards": shards}, {}
-    for kind in ("eager", "graph"):
-        run = chunk_runner(net, lik, flat, hyper_steps, hyper_eps,
-                           spec.get("tempering"), record_uturn=uturn,
-                           eager=kind == "eager",
-                           per_epoch_leapfrog=uturn, mesh=mesh)
+                   "steady_epochs": steady, "chain_shards": shards,
+                   "runner": graph_kind}, {}
+    make = spec.get("make") or (
+        lambda net, lik, flat, eager, mesh: chunk_runner(
+            net, lik, flat, hyper_steps, hyper_eps, spec.get("tempering"),
+            record_uturn=uturn, eager=eager, per_epoch_leapfrog=uturn,
+            mesh=mesh, n_chains=spec["chains"]))
+    for kind in ("eager", graph_kind):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        run = make(net, lik, flat, kind == "eager", mesh)
         assert run.runner == kind, (run.runner, kind)
         graphs.COUNTS.reset()
         gen = torch.Generator(device=dev).manual_seed(12)
@@ -2394,7 +2500,7 @@ def compare_runners(dev, spec, mesh=None) -> dict:
             torch.Generator(device=dev).manual_seed(13), jitter=0.01)
         got = []
         for eps, leap in (spec["a"], spec["b"]):
-            carry, trace = run(carry, eps, leap, n, gen)
+            carry, trace = run(carry, eps, leap, n, gen, step_scale=scale)
             got.append((carry, trace))
         torch.cuda.synchronize()
         chunks[kind] = (got, gen.get_state())
@@ -2402,7 +2508,7 @@ def compare_runners(dev, spec, mesh=None) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steady // n):
-            carry, _ = run(carry, eps, leap, n, gen)
+            carry, _ = run(carry, eps, leap, n, gen, step_scale=scale)
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0) / steady
         if not torch.isfinite(carry.theta).all():
@@ -2410,7 +2516,8 @@ def compare_runners(dev, spec, mesh=None) -> dict:
                                  f"finite range")
         prof = spec["prof"]
         events = trace_events(lambda: run(carry, eps, leap[:prof] if
-                                          uturn else leap, prof, gen))
+                                          uturn else leap, prof, gen,
+                                          step_scale=scale))
         busy = busy_ms(device_events(None, events=events)) / prof
         row[kind] = {
             "host_ms_per_epoch": host_ms, "device_busy_ms": busy,
@@ -2418,13 +2525,15 @@ def compare_runners(dev, spec, mesh=None) -> dict:
             "host_launches_per_epoch": host_launches(events) / prof,
             "device_ops_per_epoch": len(device_events(
                 None, events=events)) / prof,
+            "peak_bytes": torch.cuda.max_memory_allocated() - held,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
             **({"captures": graphs.COUNTS.captures,
                 "capture_ms": [1e3 * t for t in
                                graphs.COUNTS.capture_seconds],
                 "replays": graphs.COUNTS.replays}
-               if kind == "graph" else {})}
+               if kind != "eager" else {})}
         del run, carry, got, trace
-    (g_chunks, g_state), (e_chunks, e_state) = (chunks["graph"],
+    (g_chunks, g_state), (e_chunks, e_state) = (chunks[graph_kind],
                                                 chunks["eager"])
     for j, ((cg, tg), (ce, te)) in enumerate(zip(g_chunks, e_chunks)):
         same_bits(cg, ce, f"{spec['name']} chunk {j} carry")
@@ -2433,34 +2542,52 @@ def compare_runners(dev, spec, mesh=None) -> dict:
         raise AssertionError(f"{spec['name']}: the generators' states "
                              f"differ")
     row["bit_equal"] = True
-    g, e = row["graph"], row["eager"]
+    g, e = row[graph_kind], row["eager"]
     # one capture a key and chain shard: the chunk length (whole-chunk
     # graphs) and, for the classification stack's plain hyper block, one
-    # epoch
-    if g["captures"] != shards:
+    # epoch; the stepped runner's head, step and tail, whatever the
+    # chunk's length and L
+    per_shard = 3 if graph_kind == "stepped" else 1
+    if g["captures"] != per_shard * shards:
         raise AssertionError(f"{spec['name']}: {g['captures']} captures "
                              f"for one chunk key over {shards} shards")
     if g["host_launches_per_epoch"] >= e["host_launches_per_epoch"]:
         raise AssertionError(f"{spec['name']}: the graph runner issues "
                              f"no fewer host launches an epoch: {row}")
+    if "max_launches" in spec and g["host_launches_per_epoch"] > \
+            shards * spec["max_launches"]:
+        raise AssertionError(f"{spec['name']}: more than "
+                             f"{spec['max_launches']} host launches an "
+                             f"epoch a shard: {row}")
+    if "peak_over_eager" in spec and g["peak_bytes"] > \
+            spec["peak_over_eager"] * e["peak_bytes"]:
+        raise AssertionError(f"{spec['name']}: peak memory over "
+                             f"{spec['peak_over_eager']}x the eager "
+                             f"runner's: {row}")
     where = "" if mesh is None else f" on {shards}x1"
-    print(f"{spec['name']}{where}: graph and eager runners bit-equal over "
-          f"two chunks of {n}; host ms/epoch {e['host_ms_per_epoch']:.3f} "
-          f"eager, {g['host_ms_per_epoch']:.3f} graph; host launches "
-          f"an epoch {e['host_launches_per_epoch']:.1f} eager, "
-          f"{g['host_launches_per_epoch']:.1f} graph; idle share "
-          f"{e['idle_share']:.2f} eager, {g['idle_share']:.2f} graph; "
-          f"captures {g['captures']}", flush=True)
+    print(f"{spec['name']}{where}: {graph_kind} and eager runners bit-equal "
+          f"over two chunks of {n}; host ms/epoch "
+          f"{e['host_ms_per_epoch']:.3f} eager, "
+          f"{g['host_ms_per_epoch']:.3f} {graph_kind}; host launches an "
+          f"epoch {e['host_launches_per_epoch']:.1f} eager, "
+          f"{g['host_launches_per_epoch']:.1f} {graph_kind}; idle share "
+          f"{e['idle_share']:.2f} eager, {g['idle_share']:.2f} "
+          f"{graph_kind}; peak GB {e['peak_bytes'] / 1e9:.3f} eager, "
+          f"{g['peak_bytes'] / 1e9:.3f} {graph_kind}; captures "
+          f"{g['captures']} ({', '.join(f'{t:.0f}' for t in g['capture_ms'])}"
+          f" ms)", flush=True)
     del net, chunks, g_chunks, e_chunks
     torch.cuda.empty_cache()
     return row
 
 
-def graph_phase(dev, card) -> dict:
+def graph_phase(dev, card, warm=None) -> dict:
     """Phase 12: each cell of ``graph_cells`` through the eager and the
-    graph runner without a mesh (``compare_runners``)."""
+    graph runner, and each of ``stepped_cells`` (the surrogate's from the
+    MAP warm start ``warm``) through the eager and the stepped runner,
+    without a mesh (``compare_runners``)."""
     out = {"card": card}
-    for spec in graph_cells(dev):
+    for spec in graph_cells(dev) + stepped_cells(dev, warm):
         out[spec["name"]] = compare_runners(dev, spec)
     return out
 
@@ -2468,11 +2595,12 @@ def graph_phase(dev, card) -> dict:
 def mesh_graph_phase(dev, card) -> dict:
     """Phase 13: the cells of ``MESH_GRAPH_CELLS`` through the eager and
     the graph runner over a chains-only mesh whose entries are all this
-    card (a graph a chain shard; ``compare_runners``)."""
+    card (a graph a chain shard, the stepped runner's three;
+    ``compare_runners``)."""
     from tensorbnn_tpu_torch.parallel.mesh import make_mesh
 
     out = {"card": card}
-    for spec in graph_cells(dev):
+    for spec in graph_cells(dev) + stepped_cells(dev)[:1]:
         if spec["name"] in MESH_GRAPH_CELLS:
             n_chain = MESH_GRAPH_CELLS[spec["name"]]
             mesh = make_mesh(n_chain, 1, devices=[dev] * n_chain)
@@ -3685,7 +3813,7 @@ def main(argv=None) -> int:
         "default_numerics"]
 
     phase("12 the graph chunk runner against the eager runner")
-    print(json.dumps({"graph": graph_phase(dev, card)}))
+    print(json.dumps({"graph": graph_phase(dev, card, warm)}))
 
     phase("13 the mesh graph runner against the eager mesh runner")
     print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card)}))

@@ -60,8 +60,10 @@ def cauchy_logprob_compat(gamma, x0, x):
 def _clip(x, lo: float, hi: float):
     """``jnp.clip``'s arithmetic and gradient: max then min, so at a tie
     with a bound the gradient splits in half (``torch.clamp`` passes it
-    whole)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    whole). The bounds are filled on ``x``'s device: a copy from the host
+    cannot be captured in a CUDA graph."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def exponential_logprob(rate, x):

@@ -824,6 +824,9 @@ def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
                  for shard in peers.shards], thetas, etas)
         return add_priors(blocks, thetas, etas, value, grad)
 
+    program = vg.args[0]
+    # a call's workspace bytes at c chains: the stepped graph runner's gate
+    batched_main_vg.workspace_bytes = lambda c: 4 * program.workspace_floats(c)
     return batched_main_vg
 
 
@@ -944,6 +947,13 @@ def potential_plain(ops, thetas, sd_c, x, y, lik: str = "gaussian"):
     return value, grad
 
 
+@functools.lru_cache(maxsize=None)
+def _raw_mask(flags: tuple, device: torch.device) -> torch.Tensor:
+    """The Gaussian blocks' "gauss_raw" flags on ``device``, made once a
+    device: a copy from the host cannot be captured in a CUDA graph."""
+    return torch.tensor(flags, device=device)
+
+
 def add_priors(blocks, q, etas, value, grad):
     """Adds the closed-form priors of ``blocks`` (``prior_blocks``) to
     ``value`` and, in place, to ``grad``; returns both. The Gaussian blocks'
@@ -954,8 +964,8 @@ def add_priors(blocks, q, etas, value, grad):
     if gauss:
         s = torch.stack([etas[:, b[4]] for b in gauss], 1)
         if any(b[0] == "gauss_raw" for b in gauss):
-            raw = torch.tensor([b[0] == "gauss_raw" for b in gauss],
-                               device=s.device)
+            raw = _raw_mask(tuple(b[0] == "gauss_raw" for b in gauss),
+                            s.device)
             sig = torch.where(raw, s, s * s).clamp(1e-8, 1e8)
         else:
             sig = (s * s).clamp(1e-8, 1e8)

@@ -3,14 +3,15 @@ device or over a ``(chains, data)`` mesh.
 
 Counterpart of ``init_multichain_state`` and
 ``make_multichain_chunk_runner`` of ``tensorbnn_tpu/parallel/chains.py``.
-Chains batch as ``(C, D)`` blocks. Where K1 runs the main block on CUDA
-devices of one kind, without a mesh or over a mesh whose data axis is 1,
-a chunk is a captured CUDA graph a chain shard on its home card, the port
-of the JAX package's compiled (``shard_map``) chunk (parallel/graphs.py).
-Else (K3 or the plain main block, which every data axis above 1 takes,
-and the CPU) the chunk runner is a Python loop over epochs (the eager
-runner) whose per-epoch outputs stay on the device, so a chunk enqueues
-its work without a host synchronization.
+Chains batch as ``(C, D)`` blocks. On CUDA devices of one kind, without
+a mesh or over a mesh whose data axis is 1, a chunk runs as captured CUDA
+graphs on each chain shard's home card, the port of the JAX package's
+compiled (``shard_map``) chunk (parallel/graphs.py): a graph of the chunk
+where K1 runs the main block, a head, a step and a tail graph of the epoch
+where K3 or the plain path does. Else (every data axis above 1, cards of
+two kinds, the CPU) the chunk runner is a Python loop over epochs (the
+eager runner) whose per-epoch outputs stay on the device, so a chunk
+enqueues its work without a host synchronization.
 
 One runner serves every run: without a mesh it runs a 1x1 mesh of the
 data's device. Over a ``(chains, data)`` mesh (parallel/mesh.py) the
@@ -36,7 +37,7 @@ import torch
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
-    graph_runner_applies, whole_chunk
+    SteppedChunkRunner, chunk_runner_kind, whole_chunk
 from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DataPeers, Mesh, \
     gather
 from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochTrace, \
@@ -108,7 +109,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
                                  data_chunk: Optional[int] = None,
                                  compensated: bool = False,
                                  mesh=None,
-                                 eager: bool = False):
+                                 eager: bool = False,
+                                 n_chains: Optional[int] = None):
     """Builds ``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
     step_scale=None) -> (carry, trace)``, the trace's fields stacked
     ``(n_epochs, C, ...)`` (``swap_accept`` None unless
@@ -140,18 +142,27 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     carry and the traces in chain order at the chunk's end. Tempering needs
     a chains axis of 1 (``check_tempering_mesh``).
 
-    Where ``graph_runner_applies`` (K1, a data axis of 1, CUDA devices of
-    one kind) the returned runner is a ``GraphChunkRunner``
-    (parallel/graphs.py, a graph a chain shard on its home), with the same
-    signature and results bit for bit; else the eager loop. Its
-    ``runner`` attribute says which ("graph" or "eager"). ``eager`` keeps
-    the eager loop where a graph would apply (the runners' comparisons on
-    the card; the driver never sets it).
+    ``chunk_runner_kind`` picks the runner from the configuration (a data
+    axis of 1 and CUDA devices of one kind for either graph runner,
+    parallel/graphs.py): where K1 runs the main block a
+    ``GraphChunkRunner`` (a graph a chain shard on its home), where K3 or
+    the plain path does a ``SteppedChunkRunner`` (a head, a step and a
+    tail graph a chain shard) unless K3's workspace at ``n_chains`` (the
+    fleet; None: not gated) fails ``stepped_fits``; else the eager loop.
+    Both graph runners have the loop's signature and give its results bit
+    for bit. The runner's ``runner`` attribute says which ("graph",
+    "stepped" or "eager"). ``eager`` keeps the eager loop where a graph
+    would apply (the runners' comparisons on the card; the driver never
+    sets it).
     """
     if tempering_beta is not None:
         check_tempering_mesh(mesh)
-    graph = not eager and graph_runner_applies(batched_main_traj, mesh,
-                                               x.device)
+    workspace = 0
+    if n_chains is not None and batched_main_vg is not None:
+        shards = 1 if mesh is None else mesh.shape[CHAIN_AXIS]
+        workspace = batched_main_vg.workspace_bytes(n_chains // shards)
+    kind = "eager" if eager else chunk_runner_kind(
+        batched_main_traj, mesh, x.device, workspace)
     mu = math.log(100.0 * hyper_step_size_init)
     if mesh is None:
         mesh = Mesh([[x.device]])
@@ -169,11 +180,15 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     first = homes[0]
     h = eta_dim if adjust_hypers else None
     tempered = tempering_beta is not None
-    if graph:
+    if kind == "graph":
         return GraphChunkRunner(
             epoch_fns, homes, h=h, tempered=tempered,
             per_epoch_leapfrog=per_epoch_leapfrog,
             whole=whole_chunk(adjust_hypers, batched_hyper_traj))
+    if kind == "stepped":
+        return SteppedChunkRunner(
+            epoch_fns, homes, h=h, tempered=tempered,
+            per_epoch_leapfrog=per_epoch_leapfrog, n_chains=n_chains)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator,

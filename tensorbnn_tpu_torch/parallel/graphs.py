@@ -10,14 +10,16 @@ for each key as a ``torch.cuda.CUDAGraph`` a chain shard, on the shard's
 home card, and replayed, so the host issues one launch a shard where the
 eager runner issues every kernel and glue operation of every epoch.
 
-Where it applies (``graph_runner_applies``, decided from the configuration
-when the runner is built): K1 runs the main block, the mesh (if any) has a
-data axis of 1 and the chains live on CUDA devices of one kind. The K3 and
-plain main blocks, a data axis above 1 (whose main block is K3 or the
-plain path: a trajectory cannot sum over data peers mid-flight), and the
-CPU keep the eager runner (parallel/chains.py). A tempered run needs a
-chains axis of 1 (``check_tempering_mesh``), so on a mesh it has a data
-axis above 1 and runs eagerly too.
+Which runner a chunk takes is decided from the configuration when the
+runner is built (``chunk_runner_kind``): either graph runner needs a mesh
+(if any) with a data axis of 1 and chains on CUDA devices of one kind;
+then K1's main block takes ``GraphChunkRunner`` (below), and K3's or the
+plain path's ``SteppedChunkRunner`` unless K3's workspace fails the gate
+``stepped_fits``. A data axis above 1 (``DataPeers.sum`` would need copies
+between cards inside the graphs), cards of two kinds and the CPU keep the
+eager runner (parallel/chains.py). A tempered run needs a chains axis of
+1 (``check_tempering_mesh``), so on a mesh it has a data axis above 1 and
+runs eagerly too.
 
 A key is the graph's epochs, the carry's shape, the form of the leapfrog
 counts (shared, per chain or per epoch) and whether a step scale is given;
@@ -82,6 +84,20 @@ workspace, which the process then keeps: 32 MiB a card). Capture runs in
 memory, a synchronization, ``.item()``) raises. A failed capture or replay
 raises; nothing falls back to the eager runner.
 
+``SteppedChunkRunner`` is the port of the same ``jit(scan)`` where K3 or
+the plain path runs the main block. There the JAX leapfrog is a
+``lax.while_loop`` over a traced count (``tensorbnn_tpu/sampler/hmc.py:
+260-266``), one program for every L; a CUDA graph has no loop over a
+count it reads, and a graph of a chunk would record (L + 1) x ~100
+launches an epoch, one graph for every L and chunk length. So an epoch
+(``gibbs.EpochParts``) is three graphs a chain shard: a head (the draws,
+the first evaluation and half kick), a step (one leapfrog step, its index
+a device counter) and a tail (the closing half kick, MH, the SJD, the
+hyper block, dual averaging, the swap), and the host replays the head,
+the step L times and the tail. The eager epoch runs the same three parts
+in the same order, so the two are bit-equal. The three graphs of a card
+share one memory pool, so K3's per-call workspace lives once in it.
+
 ``StepGraph`` applies the same recipe (a warm-up on the side stream,
 one capture, replays) to the step of a loop, a body that draws nothing
 and reads nothing but its static buffers: MAP pretraining's optimizer
@@ -97,7 +113,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -136,24 +152,46 @@ class GraphCounts:
 COUNTS = GraphCounts()
 
 
-def graph_runner_applies(batched_main_traj, mesh, device) -> bool:
-    """Whether a chunk runs as captured graphs: K1 runs the main block
-    (``batched_main_traj``), the mesh (None: no mesh, the chains on
-    ``device``) has a data axis of 1, and its chain shards live on CUDA
-    devices of one kind (``card_kind``; a card that repeats is asked
-    nothing)."""
-    if batched_main_traj is None:
-        return False
+def chunk_runner_kind(batched_main_traj, mesh, device,
+                      workspace_bytes: int = 0) -> str:
+    """Which runner a chunk takes, from the configuration alone: "graph"
+    (``GraphChunkRunner``) where K1 runs the main block
+    (``batched_main_traj``), "stepped" (``SteppedChunkRunner``) where K3
+    or the plain path runs it and ``stepped_fits``, else "eager". Either
+    graph runner needs a mesh (None: no mesh, the chains on ``device``)
+    whose data axis is 1 and chain shards on CUDA devices of one kind
+    (``card_kind``; a card that repeats is asked nothing).
+    ``workspace_bytes`` is a K3 call's workspace on a chain shard (0 for
+    the plain path)."""
     if mesh is None:
         homes = [torch.device(device)]
     elif mesh.shape[DATA_AXIS] != 1:
-        return False
+        return "eager"
     else:
         homes = [row[0] for row in mesh.devices]
     if any(d.type != "cuda" for d in homes):
-        return False
+        return "eager"
     cards = {d.index for d in homes}
-    return len(cards) == 1 or len({card_kind(i) for i in cards}) == 1
+    if len(cards) > 1 and len({card_kind(i) for i in cards}) > 1:
+        return "eager"
+    if batched_main_traj is not None:
+        return "graph"
+    return "stepped" if stepped_fits(workspace_bytes, cards) else "eager"
+
+
+def stepped_fits(workspace_bytes: int, cards) -> bool:
+    """The stepped runner's gate: a K3 call's workspace fits twice on each
+    card, once in the graphs' pool and once in the caching allocator (an
+    eager call on another stream, the driver's or the caller's, may hold
+    it when a capture starts, and a capture cannot hand it back to the
+    card). The plain path (no workspace) always passes."""
+    return workspace_bytes == 0 or all(
+        2 * workspace_bytes <= card_memory(i) for i in cards)
+
+
+def card_memory(index) -> int:
+    """A card's memory in bytes."""
+    return torch.cuda.get_device_properties(index).total_memory
 
 
 def card_kind(index: int) -> tuple:
@@ -219,17 +257,20 @@ class StaticChunk:
             dst.copy_(src)
         if np.ndim(step_size) > 0:
             self.eps.copy_(torch.as_tensor(np.asarray(step_size),
-                                           dtype=torch.float32))
+                                           dtype=self.eps.dtype))
         else:
             self.eps.fill_(float(step_size))
+        self._fill_leap(leapfrog)
+        if self.scale is not None:
+            self.scale.copy_(step_scale)
+
+    def _fill_leap(self, leapfrog) -> None:
         if self.mode == "shared":
             self.leap.fill_(int(leapfrog))
         else:
             self.leap.copy_(torch.as_tensor(
                 np.asarray(leapfrog, np.int64).reshape(-1),
                 dtype=torch.int32))
-        if self.scale is not None:
-            self.scale.copy_(step_scale)
 
     def run(self, generator: Optional[torch.Generator]) -> None:
         """The body: ``n`` epochs from the static carry, each drawing from
@@ -300,11 +341,13 @@ def _side_stream(device) -> torch.cuda.Stream:
 class CudaGraph:
     """``fn`` captured as a CUDA graph on ``device`` in "global" mode, the
     ``generator`` it draws from (None: it draws nothing) registered with
-    it; ``replay`` runs it on the device's current stream. ``warm_up`` runs
-    a function eagerly on the device's side stream (torch's recipe before a
+    it, its memory from ``pool`` (``new_pool``; None: a pool of its own);
+    ``replay`` runs it on the device's current stream. ``warm_up`` runs a
+    function eagerly on the device's side stream (torch's recipe before a
     first capture)."""
 
-    def __init__(self, fn, generator: Optional[torch.Generator], device):
+    def __init__(self, fn, generator: Optional[torch.Generator], device,
+                 pool=None):
         self.graph = torch.cuda.CUDAGraph()
         self.device = torch.device(device)
         with torch.cuda.device(self.device):
@@ -313,10 +356,16 @@ class CudaGraph:
             if generator is not None and generator is not \
                     torch.cuda.default_generators[self.device.index]:
                 self.graph.register_generator_state(generator)
-            with torch.cuda.graph(self.graph,
+            with torch.cuda.graph(self.graph, pool=pool,
                                   stream=_side_stream(self.device),
                                   capture_error_mode="global"):
                 fn()
+
+    @staticmethod
+    def new_pool():
+        """A memory pool that graphs captured and replayed in one order
+        share (``torch.cuda.graph_pool_handle``)."""
+        return torch.cuda.graph_pool_handle()
 
     def replay(self) -> None:
         with torch.cuda.device(self.device):
@@ -462,13 +511,9 @@ class GraphChunkRunner:
                 if mode == "per_epoch" and j:
                     chunk.leap.fill_(int(leaps[j]))
                 entry.replay()
-                if rows[i] is None:
-                    rows[i] = EpochTrace(*(None if f is None else torch.empty(
-                        (n_epochs,) + f.shape[1:], dtype=f.dtype,
-                        device=f.device) for f in chunk.trace))
-                for dst, src in zip(rows[i], chunk.trace):
-                    if dst is not None:
-                        dst[j].copy_(src[0])
+                rows[i] = _row(rows[i], EpochTrace(*(
+                    None if f is None else f[0] for f in chunk.trace)), j,
+                    n_epochs)
         return _gathered([e.chunk.result(leaps, r)
                           for e, r in zip(entries, rows)])
 
@@ -519,6 +564,257 @@ class GraphChunkRunner:
         warm.fill(carry, step_size, leapfrog[:1] if mode == "per_epoch"
                   else leapfrog, step_scale)
         self.graph_type.warm_up(lambda: warm.run(generator), home)
+        generator.set_state(state)
+        self.warm[i] = True
+        COUNTS.warmups += 1
+
+
+def _row(rows, trace, j: int, n: int):
+    """Copies one epoch's ``trace`` (a NamedTuple of ``(C, ...)`` fields
+    or None) into row ``j`` of ``rows``, the chunk's ``(n, C, ...)``
+    fields, made at the first epoch (None)."""
+    if rows is None:
+        rows = type(trace)(*(None if f is None else torch.empty(
+            (n,) + f.shape, dtype=f.dtype, device=f.device) for f in trace))
+    for dst, src in zip(rows, trace):
+        if dst is not None:
+            dst[j].copy_(src)
+    return rows
+
+
+class _Row(NamedTuple):
+    """What the stepped runner copies out of an epoch's trace: theta, the
+    trace's eta and ``(C,)`` float fields side by side, and the U-turn
+    steps (or None)."""
+    theta: torch.Tensor
+    packed: torch.Tensor
+    uturn: Optional[torch.Tensor]
+
+
+class SteppedChunk(StaticChunk):
+    """An epoch of a K3 or plain-path ``epoch_fn``'s parts
+    (``gibbs.EpochParts``) over ``StaticChunk``'s buffers, as three
+    bodies that each read and update static tensors, so that each can be
+    captured once and replayed: ``head`` draws the epoch (the fleet's,
+    keeping this shard's rows) and starts the main block into ``flight``;
+    ``step`` runs one leapfrog step, which updates the state's ``q`` and
+    ``v`` in place (its Kahan carries, U-turn steps and counter are copied
+    back) and leaves the new value and gradient in ``evaluation``, the
+    tail's input; ``tail`` ends the epoch, copies the new carry into the
+    static one and leaves the epoch's ``_Row`` in ``trace``. The step size
+    buffer takes the carry's dtype (the eager epoch's step is a float or a
+    tensor of that dtype); the counts buffer is read for per-chain counts
+    only (the host counts the others' steps), which the tail also divides
+    the SJD by, as the eager epoch does."""
+
+    def __init__(self, epoch_fn, carry: ChainState, mode: str,
+                 h: Optional[int], tempered: bool,
+                 step_scale: Optional[torch.Tensor] = None,
+                 device=None, shard: tuple = (0, 1)):
+        super().__init__(epoch_fn, carry, 1, mode, h, tempered, step_scale,
+                         device, shard)
+        self.parts = epoch_fn.parts
+        self.eps = torch.empty_like(self.carry.theta[:, 0])
+        self.flight = self.evaluation = None
+
+    def _fill_leap(self, leapfrog) -> None:
+        if self.mode == "per_chain":
+            super()._fill_leap(leapfrog)
+
+    def _counts(self) -> Optional[torch.Tensor]:
+        return self.leap if self.mode == "per_chain" else None
+
+    def head(self, generator: Optional[torch.Generator]) -> None:
+        c, d = self.carry.theta.shape
+        i, k = self.shard
+        draws = draw_epoch(generator, c * k, d, self.h,
+                           self.carry.theta.dtype, self.carry.theta.device,
+                           self.tempered)
+        if k > 1:
+            draws = EpochDraws(*(None if f is None else f[i * c:(i + 1) * c]
+                                 for f in draws))
+        self.flight = self.parts.head(self.carry, self.eps, generator,
+                                      draws=draws,
+                                      leapfrog_dev=self._counts(),
+                                      step_scale=self.scale)
+
+    def step(self) -> None:
+        new = self.parts.step(self.carry, self.flight)
+        for dst, src in zip(self.flight.leap, new._replace(lp=None, g=None)):
+            if src is not None and src is not dst:
+                dst.copy_(src)
+        self.evaluation = (new.lp, new.g)
+
+    def skip(self) -> None:
+        """An epoch of no step: the tail reads the head's evaluation."""
+        start = (self.flight.leap.lp, self.flight.leap.g)
+        if self.evaluation is None:
+            self.evaluation = tuple(t.clone() for t in start)
+        for dst, src in zip(self.evaluation, start):
+            dst.copy_(src)
+
+    def tail(self) -> None:
+        lp, g = self.evaluation
+        flight = self.flight._replace(leap=self.flight.leap._replace(
+            lp=lp, g=g))
+        carry, trace = self.parts.tail(self.carry, flight, self._counts())
+        for dst, src in zip(self.carry, carry):
+            dst.copy_(src)
+        self.trace = _Row(trace.theta, torch.cat(
+            [trace.eta] + [f[:, None] for f in (
+                trace.sjd, trace.main_accept, trace.hyper_accept,
+                trace.swap_accept) if f is not None], 1), trace.uturn)
+
+    def epoch(self, generator, n_steps: int) -> None:
+        """The bodies in turn, eagerly: an epoch of ``n_steps``."""
+        self.head(generator)
+        for _ in range(n_steps):
+            self.step()
+        if not n_steps:
+            self.skip()
+        self.tail()
+
+    def unpack(self, rows: _Row) -> EpochTrace:
+        """The chunk's ``EpochTrace`` from its rows of ``_Row``s."""
+        h = self.carry.eta.shape[1]
+        cols = [rows.packed[..., j].contiguous()
+                for j in range(h, rows.packed.shape[-1])]
+        return EpochTrace(rows.theta, rows.packed[..., :h].contiguous(),
+                          *cols[:3], cols[3] if self.tempered else None,
+                          rows.uturn)
+
+
+class SteppedChunkRunner(GraphChunkRunner):
+    """``run_chunk(carry, step_size, leapfrog, n_epochs, generator,
+    step_scale=None) -> (carry, trace)`` of parallel/chains.py where K3 or
+    the plain path runs the main block: three graphs a chain shard and key
+    (``SteppedChunk``'s head, step and tail, captured once on the shard's
+    home in one memory pool a card), and an epoch is a replay of the head,
+    ``L`` replays of the step and one of the tail, ``L`` the shared count,
+    the shard's largest per-chain count or a U-turn run's count of the
+    epoch, from the host. The key is the carry's shapes and dtype, the
+    counts' form and whether a step scale is given: neither ``L`` nor the
+    chunk's length. Only the head draws, so only it registers the shard's
+    generator. Each epoch's trace is copied out of the tail's outputs
+    before the next head replays (a later capture in the pool may have
+    reused an earlier one's temporaries). ``n_chains``: the fleet the
+    workspace gate was decided for (None: no gate), which a chunk must
+    carry."""
+
+    runner = "stepped"
+
+    def __init__(self, epoch_fns, homes, *, h: Optional[int],
+                 tempered: bool, per_epoch_leapfrog: bool,
+                 n_chains: Optional[int] = None, graph_type=CudaGraph):
+        super().__init__(epoch_fns, homes, h=h, tempered=tempered,
+                         per_epoch_leapfrog=per_epoch_leapfrog, whole=False,
+                         graph_type=graph_type)
+        if any(getattr(f, "parts", None) is None for f in self.epoch_fns):
+            raise ValueError("the stepped runner replays the parts of a K3 "
+                             "or plain-path epoch; K1 takes GraphChunkRunner")
+        self.n_chains = n_chains
+        self.pools = {}
+
+    def __call__(self, carry: ChainState, step_size, leapfrog,
+                 n_epochs: int, generator: torch.Generator,
+                 step_scale: Optional[torch.Tensor] = None):
+        if generator is None:
+            raise ValueError("the graph runner draws from the run's "
+                             "torch.Generator, which it registers with "
+                             "each graph; pass one")
+        if self.n_chains is not None and carry.theta.shape[0] != \
+                self.n_chains:
+            raise ValueError(f"the stepped runner was built (and its "
+                             f"workspace gate decided) for {self.n_chains} "
+                             f"chains, got {carry.theta.shape[0]}")
+        mode = leap_mode(leapfrog, self.per_epoch_leapfrog)
+        k = len(self.homes)
+        if mode == "per_epoch":
+            leaps = np.asarray(leapfrog, np.int64).reshape(n_epochs)
+            firsts = [leaps[:1]] * k
+            counts = [[int(n) for n in leaps]] * k
+        else:
+            leaps = leapfrog
+            firsts = _blocks(leapfrog, k)
+            counts = [[int(np.max(b))] * n_epochs for b in firsts]
+        blocks = [ChainState(*f) for f in zip(*(_blocks(f, k)
+                                                for f in carry))]
+        steps = _blocks(step_size, k)
+        key = (tuple(carry.theta.shape), tuple(carry.eta.shape),
+               carry.theta.dtype, mode, step_scale is not None)
+        gens = self._generators(generator)
+        entries = self.graphs.get(key)
+        if entries is None or entries[0][0].generator is not generator:
+            entries = self.graphs[key] = [
+                self._capture(i, blocks[i], steps[i], firsts[i], mode,
+                              gens[i], step_scale) for i in range(k)]
+        state = generator.get_state()
+        for g in gens[1:]:
+            g.set_state(state)
+        for graphs_i, block, eps, leap in zip(entries, blocks, steps,
+                                              firsts):
+            graphs_i[0].chunk.fill(block, eps, leap, step_scale)
+        rows = [None] * k
+        for j in range(n_epochs):
+            for i, (head, step, tail) in enumerate(entries):
+                head.replay()
+                for _ in range(counts[i][j]):
+                    step.replay()
+                if not counts[i][j]:
+                    head.chunk.skip()
+                tail.replay()
+                rows[i] = _row(rows[i], head.chunk.trace, j, n_epochs)
+        return _gathered([e[0].chunk.result(leaps, e[0].chunk.unpack(r))
+                          for e, r in zip(entries, rows)])
+
+    def _capture(self, i: int, carry: ChainState, step_size, leapfrog,
+                 mode: str, generator, step_scale) -> list:
+        """Captures shard ``i``'s head, step and tail for this key on its
+        home, in the card's pool (after the shard's warm-up epoch, the
+        first time); the kernel counters read afterwards as they read
+        before."""
+        t0 = time.perf_counter()
+        home, shard = self.homes[i], (i, len(self.homes))
+        before = [fn.LAUNCHES for fn in COUNTED]
+        captured, seconds = [], []
+        try:
+            if not self.warm[i]:
+                self._warm_up(i, carry, step_size, leapfrog, mode, generator,
+                              step_scale)
+            chunk = SteppedChunk(self.epoch_fns[i], carry, mode, self.h,
+                                 self.tempered, step_scale, home, shard)
+            chunk.fill(carry, step_size, leapfrog, step_scale)
+            if home not in self.pools:
+                self.pools[home] = self.graph_type.new_pool()
+            for body, gen in ((lambda: chunk.head(generator), generator),
+                              (chunk.step, None), (chunk.tail, None)):
+                mid = [fn.LAUNCHES for fn in COUNTED]
+                graph = self.graph_type(body, gen, home,
+                                        pool=self.pools[home])
+                captured.append(_Captured(
+                    graph, chunk, [fn.LAUNCHES - m for fn, m in
+                                   zip(COUNTED, mid)], generator))
+                seconds.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        finally:
+            for fn, b in zip(COUNTED, before):
+                fn.LAUNCHES = b
+        COUNTS.captures += len(captured)
+        COUNTS.capture_seconds.extend(seconds)
+        return captured
+
+    def _warm_up(self, i: int, carry, step_size, leapfrog, mode, generator,
+                 step_scale) -> None:
+        """One eager epoch of shard ``i``'s bodies, with one leapfrog step,
+        on its home's side stream, on a copy of its block; the generator's
+        state is put back afterwards."""
+        state = generator.get_state()
+        home = self.homes[i]
+        warm = SteppedChunk(self.epoch_fns[i], carry, mode, self.h,
+                            self.tempered, step_scale, home,
+                            (i, len(self.homes)))
+        warm.fill(carry, step_size, leapfrog, step_scale)
+        self.graph_type.warm_up(lambda: warm.epoch(generator, 1), home)
         generator.set_state(state)
         self.warm[i] = True
         COUNTS.warmups += 1

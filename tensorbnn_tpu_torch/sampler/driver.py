@@ -283,8 +283,10 @@ class RunResult:
     #: arrays cover epochs ``resume_epoch + 1 .. n_epochs`` (the samples
     #: cover the whole run)
     resume_epoch: int = 0
-    #: what ran the chunks: "graph" (captured CUDA graphs,
-    #: parallel/graphs.py) or "eager" (the Python loop over epochs)
+    #: what ran the chunks: "graph" (a captured CUDA graph of the chunk,
+    #: K1), "stepped" (captured head, step and tail graphs of the epoch,
+    #: K3 or the plain path; parallel/graphs.py) or "eager" (the Python
+    #: loop over epochs)
     chunk_runner: str = "eager"
 
     def after_epoch(self, values, epoch: int) -> np.ndarray:
@@ -574,7 +576,8 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         batched_main_vg=main_vg, batched_main_traj=main_traj,
         batched_hyper_traj=hyper_traj, tempering_beta=tempering_beta,
         record_uturn=traj_uturn, per_epoch_leapfrog=traj_uturn,
-        data_chunk=data_chunk, compensated=compensated, mesh=mesh)
+        data_chunk=data_chunk, compensated=compensated, mesh=mesh,
+        n_chains=fleet_chains)
     if verbose:
         print(f"chunk runner: {run_chunk.runner}")
     carry = init_multichain_state(flat.theta, flat.eta,

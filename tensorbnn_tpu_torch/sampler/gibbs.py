@@ -31,8 +31,9 @@ import torch
 
 from tensorbnn_tpu_torch.likelihoods import Likelihood
 from tensorbnn_tpu_torch.models.sequential import Sequential
-from tensorbnn_tpu_torch.sampler.hmc import draw_log_u, hmc_step_batched, \
-    metropolis
+from tensorbnn_tpu_torch.sampler.hmc import Leap, Transition, draw_log_u, \
+    hmc_step_batched, metropolis, transition_end, transition_start, \
+    transition_step
 from tensorbnn_tpu_torch.sampler.potential import make_potentials
 from tensorbnn_tpu_torch.sampler.tempering import make_swap_fn
 
@@ -99,6 +100,34 @@ def draw_epoch(generator: torch.Generator, c: int, d: int,
     return EpochDraws(main_mom, main_log_u, h_mom, h_log_u, swap_log_u)
 
 
+class Flight(NamedTuple):
+    """An epoch between its head and its tail where K3 or the plain path
+    runs the main block: the epoch's draws, the main transition's
+    constants and its leapfrog state."""
+    draws: EpochDraws
+    main: Transition
+    leap: Leap
+
+
+class EpochParts(NamedTuple):
+    """An epoch of the K3 or plain main block in three parts, which
+    ``epoch_fn`` runs in turn and the stepped graph runner replays as one
+    captured graph each:
+
+    * ``head(carry, step_size, generator, draws=None, leapfrog_dev=None,
+      step_scale=None) -> Flight``: the epoch's draws (unless given), the
+      main block's first evaluation and half kick; ``leapfrog_dev`` the
+      per-chain counts on the device (None: shared);
+    * ``step(carry, flight) -> Leap``: one leapfrog step;
+    * ``tail(carry, flight, sjd_steps) -> (carry, trace)``: the closing
+      half kick and MH, the SJD (divided by ``sjd_steps``' square root, a
+      count or a device ``(C,)`` tensor; None leaves it unscaled), the
+      hyper block, dual averaging and the replica swap."""
+    head: Callable
+    step: Callable
+    tail: Callable
+
+
 def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                   unravel_theta, unravel_eta, *,
                   adjust_hypers: bool,
@@ -123,9 +152,13 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
     driver's ``n_adapters`` mode; ``leapfrog_dev`` is then its device copy,
     made once per chunk by the runner so that an epoch never copies from
     the host (the plain path keeps the host array for its loop bound).
-    ``scale_sjd=False`` leaves the trace's SJD unscaled: the graph runner
-    (parallel/graphs.py) divides it by a shared count's square root after
+    ``scale_sjd=False`` leaves the trace's SJD unscaled: the graph runners
+    (parallel/graphs.py) divide it by a shared count's square root after
     the replay, as a Python float, which a captured epoch cannot take.
+    Where K3 or the plain path runs the main block, ``epoch_fn.parts`` is
+    the epoch's ``EpochParts``, which ``epoch_fn`` runs: the head, one
+    step a leapfrog step (to the largest count, from the host) and the
+    tail; where K1 runs it, ``epoch_fn.parts`` is None.
     ``mu`` is the dual-averaging anchor ``log(100 * initial hyper step
     size)``. ``batched_main_vg`` is K3's ``f(thetas, etas, x, y) -> ((C,),
     (C, D))``; ``batched_main_traj`` K1's ``traj(thetas, etas, momenta, x,
@@ -192,55 +225,50 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
             torch.as_tensor(beta_np.reshape(n_rungs, -1)[:, 0],
                             dtype=x.dtype, device=x.device), n_rungs)
 
-    def epoch_fn(carry: ChainState, step_size, leapfrog, generator,
-                 draws: Optional[EpochDraws] = None, leapfrog_dev=None,
-                 step_scale: Optional[torch.Tensor] = None,
-                 scale_sjd: bool = True):
-        theta0, eta = carry.theta, carry.eta
-        if leapfrog_dev is None and np.ndim(leapfrog) > 0:
-            leapfrog_dev = torch.as_tensor(np.asarray(leapfrog),
-                                           device=theta0.device)
-        steps = leapfrog if leapfrog_dev is None else leapfrog_dev
-        if draws is None:
-            draws = draw_epoch(generator, *theta0.shape,
-                               eta.shape[1] if adjust_hypers else None,
-                               theta0.dtype, theta0.device, tempered)
+    def main_vg(eta):
+        """The K3 or plain main block's value and gradient given ``eta``."""
+        if tempered:
+            return lambda ths: potentials.main_vg_t(ths, eta, beta_c)
+        if batched_main_vg is not None:
+            return lambda ths: batched_main_vg(ths, eta, x, y, peers=peers)
+        return lambda ths: potentials.main_vg(ths, eta)
 
-        # -- main block: HMC over params given the current hypers ----------
-        momenta, log_u = draws.main_momenta, draws.main_log_u
-        uturn = None
-        if batched_main_traj is not None:
-            q_new, v_new, lp0, lp1, *rec = batched_main_traj(
-                theta0, eta, momenta, x, y, step_size, steps,
-                *((beta_c,) if tempered else ()))
-            if record_uturn:
-                uturn = rec[0]
-            main_accept, accepted = metropolis(
-                lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
-                0.5 * (v_new * v_new).sum(-1), log_u)
-            theta = torch.where(accepted[:, None], q_new, theta0)
-        else:
-            if tempered:
-                main_vg = lambda ths: potentials.main_vg_t(ths, eta, beta_c)  # noqa: E731
-            elif batched_main_vg is not None:
-                main_vg = lambda ths: batched_main_vg(ths, eta, x, y,  # noqa: E731
-                                                      peers=peers)
-            else:
-                main_vg = lambda ths: potentials.main_vg(ths, eta)  # noqa: E731
-            main = hmc_step_batched(generator, theta0, main_vg, step_size,
-                                    leapfrog, momenta=momenta, log_u=log_u,
-                                    step_scale=step_scale,
-                                    record_uturn=record_uturn,
-                                    compensated=compensated)
-            theta, main_accept, uturn = (main.position, main.accept_prob,
-                                         main.uturn)
+    def draws_of(carry, generator, draws):
+        if draws is not None:
+            return draws
+        theta = carry.theta
+        return draw_epoch(generator, *theta.shape,
+                          carry.eta.shape[1] if adjust_hypers else None,
+                          theta.dtype, theta.device, tempered)
 
+    def head(carry, step_size, generator, draws=None, leapfrog_dev=None,
+             step_scale=None) -> Flight:
+        draws = draws_of(carry, generator, draws)
+        tr, leap = transition_start(
+            generator, carry.theta, main_vg(carry.eta), step_size,
+            momenta=draws.main_momenta, log_u=draws.main_log_u,
+            step_scale=step_scale, n_vec=leapfrog_dev,
+            record_uturn=record_uturn, compensated=compensated)
+        return Flight(draws, tr, leap)
+
+    def step(carry, flight: Flight) -> Leap:
+        return transition_step(main_vg(carry.eta), flight.main, flight.leap)
+
+    def tail(carry, flight: Flight, sjd_steps):
+        main = transition_end(flight.main, flight.leap)
+        return finish(carry, main.position, main.accept_prob, main.uturn,
+                      flight.draws, sjd_steps)
+
+    def finish(carry, theta, main_accept, uturn, draws, sjd_steps):
+        """The epoch after the main block's move to ``theta``."""
+        eta = carry.eta
         # SJD scaled by L^(-1/2) (reference paramAdapter.py:219-222)
-        dif = theta - theta0
+        dif = theta - carry.theta
         sjd = (dif * dif).sum(-1)
-        if scale_sjd:
-            sjd = sjd / (torch.sqrt(steps.to(theta.dtype))
-                         if torch.is_tensor(steps) else math.sqrt(steps))
+        if sjd_steps is not None:
+            sjd = sjd / (torch.sqrt(sjd_steps.to(theta.dtype))
+                         if torch.is_tensor(sjd_steps)
+                         else math.sqrt(sjd_steps))
 
         hyper_step, log_eps_bar, h = (carry.hyper_step, carry.log_eps_bar,
                                       carry.h)
@@ -267,7 +295,7 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
                 else:
                     hyper_vg = lambda es: potentials.hyper_vg(es, theta)  # noqa: E731
                 hyper = hmc_step_batched(
-                    generator, eta, hyper_vg, hyper_step[:, None],
+                    None, eta, hyper_vg, hyper_step[:, None],
                     hyper_leapfrog, momenta=h_mom, log_u=h_log_u)
                 eta, hyper_accept = hyper.position, hyper.accept_prob
 
@@ -296,4 +324,36 @@ def make_epoch_fn(model: Sequential, likelihood: Likelihood, x, y,
         return new_carry, EpochTrace(theta, eta, sjd, main_accept,
                                      hyper_accept, swapped, uturn)
 
+    def epoch_fn(carry: ChainState, step_size, leapfrog, generator,
+                 draws: Optional[EpochDraws] = None, leapfrog_dev=None,
+                 step_scale: Optional[torch.Tensor] = None,
+                 scale_sjd: bool = True):
+        if leapfrog_dev is None and np.ndim(leapfrog) > 0:
+            leapfrog_dev = torch.as_tensor(np.asarray(leapfrog),
+                                           device=carry.theta.device)
+        steps = leapfrog if leapfrog_dev is None else leapfrog_dev
+        sjd_steps = steps if scale_sjd else None
+        if batched_main_traj is None:
+            flight = head(carry, step_size, generator, draws, leapfrog_dev,
+                          step_scale)
+            for _ in range(int(np.max(leapfrog))):
+                flight = flight._replace(leap=step(carry, flight))
+            return tail(carry, flight, sjd_steps)
+
+        # -- main block through K1: HMC over params given the hypers -------
+        draws = draws_of(carry, generator, draws)
+        theta0, eta = carry.theta, carry.eta
+        momenta, log_u = draws.main_momenta, draws.main_log_u
+        q_new, v_new, lp0, lp1, *rec = batched_main_traj(
+            theta0, eta, momenta, x, y, step_size, steps,
+            *((beta_c,) if tempered else ()))
+        main_accept, accepted = metropolis(
+            lp0, lp1, 0.5 * (momenta * momenta).sum(-1),
+            0.5 * (v_new * v_new).sum(-1), log_u)
+        theta = torch.where(accepted[:, None], q_new, theta0)
+        return finish(carry, theta, main_accept,
+                      rec[0] if record_uturn else None, draws, sjd_steps)
+
+    epoch_fn.parts = (None if batched_main_traj is not None
+                      else EpochParts(head, step, tail))
     return epoch_fn

@@ -1023,7 +1023,7 @@ def test_graph_run_resumed_is_bit_equal_on_the_card(device, tmp_path, case,
         np.testing.assert_array_equal(getattr(res, name),
                                       getattr(full, name)[15:])
     # the same run on the eager runner
-    monkeypatch.setattr(chains, "graph_runner_applies", lambda *a: False)
+    monkeypatch.setattr(chains, "chunk_runner_kind", lambda *a: "eager")
     eager = train(30)
     assert eager.chunk_runner == "eager"
     np.testing.assert_array_equal(eager.theta_samples, full.theta_samples)
@@ -1084,8 +1084,8 @@ def test_mesh_graph_capture_failure_raises(device, layout):
 
 @pytest.mark.cuda
 def test_driver_takes_the_graph_runner_for_k1_alone(device):
-    """``Network.train`` on the card: K1 cells run on graphs, a K3 cell
-    (a 256-wide layer) stays eager."""
+    """``Network.train`` on the card: K1 cells run on graphs of the chunk,
+    a K3 cell (a 256-wide layer) on the stepped runner's graphs."""
     from tensorbnn_tpu_torch import Network
     net, lik = _resume_net(device)
     assert net.train(4, 1, lik, n_chains=4,
@@ -1100,7 +1100,7 @@ def test_driver_takes_the_graph_runner_for_k1_alone(device):
                     hyper_leapfrog=5, step_size_start=1e-4)
     res = wide.train(2, 1, GaussianLikelihood(sd=0.1), n_chains=4,
                      verbose=False)
-    assert res.main_path == "K3" and res.chunk_runner == "eager"
+    assert res.main_path == "K3" and res.chunk_runner == "stepped"
 
 
 @pytest.mark.cuda
@@ -1144,6 +1144,178 @@ def test_mesh_graph_runs_leave_no_memory_behind(device, layout):
         torch.cuda.synchronize()
         held.append([torch.cuda.memory_allocated(i) for i in cards])
     assert held[1] == held[0] and held[2] == held[0], held
+
+
+# -- the stepped runner (parallel/graphs.py::SteppedChunkRunner): K3 and
+# the plain main block as a head, a step and a tail graph ------------------
+
+def _stepped_cell(device, cell):
+    """The runner pieces of a stepped cell: ``(model, lik, flat, x, y, c,
+    hyper_steps, tempering_beta, main_vg, hyper, chunks)``, ``chunks`` two
+    chunks' ``(eps, L, n_epochs)`` whose (eps, L) and lengths differ:
+    ``wide_deep`` (K3, K2's coupled block) at 64 chains, or a tempered
+    flagship (the plain main block, K2) at 4 rungs x 16 chains with
+    per-rung counts."""
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder
+    tempering_beta = None
+    if cell == "wide_deep":
+        rng = np.random.default_rng(0)
+        layers = []
+        for _ in range(9):
+            layers += [GaussianDenseLayer(256, 256), Tanh()]
+        model = Sequential(layers + [GaussianDenseLayer(256, 1)])
+        lik = GaussianLikelihood(sd=0.1)
+        x = rng.normal(size=(128, 256))
+        y = rng.normal(size=(128, 1))
+        c, hyper_steps = 64, 5
+        chunks = ((1e-5, 20, 3), (1e-5, 25, 2))
+    else:
+        lik = FixedGaussianLikelihood(sd=0.1)
+        model = _flagship(lik)[0]
+        x = np.linspace(-2, 2, 11)[:, None]
+        y = np.sin(x[:, 0] * np.pi * 2) * x[:, 0] - np.cos(x[:, 0] * np.pi)
+        c, hyper_steps = 64, 30
+        tempering_beta = (4, np.repeat(make_ladder(4, 0.5), c // 4))
+        groups = np.asarray(((2e-3, 20), (1e-3, 30), (3e-3, 13), (5e-4, 40)))
+        a = np.repeat(groups, c // 4, axis=0)
+        chunks = tuple((g[:, 0].astype(np.float32), g[:, 1].astype(np.int64),
+                        n) for g, n in ((a, 3), (a[::-1].copy(), 2)))
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    x = torch.tensor(x, dtype=torch.float32, device=device)
+    y = torch.tensor(y, dtype=torch.float32, device=device)
+    h = flat.eta.numel()
+    main_vg = None
+    if tempering_beta is None:
+        main_vg = fused_mlp.try_build_fused_main_vg(
+            model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+        assert main_vg is not None
+    hyper = fused_hyper.try_build_fused_hyper_trajectory(
+        model, lik, flat.unravel_eta, h, hyper_steps)
+    assert hyper is not None
+    return (model, lik, flat, x, y, c, hyper_steps, tempering_beta, main_vg,
+            hyper, chunks)
+
+
+def _stepped_runner(pieces, eager, main_vg=None, mesh=None):
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+    model, lik, flat, x, y, c, hyper_steps, tempering_beta, vg, hyper, _ = \
+        pieces
+    return make_multichain_chunk_runner(
+        model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+        adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
+        hyper_step_size_init=1e-4, eta_dim=flat.eta.numel(),
+        batched_main_vg=vg if main_vg is None else main_vg,
+        batched_hyper_traj=hyper, tempering_beta=tempering_beta,
+        eager=eager, mesh=mesh, n_chains=c)
+
+
+STEPPED_CELLS = ["wide_deep", "tempered_plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", STEPPED_CELLS)
+def test_stepped_runner_matches_eager_runner_on_the_card(device, cell):
+    """Two chunks whose (eps, L) and lengths differ through the stepped
+    runner and the eager runner from one carry and one generator seed: the
+    carry, every trace and the generator's state bit for bit, the kernels'
+    launch counters equal (K3 L + 1 an epoch, K2 one); three captures
+    (head, step, tail) serve both chunks after one warm-up epoch."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    pieces = _stepped_cell(device, cell)
+    flat, c, chunks = pieces[2], pieces[5], pieces[10]
+    carry0 = init_multichain_state(
+        flat.theta.to(device), flat.eta.to(device), 1e-4, c,
+        torch.Generator(device=device).manual_seed(2), jitter=0.01)
+    out = {}
+    for eager in (True, False):
+        run = _stepped_runner(pieces, eager)
+        assert run.runner == ("eager" if eager else "stepped")
+        graphs.COUNTS.reset()
+        gen = torch.Generator(device=device).manual_seed(5)
+        before = [fn.LAUNCHES for fn in graphs.COUNTED]
+        carry, got = carry0, []
+        for eps, leap, n in chunks:
+            carry, trace = run(carry, eps, leap, n, gen)
+            got.append((carry, trace))
+        torch.cuda.synchronize()
+        out[eager] = (got, gen.get_state(),
+                      [fn.LAUNCHES - b for fn, b in
+                       zip(graphs.COUNTED, before)],
+                      graphs.COUNTS.as_dict())
+    for (cg, tg), (ce, te) in zip(out[False][0], out[True][0]):
+        _same_bits(cg, ce, "carry")
+        _same_bits(tg, te, "trace")
+    assert torch.equal(out[False][1], out[True][1])
+    assert out[False][2] == out[True][2] and out[True][2][1] > 0
+    counts = out[False][3]
+    assert (counts["captures"], counts["warmups"]) == (3, 1), counts
+    assert out[True][3]["captures"] == 0
+
+
+@pytest.mark.cuda
+def test_stepped_capture_failure_raises(device):
+    """A main block that copies from pageable host memory cannot be
+    captured: the stepped runner raises (it never carries on eagerly), and
+    the kernels' launch counters and the capture count read as before."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    pieces = _stepped_cell(device, "wide_deep")
+    vg = pieces[8]
+
+    def copying_vg(thetas, *args, **kwargs):
+        torch.as_tensor(np.zeros(4, np.float32), device=thetas.device)
+        return vg(thetas, *args, **kwargs)
+
+    copying_vg.workspace_bytes = vg.workspace_bytes
+    run = _stepped_runner(pieces, False, main_vg=copying_vg)
+    assert run.runner == "stepped"
+    flat, c = pieces[2], pieces[5]
+    carry = init_multichain_state(flat.theta.to(device), flat.eta.to(device),
+                                  1e-4, c)
+    before = [fn.LAUNCHES for fn in graphs.COUNTED]
+    captures = graphs.COUNTS.captures
+    eps, leap, n = pieces[10][0]
+    with pytest.raises(RuntimeError, match="capture"):
+        run(carry, eps, leap, n, torch.Generator(device=device))
+    torch.cuda.synchronize()
+    assert [fn.LAUNCHES for fn in graphs.COUNTED] == before
+    assert graphs.COUNTS.captures == captures
+
+
+@pytest.mark.cuda
+def test_stepped_gate_declines_a_workspace_that_cannot_fit_twice(device):
+    """K3 at 1M rows of an 8-64-64-1 model: 8 chains' workspace (8.2 GB)
+    fits the card twice and takes the stepped runner; 64 chains' (65.8 GB)
+    does not, and the factory builds the eager loop, decided from the
+    configuration before any chunk runs."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+    model = Sequential([GaussianDenseLayer(8, 64), Tanh(),
+                        GaussianDenseLayer(64, 64), Tanh(),
+                        GaussianDenseLayer(64, 1)])
+    lik = GaussianLikelihood(sd=0.1)
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    x = torch.zeros(1_000_000, 8, device=device)
+    y = torch.zeros(1_000_000, device=device)
+    h = flat.eta.numel()
+    vg = fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+    memory = torch.cuda.get_device_properties(device).total_memory
+    kinds = []
+    for c in (8, 64):
+        assert (2 * vg.workspace_bytes(c) <= memory) == (c == 8)
+        kinds.append(make_multichain_chunk_runner(
+            model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+            adjust_hypers=True, hyper_leapfrog=5, burnin=100.0,
+            hyper_step_size_init=1e-6, eta_dim=h, batched_main_vg=vg,
+            n_chains=c).runner)
+    assert kinds == ["stepped", "eager"]
+    assert graphs.stepped_fits(0, {device.index})
 
 
 # MAP pretraining: an epoch a replay of one captured graph ----------------

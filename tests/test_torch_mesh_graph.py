@@ -10,6 +10,8 @@ and the stand-in graph of tests/test_torch_graph_runner.py
   bit for bit over two chunks whose (eps, L) differ, every shard's
   generator state included, in the shared, per-chain, U-turn and
   one-epoch (``classification``) modes and ``multiclass``, on 2x1 and 4x1;
+  and the stepped runner (three graphs a shard) where K3's twin runs the
+  main block with per-chain counts and with the plain hyper block;
 * each shard's body (``StaticChunk`` of the shard's epoch function)
   against the JAX package's ``make_epoch_fn`` on that shard's chains, fed
   the JAX package's own draws (``body_against_jax``);
@@ -30,9 +32,9 @@ import torch
 
 from tensorbnn_tpu_torch.parallel import chains, graphs
 from tensorbnn_tpu_torch.parallel.graphs import GraphChunkRunner, \
-    graph_runner_applies
+    SteppedChunkRunner, chunk_runner_kind
 from tensorbnn_tpu_torch.parallel.mesh import Mesh, make_mesh
-from test_torch_graph_runner import EagerGraph, _case, _equal, \
+from test_torch_graph_runner import EagerGraph, _case, _equal, _steps, \
     body_against_jax
 from test_torch_mesh import _net
 
@@ -42,11 +44,14 @@ CPU = torch.device("cpu")
 
 
 def _graphs_on_the_cpu(monkeypatch):
-    """Makes the factory take the graph runner on the CPU, with the
-    stand-in graph."""
-    monkeypatch.setattr(chains, "graph_runner_applies", lambda *a: True)
+    """Makes the factory take the graph runners on the CPU (K1's, else the
+    stepped one), with the stand-in graph."""
+    monkeypatch.setattr(chains, "chunk_runner_kind", lambda traj, *a: (
+        "graph" if traj is not None else "stepped"))
     monkeypatch.setattr(chains, "GraphChunkRunner", functools.partial(
         GraphChunkRunner, graph_type=EagerGraph))
+    monkeypatch.setattr(chains, "SteppedChunkRunner", functools.partial(
+        SteppedChunkRunner, graph_type=EagerGraph))
 
 
 def _runners(case, shape, monkeypatch):
@@ -58,7 +63,8 @@ def _runners(case, shape, monkeypatch):
     return eager, case.eager_runner(mesh)
 
 
-MODES = ["shared", "per_chain", "uturn", "classification", "multiclass"]
+MODES = ["shared", "per_chain", "uturn", "classification", "multiclass",
+         "k3_per_chain", "plain_hyper"]
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (4, 1)])
@@ -66,18 +72,21 @@ MODES = ["shared", "per_chain", "uturn", "classification", "multiclass"]
 def test_mesh_graph_runner_matches_eager_mesh_runner(name, shape,
                                                      monkeypatch):
     """Two chunks through the mesh graph runner (a capture a shard,
-    replayed) and the eager mesh runner from one carry and one generator
-    seed: carry, traces, the run generator's state and every shard
-    generator's bit-equal after each chunk."""
+    replayed; the stepped runner's three a shard, each shard's step
+    replayed to its own largest count) and the eager mesh runner from one
+    carry and one generator seed: carry, traces, the run generator's state
+    and every shard generator's bit-equal after each chunk."""
     case = _case(name)
     graphs.COUNTS.reset()
     eager, graph = _runners(case, shape, monkeypatch)
     k = shape[0]
-    assert eager.runner == "eager" and graph.runner == "graph"
+    assert eager.runner == "eager" and graph.runner == case.kind
     assert len(graph.homes) == len(graph.epoch_fns) == k
     ge, gg = (torch.Generator().manual_seed(5) for _ in range(2))
     ce = cg = case.t_carry
-    lengths = (3, 2) if name == "classification" else (3, 3)
+    stepped = case.kind == "stepped"
+    lengths = (3, 2) if name == "classification" or stepped else (3, 3)
+    replays = 0
     for (eps, leap), n in zip((case.a, case.b), lengths):
         ce, te = eager(ce, eps, leap, n, ge)
         cg, tg = graph(cg, eps, leap, n, gg)
@@ -86,10 +95,19 @@ def test_mesh_graph_runner_matches_eager_mesh_runner(name, shape,
         assert graph.generators[0] is gg
         for g in graph.generators:
             assert torch.equal(g.get_state(), ge.get_state())
+        if stepped:
+            blocks = (np.split(np.asarray(leap), k) if np.ndim(leap)
+                      else [leap] * k)
+            replays += sum(sum(2 + s for s in _steps(case, b, n))
+                           for b in blocks)
     counts = graphs.COUNTS.as_dict()
-    assert (counts["captures"], counts["warmups"]) == (k, k), counts
-    replays = 2 if graph.whole else sum(lengths)
-    assert counts["replays"] == k * replays, counts
+    if stepped:
+        assert (counts["captures"], counts["warmups"]) == (3 * k, k), counts
+        assert counts["replays"] == replays, counts
+    else:
+        assert (counts["captures"], counts["warmups"]) == (k, k), counts
+        replays = 2 if graph.whole else sum(lengths)
+        assert counts["replays"] == k * replays, counts
     assert tg.theta.shape == (lengths[1],) + tuple(case.t_carry.theta.shape)
 
 
@@ -116,11 +134,12 @@ def test_distinct_cards_take_graphs_if_alike(kinds, want, monkeypatch):
     bits); a data axis above 1 stays eager whatever the cards."""
     monkeypatch.setattr(graphs, "card_kind", lambda i: kinds[i])
     cards = [torch.device("cuda", i) for i in range(len(kinds))]
-    assert graph_runner_applies(object(), Mesh([[d] for d in cards]),
-                                cards[0]) == want
-    if len(cards) % 2 == 0:
-        data = Mesh([cards[j:j + 2] for j in range(0, len(cards), 2)])
-        assert not graph_runner_applies(object(), data, cards[0])
+    for traj, kind in ((object(), "graph"), (None, "stepped")):
+        assert chunk_runner_kind(traj, Mesh([[d] for d in cards]),
+                                 cards[0]) == (kind if want else "eager")
+        if len(cards) % 2 == 0:
+            data = Mesh([cards[j:j + 2] for j in range(0, len(cards), 2)])
+            assert chunk_runner_kind(traj, data, cards[0]) == "eager"
 
 
 def test_tempered_mesh_runs_stay_eager():
@@ -131,7 +150,8 @@ def test_tempered_mesh_runs_stay_eager():
     with pytest.raises(ValueError, match="chains axis to be 1"):
         case.eager_runner(make_mesh(2, 1, devices=[CPU] * 2))
     cuda = torch.device("cuda", 0)
-    assert not graph_runner_applies(object(), Mesh([[cuda, cuda]]), cuda)
+    for traj in (object(), None):
+        assert chunk_runner_kind(traj, Mesh([[cuda, cuda]]), cuda) == "eager"
 
 
 def test_resume_under_a_chains_mesh_on_the_graph_runner(tmp_path,
