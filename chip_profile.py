@@ -39,6 +39,15 @@ picks:
   distinct cards (64 chains a card, the flagship cell's on each), the
   graphs replayed on the four cards at once; on a machine with fewer
   cards it prints that it was skipped. Its busy ms are also given a card;
+- ``mesh wide_deep 2x2``: the ``wide_deep`` cell over a 2x2 mesh of the
+  first card (32 chains a chain shard, 64 rows a data peer): K3 on each
+  peer and K2, each part of the stepped runner split at its sums over the
+  data peers, and (``mesh wide_deep 2x2 eager``) the eager mesh runner;
+- ``mesh surrogate 1x4``: the ``surrogate`` cell over a 1x4 mesh of the
+  first card (250,000 rows a data peer, two 125,000-row chunks each), on
+  the stepped runner and (``... eager``) the eager one; then ``mesh
+  surrogate 4 cards``, the same over four distinct cards, each card's
+  busy ms beside the busiest's (skipped on a machine with fewer cards);
 - ``surrogate``: the JAX bench's 1M-point ``surrogate_quality_exact``
   (``chip_smoke.surrogate_network``: 8-64-64-1 tanh over 1M x 8 points,
   MAP warm start, learned sd) at 32 chains on the plain path that
@@ -217,6 +226,43 @@ def cell(name, run, carry, eps, steps, warm, window, profiled, gen, card,
     return out
 
 
+def mesh_surrogate_cells(dev, gen, card):
+    """The ``mesh surrogate`` cells (see the module docstring): the
+    surrogate cell's runner over a 1x4 mesh of the first card and, where
+    the machine has four cards, of four distinct cards, each on the
+    stepped and on the eager runner."""
+    import chip_smoke as cs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    x, y = cs.surrogate_data()
+    warm = cs.surrogate_pretrain(dev, x, y)
+    net, lik = cs.surrogate_network(dev, x, y, warm, 200)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    for label, devices in (("1x4", [dev] * 4), ("4 cards", [
+            torch.device("cuda", i) for i in range(4)])):
+        if len(set(devices)) > torch.cuda.device_count():
+            print(json.dumps({"cell": f"mesh surrogate {label}",
+                              "card": card, "skipped": "needs 4 cards"}),
+                  flush=True)
+            continue
+        for eager in (False, True):
+            run = cs.surrogate_runner(
+                net, lik, flat, exact_numerics_model(net.model),
+                cs.SURR_CHUNK, True, eager=eager, n_chains=cs.SURR_CHAINS,
+                mesh=make_mesh(1, 4, devices=devices))
+            carry = init_multichain_state(flat.theta, flat.eta,
+                                          cs.SURR_MCMC["hyper_step_size"],
+                                          cs.SURR_CHAINS, gen)
+            cell(f"mesh surrogate {label}" + (" eager" if eager else ""),
+                 run, carry, 3.2e-5, 15, 1, 2, 1, gen, card)
+            del run, carry
+            torch.cuda.empty_cache()
+
+
 def surrogate_cell(dev, gen, card, full=False):
     """The ``surrogate`` cell (see the module docstring); with ``full`` the
     bench's 600-epoch run after it."""
@@ -301,6 +347,10 @@ def main(argv=None) -> int:
              (10, 50, 20), False, 64, False, [dev] * 4),
             ("mesh 4 cards", flagship_network, 1e-3, 100, 100, 1e-3,
              (10, 50, 20), False, 256, False, four),
+            ("mesh wide_deep 2x2", wide_network, 1e-5, 20, 5, 1e-4,
+             (1, 5, 3), False, 64, False, [dev] * 4),
+            ("mesh wide_deep 2x2 eager", wide_network, 1e-5, 20, 5, 1e-4,
+             (1, 5, 3), False, 64, False, [dev] * 4),
             ("wide_deep", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
              False, 64, False, None),
             ("wide_deep eager", wide_network, 1e-5, 20, 5, 1e-4, (1, 5, 3),
@@ -323,7 +373,8 @@ def main(argv=None) -> int:
             print(json.dumps({"cell": name, "card": card, "skipped":
                               f"needs {cards} cards"}), flush=True)
             continue
-        mesh = None if devices is None else make_mesh(4, 1, devices=devices)
+        mesh = None if devices is None else make_mesh(
+            *((2, 2) if "2x2" in name else (4, 1)), devices=devices)
         net, lik = build(dev)
         params, hypers = net.init_state()
         flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
@@ -352,6 +403,8 @@ def main(argv=None) -> int:
         cell(name, run, carry, eps, steps, *sizes, gen, card, glue)
         del run, carry, net
         torch.cuda.empty_cache()
+    if only is None or "mesh surrogate".startswith(only):
+        mesh_surrogate_cells(dev, gen, card)
     if only is not None:
         return 0
     surrogate_cell(dev, gen, card)

@@ -126,7 +126,8 @@ script exits non-zero:
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
    mesh-less swap decisions; the predict cell on 2x2 against the unsharded
    ``predict``; as a ``{"mesh": ...}`` line (``--mesh-only`` runs phases
-   1, 2 and 11 alone);
+   1, 2 and 11 alone). The runs over data axes above 1 take the stepped
+   runner, each part split at the data peers' sums, as phase 13 holds;
 12. the graph chunk runner (parallel/graphs.py), which phases 6-11 take
    wherever K1 runs the main block on this card, against the eager
    runner in each K1 cell of phase 6 (the flagship at 64 chains, the G = 4
@@ -155,9 +156,17 @@ script exits non-zero:
    the U-turn block at 512, ``multiclass`` at 128 and ``wide_deep`` at 64
    (stepped) on 2x1, as phase 12 holds and times its cells (bit-equal
    over two chunks, generator state included; host ms, busy ms, idle
-   share and host launches an epoch; captures, one a shard or three), as
-   a ``{"mesh_graph": ...}`` line (``--mesh-graph-only`` runs phases 1, 2
-   and 13 alone).
+   share and host launches an epoch; captures, one a shard or three);
+   then the stepped runner over data meshes of this card, each part split
+   at its sums over the data peers (a home segment and a graph a peer a
+   sum, the copies between them from the host), against the eager mesh
+   runner in the same way: ``wide_deep`` at 64 chains on 2x2, a tempered
+   ``multiclass`` at 64 x 4 rungs on 1x2 (the plain main block, K2), the
+   1M-point surrogate at 32 chains on 1x4 under exact and default
+   numerics (four epochs a runner; the default's peak memory within 1.1x
+   the eager runner's), each within its derived host launches an epoch
+   (``MESH_DATA_CELLS``), as a ``{"mesh_graph": ...}`` line
+   (``--mesh-graph-only`` runs phases 1, 2 and 13 alone).
 
 It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
@@ -367,10 +376,34 @@ STEPPED_PEAK_OVER_EAGER = 1.1
 MESH_GRAPH_CELLS = {"flagship 64": 4, "G = 4 512": 4,
                     "U-turn 512 alternate": 2, "multiclass 128": 2,
                     "wide_deep 64": 2}
+# phase 13's data-mesh cells (the stepped runner, each part split at its
+# sums over the data peers) and their (chains, data) meshes of this card.
+# An epoch's head and each leapfrog step reach one sum (the main block's
+# evaluation), its tail DATA_TAIL_SUMS (the stats' (R, K) of a coupled
+# hyper block, or the tempered swap's log-likelihood). The host launches
+# an epoch a chain shard may issue there: L + 2 part replays (the head,
+# the L steps, the tail); at each sum a home segment, a replay a peer and
+# at most DATA_COPIES_A_PEER tensors copied between the home and each
+# other peer (the argument's two, the part's two);
+# STEPPED_LAUNCHES_OVER_L an epoch (the head's generator fills, the
+# trace's row copies) and DATA_CHUNK_LAUNCHES a chunk (filling the static
+# buffers, the result's copies), spread over its epochs
+MESH_DATA_CELLS = {"wide_deep 64": (2, 2),
+                   "multiclass tempered 64 x 4": (1, 2),
+                   "surrogate 32 exact": (1, 4),
+                   "surrogate 32 default": (1, 4)}
+DATA_TAIL_SUMS = 1
+DATA_COPIES_A_PEER = 4
+DATA_CHUNK_LAUNCHES = 20
+
+
+_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    """Prints a phase's heading with the script's seconds so far."""
+    print(f"\n== {name} (at {time.perf_counter() - _START:.1f} s)",
+          flush=True)
 
 
 def card_line() -> str:
@@ -593,22 +626,29 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
     per-epoch counts (the driver's) for a shared one; over ``mesh`` (a
     chains-only one) when given; ``n_chains`` the fleet the stepped
     runner's workspace gate is decided for (None: not gated);
-    ``data_chunk`` the stats potential's row chunks."""
+    ``data_chunk`` the stats potential's row chunks. Over a data axis
+    above 1 no K1 is built (it cannot sum over the data peers), and K3 is
+    built for a peer's rows, as the driver builds them."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
+    from tensorbnn_tpu_torch.parallel.mesh import DATA_AXIS
 
     h = flat.eta.numel()
     x, y = net.train_x, net.train_y
     tempered = tempering_beta is not None
-    traj = fused_mlp.try_build_fused_trajectory(
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    traj = None if n_data > 1 else fused_mlp.try_build_fused_trajectory(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
         tempered=tempered, record_uturn=record_uturn)
     vg = None if traj or tempered else fused_mlp.try_build_fused_main_vg(
-        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+        n_rows=x.shape[0] // n_data)
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         net.model, lik, flat.unravel_eta, h, hyper_steps)
-    assert traj or vg, "the main-block kernels declined the model"
+    # a tempered run over data peers runs the plain main block
+    assert traj or vg or tempered and n_data > 1, \
+        "the main-block kernels declined the model"
     return make_multichain_chunk_runner(
         net.model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
         adjust_hypers=True, hyper_leapfrog=hyper_steps, burnin=100.0,
@@ -891,6 +931,17 @@ def host_launches(events) -> int:
     return sum(1 for e in events
                if e.get("cat") in ("cuda_runtime", "cuda_driver")
                and any(k in e.get("name", "") for k in HOST_LAUNCH_NAMES))
+
+
+def host_launch_calls(events, reps=1) -> dict:
+    """``host_launches`` by the call's name, a call of ``reps``."""
+    calls = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and any(
+                k in name for k in HOST_LAUNCH_NAMES):
+            calls[name] = calls.get(name, 0) + 1
+    return {k: v / reps for k, v in sorted(calls.items())}
 
 
 def busy_ms(events) -> float:
@@ -1681,10 +1732,11 @@ def surrogate_network(dev, x, y, warm, burnin, precision=None):
 
 
 def surrogate_runner(net, lik, flat, model, data_chunk, compensated,
-                     eager=False, n_chains=None):
+                     eager=False, n_chains=None, mesh=None):
     """The chunk runner ``sample_posterior`` builds for the surrogate on
-    the plain path (``model`` with the preset's precisions): the stepped
-    runner on the card, unless ``eager``."""
+    the plain path (``model`` with the preset's precisions), over
+    ``mesh`` when given: the stepped runner on the card, unless
+    ``eager``."""
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
     return make_multichain_chunk_runner(
@@ -1694,7 +1746,7 @@ def surrogate_runner(net, lik, flat, model, data_chunk, compensated,
         burnin=float(net.config.burnin),
         hyper_step_size_init=SURR_MCMC["hyper_step_size"],
         eta_dim=flat.eta.numel(), data_chunk=data_chunk,
-        compensated=compensated, eager=eager, n_chains=n_chains)
+        compensated=compensated, eager=eager, n_chains=n_chains, mesh=mesh)
 
 
 def last_state(res, dev, c=None):
@@ -2370,11 +2422,11 @@ def graph_cells(dev):
              hyper=(30, 1e-3), chunk=50, prof=50, uturn=True,
              a=(3e-3, rng.integers(20, 201, 50)),
              b=(2e-3, rng.integers(20, 201, 50))),
-        # its eager epoch takes ~0.18 s (the plain hyper block): one
+        # its eager epoch takes 0.18-0.29 s (the plain hyper block): one
         # chunk of steady epochs
         dict(name="classification 128",
              build=lambda: classification_network(dev), chains=CLS_CHAINS,
-             hyper=(cls["hyper_steps"], 1e-4), chunk=50, prof=5, steady=50,
+             hyper=(cls["hyper_steps"], 1e-4), chunk=20, prof=5, steady=20,
              a=(cls["eps"], cls["steps"]), b=CLS_GROUPS[1]),
         dict(name="multiclass 128", build=lambda: multiclass_network(dev),
              chains=CLS_CHAINS, hyper=(multi["hyper_steps"], 1e-4),
@@ -2420,18 +2472,19 @@ def stepped_cells(dev, warm=None):
 
     def surrogate(exact):
         def make(net, lik, flat, eager, mesh):
-            assert mesh is None
             if exact:
                 return surrogate_runner(
                     net, lik, flat, exact_numerics_model(net.model),
-                    SURR_CHUNK, True, eager=eager, n_chains=SURR_CHAINS)
+                    SURR_CHUNK, True, eager=eager, n_chains=SURR_CHAINS,
+                    mesh=mesh)
             return chunk_runner(net, lik, flat, SURR_MCMC["hyper_leapfrog"],
                                 SURR_MCMC["hyper_step_size"], eager=eager,
-                                n_chains=SURR_CHAINS, data_chunk=SURR_CHUNK)
+                                n_chains=SURR_CHAINS, data_chunk=SURR_CHUNK,
+                                mesh=mesh)
         return make
 
-    surr = dict(build=surrogate_net, chains=SURR_CHAINS, chunk=2, prof=2,
-                steady=4, a=(5e-7, 10), b=(4e-7, 15), runner="stepped")
+    surr = dict(build=surrogate_net, chains=SURR_CHAINS, chunk=2, prof=1,
+                steady=2, a=(5e-7, 10), b=(4e-7, 15), runner="stepped")
     return [
         dict(name="wide_deep 64", build=lambda: wide_network(dev),
              chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
@@ -2441,7 +2494,7 @@ def stepped_cells(dev, warm=None):
              chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
              a=(w_eps, w_l), b=flip(w_eps, w_l), runner="stepped"),
         dict(name="tutorial 64", build=lambda: tutorial_network(dev),
-             chains=64, hyper=(30, 1e-4), chunk=5, prof=2, steady=10,
+             chains=64, hyper=(30, 1e-4), chunk=5, prof=2, steady=5,
              a=(1e-3, 50), b=(1e-3, 40), runner="stepped"),
         dict(surr, name="surrogate 32 exact", make=surrogate(True),
              scale=scale),
@@ -2477,10 +2530,11 @@ def compare_runners(dev, spec, mesh=None) -> dict:
     steady = spec.get("steady", GRAPH_STEADY)
     scale = spec["scale"](flat.theta.numel()) if "scale" in spec else None
     shards = 1 if mesh is None else len(mesh.devices)
+    n_data = 1 if mesh is None else len(mesh.devices[0])
     graph_kind = spec.get("runner", "graph")
     row, chunks = {"chains": spec["chains"], "chunk": n,
                    "steady_epochs": steady, "chain_shards": shards,
-                   "runner": graph_kind}, {}
+                   "data_peers": n_data, "runner": graph_kind}, {}
     make = spec.get("make") or (
         lambda net, lik, flat, eager, mesh: chunk_runner(
             net, lik, flat, hyper_steps, hyper_eps, spec.get("tempering"),
@@ -2523,6 +2577,7 @@ def compare_runners(dev, spec, mesh=None) -> dict:
             "host_ms_per_epoch": host_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / host_ms,
             "host_launches_per_epoch": host_launches(events) / prof,
+            "host_launches_by_call": host_launch_calls(events, prof),
             "device_ops_per_epoch": len(device_events(
                 None, events=events)) / prof,
             "peak_bytes": torch.cuda.max_memory_allocated() - held,
@@ -2530,7 +2585,8 @@ def compare_runners(dev, spec, mesh=None) -> dict:
             **({"captures": graphs.COUNTS.captures,
                 "capture_ms": [1e3 * t for t in
                                graphs.COUNTS.capture_seconds],
-                "replays": graphs.COUNTS.replays}
+                "replays": graphs.COUNTS.replays,
+                "copies": graphs.COUNTS.copies}
                if kind != "eager" else {})}
         del run, carry, got, trace
     (g_chunks, g_state), (e_chunks, e_state) = (chunks[graph_kind],
@@ -2546,25 +2602,35 @@ def compare_runners(dev, spec, mesh=None) -> dict:
     # one capture a key and chain shard: the chunk length (whole-chunk
     # graphs) and, for the classification stack's plain hyper block, one
     # epoch; the stepped runner's head, step and tail, whatever the
-    # chunk's length and L
+    # chunk's length and L, and over data peers a home segment and a
+    # graph a peer at each of their sums
     per_shard = 3 if graph_kind == "stepped" else 1
+    max_launches = spec.get("max_launches")
+    if n_data > 1:
+        per_shard += (2 + DATA_TAIL_SUMS) * (n_data + 1)
+        n_leap = int(np.max(spec["a"][1]))
+        sums = n_leap + 1 + DATA_TAIL_SUMS
+        max_launches = (n_leap + 2 + STEPPED_LAUNCHES_OVER_L
+                        + math.ceil(DATA_CHUNK_LAUNCHES / n) + sums * (
+                            1 + n_data + DATA_COPIES_A_PEER * (n_data - 1)))
+        row["max_host_launches_per_epoch"] = shards * max_launches
     if g["captures"] != per_shard * shards:
         raise AssertionError(f"{spec['name']}: {g['captures']} captures "
                              f"for one chunk key over {shards} shards")
     if g["host_launches_per_epoch"] >= e["host_launches_per_epoch"]:
         raise AssertionError(f"{spec['name']}: the graph runner issues "
                              f"no fewer host launches an epoch: {row}")
-    if "max_launches" in spec and g["host_launches_per_epoch"] > \
-            shards * spec["max_launches"]:
+    if max_launches is not None and g["host_launches_per_epoch"] > \
+            shards * max_launches:
         raise AssertionError(f"{spec['name']}: more than "
-                             f"{spec['max_launches']} host launches an "
+                             f"{max_launches} host launches an "
                              f"epoch a shard: {row}")
     if "peak_over_eager" in spec and g["peak_bytes"] > \
             spec["peak_over_eager"] * e["peak_bytes"]:
         raise AssertionError(f"{spec['name']}: peak memory over "
                              f"{spec['peak_over_eager']}x the eager "
                              f"runner's: {row}")
-    where = "" if mesh is None else f" on {shards}x1"
+    where = "" if mesh is None else f" on {shards}x{n_data}"
     print(f"{spec['name']}{where}: {graph_kind} and eager runners bit-equal "
           f"over two chunks of {n}; host ms/epoch "
           f"{e['host_ms_per_epoch']:.3f} eager, "
@@ -2581,32 +2647,77 @@ def compare_runners(dev, spec, mesh=None) -> dict:
     return row
 
 
+def run_cells(cells) -> dict:
+    """``compare_runners`` over ``cells``, ``(label, spec, mesh)`` each;
+    a cell that fails does not stop the next, and the phase raises at
+    its end with every cell's failure."""
+    out, failed = {}, []
+    for label, spec, mesh in cells:
+        try:
+            out[label] = compare_runners(spec["dev"], spec, mesh)
+        except AssertionError as err:
+            print(f"{label}: FAILED: {err}", flush=True)
+            failed.append(f"{label}: {err}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def graph_phase(dev, card, warm=None) -> dict:
     """Phase 12: each cell of ``graph_cells`` through the eager and the
     graph runner, and each of ``stepped_cells`` (the surrogate's from the
     MAP warm start ``warm``) through the eager and the stepped runner,
     without a mesh (``compare_runners``)."""
-    out = {"card": card}
-    for spec in graph_cells(dev) + stepped_cells(dev, warm):
-        out[spec["name"]] = compare_runners(dev, spec)
-    return out
+    return {"card": card, **run_cells(
+        (spec["name"], dict(spec, dev=dev), None)
+        for spec in graph_cells(dev) + stepped_cells(dev, warm))}
 
 
-def mesh_graph_phase(dev, card) -> dict:
+def data_mesh_cells(dev, warm=None):
+    """Phase 13's data-mesh cells (``MESH_DATA_CELLS``): ``wide_deep`` at
+    64 chains (K3 on each peer's rows, K2's coupled block) as phase 12
+    runs it but over 20 steady epochs; ``multiclass`` tempered at 64
+    chains x 4 rungs (beta_min 0.5; the plain main block, K2), the
+    bench's (eps, L) and (5e-3, 30), chunks of 5, 10 steady epochs; the
+    1M-point surrogate at 32 chains under exact and default numerics (K3
+    on 250,000 rows a peer), from the MAP warm start ``warm`` (pretrained
+    here when None), at (eps, L) = (5e-7, 10) and (4e-7, 15) in chunks
+    of one epoch, one steady and one profiled: four epochs a runner."""
+    from tensorbnn_tpu_torch.sampler.tempering import make_ladder
+
+    multi = CLS_CELLS["multiclass"]
+    cells = {spec["name"]: spec for spec in stepped_cells(dev, warm)
+             if spec["name"] in MESH_DATA_CELLS}
+    cells["multiclass tempered 64 x 4"] = dict(
+        name="multiclass tempered 64 x 4",
+        build=lambda: multiclass_network(dev), chains=256,
+        hyper=(multi["hyper_steps"], 1e-4), chunk=5, prof=5, steady=10,
+        tempering=(4, np.repeat(make_ladder(4, 0.5), 64)),
+        a=(multi["eps"], multi["steps"]), b=(5e-3, 30), runner="stepped")
+    cells["wide_deep 64"] = dict(cells["wide_deep 64"], steady=20)
+    for name in ("surrogate 32 exact", "surrogate 32 default"):
+        cells[name] = dict(cells[name], chunk=1, prof=1, steady=1)
+    return [dict(cells[name], mesh=shape)
+            for name, shape in MESH_DATA_CELLS.items()]
+
+
+def mesh_graph_phase(dev, card, warm=None) -> dict:
     """Phase 13: the cells of ``MESH_GRAPH_CELLS`` through the eager and
     the graph runner over a chains-only mesh whose entries are all this
-    card (a graph a chain shard, the stepped runner's three;
-    ``compare_runners``)."""
+    card (a graph a chain shard, the stepped runner's three), then those
+    of ``data_mesh_cells`` through the eager and the stepped runner over
+    a ``(chains, data)`` mesh of this card (each part split at its sums
+    over the data peers; ``compare_runners``)."""
     from tensorbnn_tpu_torch.parallel.mesh import make_mesh
 
-    out = {"card": card}
-    for spec in graph_cells(dev) + stepped_cells(dev)[:1]:
-        if spec["name"] in MESH_GRAPH_CELLS:
-            n_chain = MESH_GRAPH_CELLS[spec["name"]]
-            mesh = make_mesh(n_chain, 1, devices=[dev] * n_chain)
-            out[f"{spec['name']} on {n_chain}x1"] = compare_runners(
-                dev, spec, mesh)
-    return out
+    cells = [(spec, (MESH_GRAPH_CELLS[spec["name"]], 1))
+             for spec in graph_cells(dev) + stepped_cells(dev)[:1]
+             if spec["name"] in MESH_GRAPH_CELLS]
+    cells += [(spec, spec["mesh"]) for spec in data_mesh_cells(dev, warm)]
+    return {"card": card, **run_cells(
+        (f"{spec['name']} on {k}x{n}", dict(spec, dev=dev),
+         make_mesh(k, n, devices=[dev] * (k * n)))
+        for spec, (k, n) in cells)}
 
 
 def main(argv=None) -> int:
@@ -3816,7 +3927,7 @@ def main(argv=None) -> int:
     print(json.dumps({"graph": graph_phase(dev, card, warm)}))
 
     phase("13 the mesh graph runner against the eager mesh runner")
-    print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card)}))
+    print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card, warm)}))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,14 +4,16 @@ device or over a ``(chains, data)`` mesh.
 Counterpart of ``init_multichain_state`` and
 ``make_multichain_chunk_runner`` of ``tensorbnn_tpu/parallel/chains.py``.
 Chains batch as ``(C, D)`` blocks. On CUDA devices of one kind, without
-a mesh or over a mesh whose data axis is 1, a chunk runs as captured CUDA
-graphs on each chain shard's home card, the port of the JAX package's
-compiled (``shard_map``) chunk (parallel/graphs.py): a graph of the chunk
-where K1 runs the main block, a head, a step and a tail graph of the epoch
-where K3 or the plain path does. Else (every data axis above 1, cards of
-two kinds, the CPU) the chunk runner is a Python loop over epochs (the
-eager runner) whose per-epoch outputs stay on the device, so a chunk
-enqueues its work without a host synchronization.
+a mesh or over any ``(chains, data)`` mesh of them, a chunk runs as
+captured CUDA graphs on each chain shard's home card, the port of the JAX
+package's compiled (``shard_map``) chunk (parallel/graphs.py): a graph of
+the chunk where K1 runs the main block (a data axis of 1: K1 cannot sum
+over data peers), a head, a step and a tail graph of the epoch where K3 or
+the plain path does, each split at its sums over the data peers where the
+data axis is above 1. Else (cards of two kinds, K3's workspace over the
+gate, the CPU) the chunk runner is a Python loop over epochs (the eager
+runner) whose per-epoch outputs stay on the device, so a chunk enqueues
+its work without a host synchronization.
 
 One runner serves every run: without a mesh it runs a 1x1 mesh of the
 data's device. Over a ``(chains, data)`` mesh (parallel/mesh.py) the
@@ -142,13 +144,14 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     carry and the traces in chain order at the chunk's end. Tempering needs
     a chains axis of 1 (``check_tempering_mesh``).
 
-    ``chunk_runner_kind`` picks the runner from the configuration (a data
-    axis of 1 and CUDA devices of one kind for either graph runner,
-    parallel/graphs.py): where K1 runs the main block a
-    ``GraphChunkRunner`` (a graph a chain shard on its home), where K3 or
-    the plain path does a ``SteppedChunkRunner`` (a head, a step and a
-    tail graph a chain shard) unless K3's workspace at ``n_chains`` (the
-    fleet; None: not gated) fails ``stepped_fits``; else the eager loop.
+    ``chunk_runner_kind`` picks the runner from the configuration (CUDA
+    devices of one kind for either graph runner, parallel/graphs.py):
+    where K1 runs the main block a ``GraphChunkRunner`` (a graph a chain
+    shard on its home; K1 takes no data mesh), where K3 or the plain path
+    does a ``SteppedChunkRunner`` (a head, a step and a tail graph a chain
+    shard, split at the sums over its data peers on a data axis above 1)
+    unless K3's workspace at ``n_chains`` (the fleet; None: not gated) on
+    a peer's rows fails ``stepped_fits``; else the eager loop.
     Both graph runners have the loop's signature and give its results bit
     for bit. The runner's ``runner`` attribute says which ("graph",
     "stepped" or "eager"). ``eager`` keeps the eager loop where a graph
@@ -188,7 +191,8 @@ def make_multichain_chunk_runner(model: Sequential, likelihood: Likelihood,
     if kind == "stepped":
         return SteppedChunkRunner(
             epoch_fns, homes, h=h, tempered=tempered,
-            per_epoch_leapfrog=per_epoch_leapfrog, n_chains=n_chains)
+            per_epoch_leapfrog=per_epoch_leapfrog, n_chains=n_chains,
+            peers=shards)
 
     def run_chunk(carry: ChainState, step_size, leapfrog, n_epochs: int,
                   generator: torch.Generator,

@@ -11,15 +11,15 @@ home card, and replayed, so the host issues one launch a shard where the
 eager runner issues every kernel and glue operation of every epoch.
 
 Which runner a chunk takes is decided from the configuration when the
-runner is built (``chunk_runner_kind``): either graph runner needs a mesh
-(if any) with a data axis of 1 and chains on CUDA devices of one kind;
-then K1's main block takes ``GraphChunkRunner`` (below), and K3's or the
-plain path's ``SteppedChunkRunner`` unless K3's workspace fails the gate
-``stepped_fits``. A data axis above 1 (``DataPeers.sum`` would need copies
-between cards inside the graphs), cards of two kinds and the CPU keep the
-eager runner (parallel/chains.py). A tempered run needs a chains axis of
-1 (``check_tempering_mesh``), so on a mesh it has a data axis above 1 and
-runs eagerly too.
+runner is built (``chunk_runner_kind``): either graph runner needs every
+entry of the mesh (if any) on a CUDA device, the cards of one kind; then
+K1's main block takes ``GraphChunkRunner`` (below) where the data axis is
+1 (K1 is never built over data peers), and K3's or the plain path's
+``SteppedChunkRunner``, over any data axis, unless K3's workspace fails
+the gate ``stepped_fits``. Cards of two kinds, a failed gate and the CPU
+keep the eager runner (parallel/chains.py). A tempered run needs a chains
+axis of 1 (``check_tempering_mesh``), so on a mesh it has a data axis
+above 1, and runs on the stepped runner (its main block is the plain one).
 
 A key is the graph's epochs, the carry's shape, the form of the leapfrog
 counts (shared, per chain or per epoch) and whether a step scale is given;
@@ -98,6 +98,16 @@ the step L times and the tail. The eager epoch runs the same three parts
 in the same order, so the two are bit-equal. The three graphs of a card
 share one memory pool, so K3's per-call workspace lives once in it.
 
+Over a data axis above 1 the JAX package sums the likelihood's terms with
+``lax.psum`` inside its compiled chunk; here the sum is a host-side gather
+across cards (``DataPeers.sum``), and a torch graph lives on one card and
+one pool. So each part is split at its sums (``SegmentedPart``): a graph
+of the home's work up to a sum, a graph of each data peer's evaluation on
+its own card, copies of the argument to the peers and of their parts back
+issued by the host between them, and a graph of the home's work from the
+sum on. The sum itself, the peers' order and every operation are the
+eager epoch's, so the replays stay bit-equal to the eager mesh runner.
+
 ``StepGraph`` applies the same recipe (a warm-up on the side stream,
 one capture, replays) to the step of a loop, a body that draws nothing
 and reads nothing but its static buffers: MAP pretraining's optimizer
@@ -111,6 +121,7 @@ epoch up to 7% faster (``chip_profile.py pretrain``).
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import NamedTuple, Optional
@@ -119,7 +130,8 @@ import numpy as np
 import torch
 
 from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
-from tensorbnn_tpu_torch.parallel.mesh import DATA_AXIS, gather
+from tensorbnn_tpu_torch.parallel.mesh import DATA_AXIS, data_sum, gather, \
+    to_device
 from tensorbnn_tpu_torch.sampler.gibbs import ChainState, EpochDraws, \
     EpochTrace, draw_epoch
 
@@ -131,8 +143,10 @@ COUNTED = (fused_mlp.fused_trajectory, fused_hyper.fused_hyper_trajectory,
 
 class GraphCounts:
     """What the graph runners did since the last ``reset``: graphs
-    captured, each capture's seconds (its warm-up epoch included), replays
-    and warm-up epochs."""
+    captured, each capture's seconds (its warm-up epoch included), replays,
+    warm-up epochs and, over a data axis above 1, the host's copies of a
+    sum's argument to a peer and of a peer's part back to the home
+    (``SegmentedPart``), one a peer and direction."""
 
     def __init__(self):
         self.reset()
@@ -141,11 +155,12 @@ class GraphCounts:
         self.captures = 0
         self.replays = 0
         self.warmups = 0
+        self.copies = 0
         self.capture_seconds = []
 
     def as_dict(self) -> dict:
         return {"captures": self.captures, "replays": self.replays,
-                "warmups": self.warmups,
+                "warmups": self.warmups, "copies": self.copies,
                 "capture_ms": [1e3 * s for s in self.capture_seconds]}
 
 
@@ -156,35 +171,44 @@ def chunk_runner_kind(batched_main_traj, mesh, device,
                       workspace_bytes: int = 0) -> str:
     """Which runner a chunk takes, from the configuration alone: "graph"
     (``GraphChunkRunner``) where K1 runs the main block
-    (``batched_main_traj``), "stepped" (``SteppedChunkRunner``) where K3
-    or the plain path runs it and ``stepped_fits``, else "eager". Either
-    graph runner needs a mesh (None: no mesh, the chains on ``device``)
-    whose data axis is 1 and chain shards on CUDA devices of one kind
-    (``card_kind``; a card that repeats is asked nothing).
-    ``workspace_bytes`` is a K3 call's workspace on a chain shard (0 for
-    the plain path)."""
-    if mesh is None:
-        homes = [torch.device(device)]
-    elif mesh.shape[DATA_AXIS] != 1:
+    (``batched_main_traj``) and the mesh (if any) has a data axis of 1,
+    "stepped" (``SteppedChunkRunner``) where K3 or the plain path runs it
+    and ``stepped_fits``, else "eager". Either graph runner needs every
+    entry of the mesh (None: no mesh, the chains on ``device``) on a CUDA
+    device, the cards all of one kind (``card_kind``; a card that repeats
+    is asked nothing). K1 is never built on a data mesh (it cannot sum
+    over the peers mid-trajectory), so there it is "eager" here too.
+    ``workspace_bytes`` is a K3 call's workspace on a chain shard's chains
+    and a peer's rows (0 for the plain path)."""
+    entries = ([torch.device(device)] if mesh is None
+               else [d for row in mesh.devices for d in row])
+    if any(d.type != "cuda" for d in entries):
         return "eager"
-    else:
-        homes = [row[0] for row in mesh.devices]
-    if any(d.type != "cuda" for d in homes):
-        return "eager"
-    cards = {d.index for d in homes}
+    cards = {d.index for d in entries}
     if len(cards) > 1 and len({card_kind(i) for i in cards}) > 1:
         return "eager"
     if batched_main_traj is not None:
-        return "graph"
+        data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+        return "graph" if data == 1 else "eager"
     return "stepped" if stepped_fits(workspace_bytes, cards) else "eager"
 
 
 def stepped_fits(workspace_bytes: int, cards) -> bool:
     """The stepped runner's gate: a K3 call's workspace fits twice on each
-    card, once in the graphs' pool and once in the caching allocator (an
-    eager call on another stream, the driver's or the caller's, may hold
-    it when a capture starts, and a capture cannot hand it back to the
-    card). The plain path (no workspace) always passes."""
+    card of the mesh, once in the card's graph pool and once in the
+    caching allocator (an eager call on another stream, the warm-up's,
+    the driver's or the caller's, may hold it when a capture starts, and
+    a capture cannot hand it back to the card). A card's pool holds one
+    workspace at a time however many chain shards or data peers it
+    serves: each K3 call frees its workspace when it ends, and the card's
+    graphs (home segments and peers' evaluations) are captured and
+    replayed one after another in that one pool, so each capture reuses
+    the last one's. The default-numerics surrogate on a 1x4 mesh of one
+    H100 80GB (four peers of 250,000 rows, 8.23 GB of workspace each)
+    reserved 25.95 GB on the stepped runner against 17.70 GB eager, one
+    workspace more, at the same 8.24 GB peak allocated (``PERF.md``, the
+    stepped runner over data meshes). The plain path (no workspace)
+    always passes."""
     return workspace_bytes == 0 or all(
         2 * workspace_bytes <= card_memory(i) for i in cards)
 
@@ -344,22 +368,73 @@ class CudaGraph:
     it, its memory from ``pool`` (``new_pool``; None: a pool of its own);
     ``replay`` runs it on the device's current stream. ``warm_up`` runs a
     function eagerly on the device's side stream (torch's recipe before a
-    first capture)."""
+    first capture). ``open`` and ``close`` capture a graph whose body the
+    caller runs in between (``SegmentedPart``'s segments, which split a
+    function at its sums, so that a graph can end and the next begin
+    inside it); ``splits`` says that this graph type can."""
+
+    splits = True
 
     def __init__(self, fn, generator: Optional[torch.Generator], device,
                  pool=None):
         self.graph = torch.cuda.CUDAGraph()
         self.device = torch.device(device)
         with torch.cuda.device(self.device):
-            # a generator's first registration puts the seed and offset its
-            # graphs read on the current device: it must be the graph's
-            if generator is not None and generator is not \
-                    torch.cuda.default_generators[self.device.index]:
-                self.graph.register_generator_state(generator)
+            self._register(generator)
             with torch.cuda.graph(self.graph, pool=pool,
                                   stream=_side_stream(self.device),
                                   capture_error_mode="global"):
                 fn()
+
+    def _register(self, generator) -> None:
+        # a generator's first registration puts the seed and offset its
+        # graphs read on the current device: it must be the graph's
+        if generator is not None and generator is not \
+                torch.cuda.default_generators[self.device.index]:
+            self.graph.register_generator_state(generator)
+
+    @classmethod
+    def open(cls, generator: Optional[torch.Generator], device,
+             pool) -> "CudaGraph":
+        """Begins capturing a graph on ``device``'s side stream, which the
+        caller has made current there, without ``torch.cuda.graph``'s
+        preamble (a synchronize, ``gc.collect`` and emptying the cache: up
+        to 0.5 s a capture in a long process; a segmented part takes it
+        once); ``close`` ends the capture."""
+        self = cls.__new__(cls)
+        self.graph, self.device = torch.cuda.CUDAGraph(), torch.device(device)
+        with torch.cuda.device(self.device):
+            self._register(generator)
+            self.graph.capture_begin(pool=pool, capture_error_mode="global")
+        return self
+
+    def close(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.capture_end()
+
+    def abandon(self) -> None:
+        """Ends a capture that failed; its own error is dropped for the
+        one that made it fail."""
+        try:
+            self.close()
+        except RuntimeError:
+            pass
+
+    @classmethod
+    def segment(cls, fn, device, pool) -> "CudaGraph":
+        """``fn`` (which draws nothing) captured on ``device``'s side stream
+        by ``open`` and ``close``."""
+        device = torch.device(device)
+        with torch.cuda.device(device), torch.cuda.stream(
+                _side_stream(device)):
+            graph = cls.open(None, device, pool)
+            try:
+                fn()
+            except BaseException:
+                graph.abandon()
+                raise
+            graph.close()
+        return graph
 
     @staticmethod
     def new_pool():
@@ -380,6 +455,180 @@ class CudaGraph:
             with torch.cuda.stream(side):
                 fn()
             current.wait_stream(side)
+
+
+def _static(value, device):
+    """Uninitialized tensors shaped as ``value`` (a tensor or a tuple of
+    them) on ``device``; anything else as it is."""
+    if isinstance(value, tuple):
+        return tuple(_static(v, device) for v in value)
+    if torch.is_tensor(value):
+        return torch.empty_like(value, device=device)
+    return value
+
+
+def _copy(dst, src) -> None:
+    """``src`` (a tensor or a tuple of them) into ``dst`` of its shapes,
+    ``non_blocking``: the host never waits, and a copy between cards
+    orders itself after both cards' current streams."""
+    if isinstance(src, tuple):
+        for d, v in zip(dst, src):
+            _copy(d, v)
+    elif torch.is_tensor(src):
+        dst.copy_(src, non_blocking=True)
+
+
+class _SumPoint:
+    """One ``peers.sum(fns, *args)`` of a ``SegmentedPart``, captured
+    once: peer ``j``'s evaluation ``fns[j]`` a graph on its card
+    (``graph(fn, device)``), reading the home's own ``args`` (peer 0, on
+    the home card) or a static copy of them on its card (``inputs[j]``,
+    j > 0), its outputs left where its graph wrote them (``outs[j]``), and
+    a static copy of peer j's outputs on the home card (``parts[j]``, j >
+    0). ``issue`` is the host's share of a replay; ``total`` the sum of
+    the parts in peer order on the home (``data_sum``), which the next
+    home segment opens with. The peers' graphs are captured in the order
+    they replay (peer 0 last): graphs of one card share its pool, where a
+    later capture may take what an earlier one freed, so a graph that
+    replayed out of that order could overwrite another's outputs before
+    they are read."""
+
+    def __init__(self, peers, fns, args, graph):
+        self.home, self.fns, self.src = peers.home, fns, args
+        n = len(fns)
+        self.inputs = [None] + [_static(args, d) for d in peers.devices[1:]]
+        self.outs = [None] * n
+        self.graphs = [None] * n
+        for j in list(range(1, n)) + [0]:
+            self.graphs[j] = graph(functools.partial(self._evaluate, j),
+                                   peers.devices[j])
+        # a graph's outputs are known once it is captured (the CPU tests'
+        # stand-in captures nothing: then at its first replay)
+        self.parts = [None] + [None if out is None else
+                               _static(out, self.home)
+                               for out in self.outs[1:]]
+        COUNTS.captures += len(fns)
+
+    def _evaluate(self, j: int) -> None:
+        self.outs[j] = self.fns[j](*(self.src if j == 0 else
+                                     self.inputs[j]))
+
+    def issue(self, args=None) -> None:
+        """Copies the argument to each other peer and replays its graph,
+        replays peer 0's on the home (after the others are issued, so that
+        on distinct cards all work at once) and copies each other peer's
+        outputs to the home; ``args`` (the stand-in's rerun) replaces the
+        captured argument. Nothing waits on the host."""
+        if args is not None:
+            self.src = args
+        n = len(self.graphs)
+        for j in range(1, n):
+            _copy(self.inputs[j], self.src)
+            self.graphs[j].replay()
+        self.graphs[0].replay()
+        for j in range(1, n):
+            if self.parts[j] is None:
+                self.parts[j] = _static(self.outs[j], self.home)
+            _copy(self.parts[j], self.outs[j])
+        COUNTS.replays += n
+        COUNTS.copies += 2 * (n - 1)
+
+    def total(self):
+        return data_sum([self.outs[0]] + self.parts[1:], self.home)
+
+
+class SegmentedPart:
+    """A part ``fn`` of a chain shard's epoch (``SteppedChunk``'s head,
+    step or tail) over a data axis above 1, captured as graphs split at
+    its sums over the data peers (``peers``, a ``DataPeers`` of more than
+    one peer): one torch graph lives on one card and one pool, and a sum
+    needs each peer's work on its own card. While ``fn`` runs under
+    capture, each ``peers.sum`` (its ``mode``) ends the home segment's
+    capture, captures each peer's evaluation as a graph on its card, on
+    that card's side stream and in its pool (``_SumPoint``), and begins the
+    next home segment, which opens with the sum of the peers' parts. A
+    part is then a list of actions that ``replay`` runs in order: replay a
+    home segment, issue a sum (copies and the peers' replays), replay the
+    next segment. It segments at every sum, also where the peers are all
+    one card (a virtual mesh): one code path for repeated and distinct
+    cards. The same operations run in the same order as in the eager
+    epoch, and a copy does not change bits, so the two are bit-equal.
+
+    ``generator`` (the head's) is registered with every home segment; the
+    peers' graphs draw nothing. ``pool(device)`` is the card's pool, which
+    every graph of the card shares. ``graph_type`` is ``CudaGraph`` or,
+    in the CPU tests, a stand-in that cannot split a function (no
+    ``splits``): it reruns the whole part at each replay, and each sum
+    then goes through its point's static buffers, copies and peers'
+    graphs as a real replay does. Counted in ``COUNTS`` beyond the part's
+    own capture and replay: a home segment and the peers' graphs a sum,
+    and the copies."""
+
+    def __init__(self, fn, generator, peers, graph_type, pool):
+        self.peers, self.graph_type, self.pool = peers, graph_type, pool
+        self.generator, self.points, self.actions = generator, [], []
+        self.current = None
+        home = peers.home
+        if not getattr(graph_type, "splits", False):
+            self.actions = [graph_type(
+                lambda: self._run(fn, self._rerun_sum), generator, home,
+                pool=pool(home)).replay]
+            return
+        torch.cuda.synchronize(home)
+        with torch.cuda.device(home), torch.cuda.stream(_side_stream(home)):
+            self.current = graph_type.open(generator, home, pool(home))
+            try:
+                self._run(fn, self._split)
+            except BaseException:
+                if self.current is not None:
+                    self.current.abandon()
+                raise
+            self._close()
+
+    def _run(self, fn, mode) -> None:
+        self.k = 0
+        self.peers.mode = mode
+        try:
+            fn()
+        finally:
+            self.peers.mode = None
+
+    def _close(self) -> None:
+        self.current.close()
+        self.actions.append(self.current.replay)
+        self.current = None
+
+    def _split(self, fns, args):
+        """A sum under capture: (a) ends the home segment, (b)-(d) captures
+        the peers' graphs and makes the static buffers of the copies, (e)
+        begins the next home segment with the sum."""
+        home = self.peers.home
+        self._close()
+        point = _SumPoint(self.peers, fns, args, lambda f, d: (
+            self.graph_type.segment(f, d, self.pool(d))))
+        self.points.append(point)
+        self.actions.append(point.issue)
+        self.current = self.graph_type.open(self.generator, home,
+                                            self.pool(home))
+        COUNTS.captures += 1
+        return point.total()
+
+    def _rerun_sum(self, fns, args):
+        """A sum of the stand-in's rerun: the k-th sum's point (made at the
+        first rerun) issued on this rerun's argument."""
+        if self.k == len(self.points):
+            self.points.append(_SumPoint(self.peers, fns, args, lambda f, d: (
+                self.graph_type(f, None, d, pool=self.pool(d)))))
+            COUNTS.captures += 1
+        point = self.points[self.k]
+        self.k += 1
+        point.issue(args)
+        return point.total()
+
+    def replay(self) -> None:
+        for action in self.actions:
+            action()
+        COUNTS.replays += len(self.points)
 
 
 class StepGraph:
@@ -689,23 +938,32 @@ class SteppedChunkRunner(GraphChunkRunner):
     step_scale=None) -> (carry, trace)`` of parallel/chains.py where K3 or
     the plain path runs the main block: three graphs a chain shard and key
     (``SteppedChunk``'s head, step and tail, captured once on the shard's
-    home in one memory pool a card), and an epoch is a replay of the head,
-    ``L`` replays of the step and one of the tail, ``L`` the shared count,
-    the shard's largest per-chain count or a U-turn run's count of the
-    epoch, from the host. The key is the carry's shapes and dtype, the
-    counts' form and whether a step scale is given: neither ``L`` nor the
-    chunk's length. Only the head draws, so only it registers the shard's
-    generator. Each epoch's trace is copied out of the tail's outputs
-    before the next head replays (a later capture in the pool may have
-    reused an earlier one's temporaries). ``n_chains``: the fleet the
-    workspace gate was decided for (None: no gate), which a chunk must
-    carry."""
+    home), and an epoch is a replay of the head, ``L`` replays of the step
+    and one of the tail, ``L`` the shared count, the shard's largest
+    per-chain count or a U-turn run's count of the epoch, from the host.
+    The key is the carry's shapes and dtype, the counts' form and whether a
+    step scale is given: neither ``L`` nor the chunk's length. Only the
+    head draws, so only it registers the shard's generator. Each epoch's
+    trace is copied out of the tail's outputs before the next head replays
+    (a later capture in the pool may have reused an earlier one's
+    temporaries). ``n_chains``: the fleet the workspace gate was decided
+    for (None: no gate), which a chunk must carry.
+
+    ``peers``: each chain shard's ``DataPeers`` (None, or one peer: no
+    data axis). Over more than one peer each part is a ``SegmentedPart``,
+    split at its sums over the peers, and the warm-up epoch runs each
+    peer's evaluation on its own card's side stream (where K3 makes its
+    tables and the stream its cuBLAS workspace). Every graph of a card
+    (a shard's parts on its home, a peer's evaluations) takes the card's
+    one memory pool (``pools``, by card), captured and replayed in one
+    order."""
 
     runner = "stepped"
 
     def __init__(self, epoch_fns, homes, *, h: Optional[int],
                  tempered: bool, per_epoch_leapfrog: bool,
-                 n_chains: Optional[int] = None, graph_type=CudaGraph):
+                 n_chains: Optional[int] = None, peers=None,
+                 graph_type=CudaGraph):
         super().__init__(epoch_fns, homes, h=h, tempered=tempered,
                          per_epoch_leapfrog=per_epoch_leapfrog, whole=False,
                          graph_type=graph_type)
@@ -713,6 +971,8 @@ class SteppedChunkRunner(GraphChunkRunner):
             raise ValueError("the stepped runner replays the parts of a K3 "
                              "or plain-path epoch; K1 takes GraphChunkRunner")
         self.n_chains = n_chains
+        self.peers = [p if p is not None and len(p) > 1 else None
+                      for p in (peers or [None] * len(self.homes))]
         self.pools = {}
 
     def __call__(self, carry: ChainState, step_size, leapfrog,
@@ -767,14 +1027,23 @@ class SteppedChunkRunner(GraphChunkRunner):
         return _gathered([e[0].chunk.result(leaps, e[0].chunk.unpack(r))
                           for e, r in zip(entries, rows)])
 
+    def pool(self, card):
+        """The memory pool of a card, made at its first graph."""
+        card = torch.device(card)
+        if card not in self.pools:
+            self.pools[card] = self.graph_type.new_pool()
+        return self.pools[card]
+
     def _capture(self, i: int, carry: ChainState, step_size, leapfrog,
                  mode: str, generator, step_scale) -> list:
         """Captures shard ``i``'s head, step and tail for this key on its
-        home, in the card's pool (after the shard's warm-up epoch, the
-        first time); the kernel counters read afterwards as they read
+        home, in the card's pool, each split at its sums over the shard's
+        data peers where it has several (after the shard's warm-up epoch,
+        the first time); the kernel counters read afterwards as they read
         before."""
         t0 = time.perf_counter()
-        home, shard = self.homes[i], (i, len(self.homes))
+        home, shard, peers = self.homes[i], (i, len(self.homes)), \
+            self.peers[i]
         before = [fn.LAUNCHES for fn in COUNTED]
         captured, seconds = [], []
         try:
@@ -784,13 +1053,15 @@ class SteppedChunkRunner(GraphChunkRunner):
             chunk = SteppedChunk(self.epoch_fns[i], carry, mode, self.h,
                                  self.tempered, step_scale, home, shard)
             chunk.fill(carry, step_size, leapfrog, step_scale)
-            if home not in self.pools:
-                self.pools[home] = self.graph_type.new_pool()
             for body, gen in ((lambda: chunk.head(generator), generator),
                               (chunk.step, None), (chunk.tail, None)):
                 mid = [fn.LAUNCHES for fn in COUNTED]
-                graph = self.graph_type(body, gen, home,
-                                        pool=self.pools[home])
+                if peers is None:
+                    graph = self.graph_type(body, gen, home,
+                                            pool=self.pool(home))
+                else:
+                    graph = SegmentedPart(body, gen, peers, self.graph_type,
+                                          self.pool)
                 captured.append(_Captured(
                     graph, chunk, [fn.LAUNCHES - m for fn, m in
                                    zip(COUNTED, mid)], generator))
@@ -806,18 +1077,34 @@ class SteppedChunkRunner(GraphChunkRunner):
     def _warm_up(self, i: int, carry, step_size, leapfrog, mode, generator,
                  step_scale) -> None:
         """One eager epoch of shard ``i``'s bodies, with one leapfrog step,
-        on its home's side stream, on a copy of its block; the generator's
-        state is put back afterwards."""
+        on its home's side stream, each data peer's evaluations on its own
+        card's side stream, on a copy of its block; the generator's state
+        is put back afterwards."""
         state = generator.get_state()
-        home = self.homes[i]
+        home, peers = self.homes[i], self.peers[i]
         warm = SteppedChunk(self.epoch_fns[i], carry, mode, self.h,
                             self.tempered, step_scale, home,
                             (i, len(self.homes)))
         warm.fill(carry, step_size, leapfrog, step_scale)
-        self.graph_type.warm_up(lambda: warm.epoch(generator, 1), home)
+        if peers is not None:
+            peers.mode = functools.partial(self._warm_sum, peers)
+        try:
+            self.graph_type.warm_up(lambda: warm.epoch(generator, 1), home)
+        finally:
+            if peers is not None:
+                peers.mode = None
         generator.set_state(state)
         self.warm[i] = True
         COUNTS.warmups += 1
+
+    def _warm_sum(self, peers, fns, args):
+        """A sum of the warm-up epoch: each peer's part on its card's side
+        stream, summed on the home as the eager sum does."""
+        parts = []
+        for fn, d in zip(fns, peers.devices):
+            self.graph_type.warm_up(
+                lambda: parts.append(fn(*to_device(args, d))), d)
+        return data_sum(parts, peers.home)
 
 
 def _gathered(results: list):

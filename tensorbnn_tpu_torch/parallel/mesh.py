@@ -25,6 +25,13 @@ mesh holds distinct devices): ``make_mesh(2, 2, devices=[torch.device(
 the code that runs over distinct cards (a copy to the same device is no
 copy). The kernels' wrappers make their tensors' card the current device
 around each launch, so a shard on another card launches there.
+
+``DataPeers.sum`` is the one place where the peers meet. The stepped graph
+runner (parallel/graphs.py) sets a ``mode`` on the instance while it warms
+up, captures and replays an epoch's parts: the sum is then a boundary
+between graphs (a graph of each peer's evaluation on its own card, with
+the copies between the cards issued by the host). Without a mode the sum
+runs eagerly as above.
 """
 
 from __future__ import annotations
@@ -130,9 +137,12 @@ def local_rows(n_rows: int, n_data: int) -> int:
     return n_rows // n_data
 
 
-def _to(value, device: torch.device):
+def to_device(value, device: torch.device):
+    """A tensor, or a tuple of them (nested), copied to ``device`` with
+    ``non_blocking`` (where it lives already, as it is); anything else as
+    it is."""
     if isinstance(value, tuple):
-        return tuple(_to(v, device) for v in value)
+        return tuple(to_device(v, device) for v in value)
     if torch.is_tensor(value):
         return value.to(device, non_blocking=True)
     return value
@@ -144,9 +154,9 @@ def data_sum(parts: Sequence, device: torch.device):
     order on ``device``. Each part is copied there with ``non_blocking``
     (no copy where it already lives), so the host never waits: one code
     path for distinct and for repeated devices."""
-    total = _to(parts[0], device)
+    total = to_device(parts[0], device)
     for part in parts[1:]:
-        part = _to(part, device)
+        part = to_device(part, device)
         total = (tuple(t + p for t, p in zip(total, part))
                  if isinstance(total, tuple) else total + part)
     return total
@@ -170,6 +180,8 @@ class DataPeers:
         self.devices = [_resolve(d) for d in devices]
         self.shards = [(x.to(d), y.to(d)) for d, (x, y) in
                        zip(self.devices, shards)]
+        #: ``mode(fns, args)`` takes every sum while set (None: eager)
+        self.mode = None
 
     @classmethod
     def split(cls, devices: Sequence[torch.device], x: torch.Tensor,
@@ -189,6 +201,10 @@ class DataPeers:
 
     def sum(self, fns: Sequence[Callable], *args):
         """``sum_j fns[j](*args)`` with ``args`` copied to peer ``j``'s
-        device, summed on the home device (``data_sum``)."""
-        return data_sum([fn(*_to(args, d))
+        device, summed on the home device (``data_sum``); while ``mode``
+        is set, ``mode(fns, args)``. The mode is read at each call: the
+        potentials hold this method bound when the epoch is built."""
+        if self.mode is not None:
+            return self.mode(fns, args)
+        return data_sum([fn(*to_device(args, d))
                          for fn, d in zip(fns, self.devices)], self.home)

@@ -11,10 +11,12 @@ the chunked likelihood on the card against the CPU in float64; and the
 ``(chains, data)`` mesh on the card (K1 + K2 on 4x1, K3 + K2 on 2x2, K3
 on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
 the mesh; and the graph chunk runner against the eager runner, without a
-mesh and on chains-only meshes (a graph a chain shard); each mesh test on
-a mesh of this card repeated and on one of distinct cards (which skips on
-a machine with fewer); and MAP pretraining, its optimizer steps as
-replays of one captured graph, against its eager epochs.
+mesh and on chains-only meshes (a graph a chain shard), and the stepped
+runner without a mesh and on data meshes (its parts split at the data
+peers' sums) against the eager mesh runner; each mesh test on a mesh of
+this card repeated and on one of distinct cards (which skips on a
+machine with fewer); and MAP pretraining, its optimizer steps as replays
+of one captured graph, against its eager epochs.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports no jax (the machine with the card has none); run it
@@ -1149,13 +1151,15 @@ def test_mesh_graph_runs_leave_no_memory_behind(device, layout):
 # -- the stepped runner (parallel/graphs.py::SteppedChunkRunner): K3 and
 # the plain main block as a head, a step and a tail graph ------------------
 
-def _stepped_cell(device, cell):
+def _stepped_cell(device, cell, n_data=1):
     """The runner pieces of a stepped cell: ``(model, lik, flat, x, y, c,
     hyper_steps, tempering_beta, main_vg, hyper, chunks)``, ``chunks`` two
     chunks' ``(eps, L, n_epochs)`` whose (eps, L) and lengths differ:
     ``wide_deep`` (K3, K2's coupled block) at 64 chains, or a tempered
     flagship (the plain main block, K2) at 4 rungs x 16 chains with
-    per-rung counts."""
+    per-rung counts. For a data axis ``n_data`` above 1, K3 is built for
+    a peer's rows and the tempered flagship takes 12 rows (its 11 divide
+    no data axis)."""
     from tensorbnn_tpu_torch.sampler.tempering import make_ladder
     tempering_beta = None
     if cell == "wide_deep":
@@ -1172,7 +1176,7 @@ def _stepped_cell(device, cell):
     else:
         lik = FixedGaussianLikelihood(sd=0.1)
         model = _flagship(lik)[0]
-        x = np.linspace(-2, 2, 11)[:, None]
+        x = np.linspace(-2, 2, 11 if n_data == 1 else 12)[:, None]
         y = np.sin(x[:, 0] * np.pi * 2) * x[:, 0] - np.cos(x[:, 0] * np.pi)
         c, hyper_steps = 64, 30
         tempering_beta = (4, np.repeat(make_ladder(4, 0.5), c // 4))
@@ -1188,7 +1192,8 @@ def _stepped_cell(device, cell):
     main_vg = None
     if tempering_beta is None:
         main_vg = fused_mlp.try_build_fused_main_vg(
-            model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h)
+            model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+            n_rows=x.shape[0] // n_data)
         assert main_vg is not None
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         model, lik, flat.unravel_eta, h, hyper_steps)
@@ -1316,6 +1321,164 @@ def test_stepped_gate_declines_a_workspace_that_cannot_fit_twice(device):
             n_chains=c).runner)
     assert kinds == ["stepped", "eager"]
     assert graphs.stepped_fits(0, {device.index})
+
+
+# -- the stepped runner over data meshes: each part split at its sums over
+# the data peers (parallel/graphs.py::SegmentedPart) ------------------------
+
+#: the data-mesh cells: (cell, mesh shape), and the sums over the data
+#: peers an epoch's head, step and tail reach (the main block's evaluation
+#: in the head and in each step; the stats' (R, K) of wide_deep's coupled
+#: K2 block, the tempered swap's log-likelihood)
+DATA_MESH_CELLS = [("wide_deep", (2, 2)), ("wide_deep", (1, 4)),
+                   ("tempered_plain", (1, 2))]
+DATA_MESH_SUMS = 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+@pytest.mark.parametrize("cell,shape", DATA_MESH_CELLS)
+def test_data_mesh_stepped_runner_matches_eager_mesh_runner_on_the_card(
+        device, cell, shape, layout):
+    """Two chunks whose (eps, L) and lengths differ through the stepped
+    runner and the eager mesh runner over a data mesh, from one carry and
+    one generator seed: the carry, every trace and the generator's state
+    bit for bit, the kernels' launch counters equal; three parts a chain
+    shard, each split at its sums (a home segment and a graph a peer a
+    sum), captured once after one warm-up epoch a shard."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    mesh = _mesh(device, *shape, layout)
+    pieces = _stepped_cell(device, cell, n_data=shape[1])
+    flat, c, chunks = pieces[2], pieces[5], pieces[10]
+    carry0 = init_multichain_state(
+        flat.theta.to(device), flat.eta.to(device), 1e-4, c,
+        torch.Generator(device=device).manual_seed(2), jitter=0.01)
+    out = {}
+    for eager in (True, False):
+        run = _stepped_runner(pieces, eager, mesh=mesh)
+        assert run.runner == ("eager" if eager else "stepped")
+        graphs.COUNTS.reset()
+        gen = torch.Generator(device=device).manual_seed(5)
+        before = [fn.LAUNCHES for fn in graphs.COUNTED]
+        carry, got = carry0, []
+        for eps, leap, n in chunks:
+            carry, trace = run(carry, eps, leap, n, gen)
+            got.append((carry, trace))
+        torch.cuda.synchronize()
+        out[eager] = (got, gen.get_state(),
+                      [fn.LAUNCHES - b for fn, b in
+                       zip(graphs.COUNTED, before)],
+                      graphs.COUNTS.as_dict())
+    for (cg, tg), (ce, te) in zip(out[False][0], out[True][0]):
+        _same_bits(cg, ce, "carry")
+        _same_bits(tg, te, "trace")
+    assert torch.equal(out[False][1], out[True][1])
+    assert out[False][2] == out[True][2] and out[True][2][1] > 0
+    counts = out[False][3]
+    k, n_data = shape
+    assert counts["warmups"] == k, counts
+    assert counts["captures"] == k * (3 + DATA_MESH_SUMS * (n_data + 1)), \
+        counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_data_mesh_peer_capture_failure_raises(device, layout):
+    """A likelihood that copies from pageable host memory cannot be
+    captured in a peer's graph: the stepped runner over a 1x2 mesh raises
+    (it never carries on eagerly), and the capture count and the peers'
+    sum read as before (eager again)."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
+        make_multichain_chunk_runner
+
+    class CopyingLikelihood(FixedGaussianLikelihood):
+        def log_likelihood(self, preds, y, hypers):
+            torch.as_tensor(np.zeros(4, np.float32), device=preds.device)
+            return super().log_likelihood(preds, y, hypers)
+
+    lik = CopyingLikelihood(sd=0.1)
+    model, flat = _flagship(lik)
+    x = torch.linspace(-2, 2, 12, device=device)[:, None]
+    y = torch.sin(x[:, 0])
+    run = make_multichain_chunk_runner(
+        model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+        adjust_hypers=True, hyper_leapfrog=5, burnin=100.0,
+        hyper_step_size_init=1e-3, eta_dim=flat.eta.numel(),
+        mesh=_mesh(device, 1, 2, layout), n_chains=8)
+    assert run.runner == "stepped"
+    carry = init_multichain_state(flat.theta.to(device), flat.eta.to(device),
+                                  1e-3, 8)
+    captures = graphs.COUNTS.captures
+    with pytest.raises(RuntimeError, match="capture"):
+        run(carry, 1e-3, 5, 2, torch.Generator(device=device))
+    torch.cuda.synchronize()
+    assert graphs.COUNTS.captures == captures
+    assert all(p is None or p.mode is None for p in run.peers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_data_mesh_runs_leave_no_memory_behind(device, layout):
+    """Runs of a K3 model on a 1x2 mesh through ``Network.train`` take the
+    stepped runner, and after the first (which gives each card's side
+    stream what it keeps) each run leaves every card's allocated memory
+    where it found it."""
+    import gc
+    from tensorbnn_tpu_torch import Network
+    mesh = _mesh(device, 1, 2, layout)
+    cards = sorted({d.index for row in mesh.devices for d in row})
+    x = np.random.default_rng(0).normal(size=(32, 4)).astype(np.float32)
+    held = []
+    for _ in range(3):
+        net = Network(torch.float32, 4, x, x[:, 0], x, x[:, 0], seed=0,
+                      device=device)
+        net.add(GaussianDenseLayer(4, 256)).add(Tanh())
+        net.add(GaussianDenseLayer(256, 256)).add(Tanh())
+        net.add(GaussianDenseLayer(256, 1))
+        net.setup_mcmc(leapfrog_start=5, leapfrog_min=5, leapfrog_max=5,
+                       hyper_leapfrog=5, step_size_start=1e-4)
+        res = net.train(6, 1, GaussianLikelihood(sd=0.1), n_chains=4,
+                        mesh=mesh, verbose=False)
+        assert res.main_path == "K3" and res.chunk_runner == "stepped"
+        del net, res
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append([torch.cuda.memory_allocated(i) for i in cards])
+    assert held[1] == held[0] and held[2] == held[0], held
+
+
+@pytest.mark.cuda
+def test_data_mesh_gate_declines_a_workspace_that_cannot_fit_twice(device):
+    """K3 at 1M rows of an 8-64-64-1 model over a 1x2 mesh of this card:
+    a peer's 500,000 rows at 64 chains (32.9 GB of workspace) fit the card
+    twice and take the stepped runner; 128 chains (65.8 GB) do not, and
+    the factory builds the eager loop, decided from the configuration."""
+    from tensorbnn_tpu_torch.parallel.chains import \
+        make_multichain_chunk_runner
+    model = Sequential([GaussianDenseLayer(8, 64), Tanh(),
+                        GaussianDenseLayer(64, 64), Tanh(),
+                        GaussianDenseLayer(64, 1)])
+    lik = GaussianLikelihood(sd=0.1)
+    params, hypers = model.init(torch.Generator().manual_seed(0))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    x = torch.zeros(1_000_000, 8, device=device)
+    y = torch.zeros(1_000_000, device=device)
+    h = flat.eta.numel()
+    vg = fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x[:500_000],
+        y[:500_000], h, n_rows=500_000)
+    memory = torch.cuda.get_device_properties(device).total_memory
+    kinds = []
+    for c in (64, 128):
+        assert (2 * vg.workspace_bytes(c) <= memory) == (c == 64)
+        kinds.append(make_multichain_chunk_runner(
+            model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+            adjust_hypers=True, hyper_leapfrog=5, burnin=100.0,
+            hyper_step_size_init=1e-6, eta_dim=h, batched_main_vg=vg,
+            mesh=_mesh(device, 1, 2, "repeated"), n_chains=c).runner)
+    assert kinds == ["stepped", "eager"]
 
 
 # MAP pretraining: an epoch a replay of one captured graph ----------------

@@ -80,12 +80,13 @@ class EagerGraph:
         return None
 
 
-def _case(name):
+def _case(name, n_data=1):
     """A model, its data and both packages' pieces for one runner path:
     ``a`` and ``b`` are two chunks' (eps, L), the U-turn case's L one
-    count an epoch."""
+    count an epoch; ``n_data`` the data axis a stepped case's runners are
+    built for (``_stepped_case``)."""
     if name in STEPPED:
-        return _stepped_case(name)
+        return _stepped_case(name, n_data)
     tempering_beta = None
     if name in ("shared", "per_chain"):
         j_model, j_lik, t_model, t_lik, x, y = _flagship()
@@ -174,14 +175,17 @@ STEPPED = ["k3_shared", "k3_per_chain", "k3_uturn", "compensated",
            "plain_hyper", "tempered_plain"]
 
 
-def _stepped_case(name):
+def _stepped_case(name, n_data=1):
     """``_case``'s pieces where K3 (its CPU twin) or the plain path runs
     the main block: the ``k3_*`` cases a 4-16-16-1 learned-sd model over
     600 rows (past K1's shared memory) with K2's coupled block;
     ``compensated`` the plain path with ``data_chunk=8``, the Kahan
     leapfrog and a step scale; ``plain_hyper`` the ``classification``
     stack on K3's twin and the plain hyper block; ``tempered_plain`` a
-    tempered run (the plain main block, K2)."""
+    tempered run (the plain main block, K2). For a data axis ``n_data``
+    above 1, K3 is built for a peer's rows, ``compensated`` takes two row
+    chunks a peer and ``tempered_plain`` 12 rows (its 9 divide no data
+    axis)."""
     tempering_beta, scale, extra, vg = None, None, {}, True
     if name.startswith("k3"):
         j_model, j_lik, t_model, t_lik = _pair(
@@ -193,7 +197,8 @@ def _stepped_case(name):
     elif name == "compensated":
         j_model, t_model, j_lik, t_lik, _, _, x, y = _problem("gaussian")
         c, hyper_steps, vg = 4, 5, False
-        extra = dict(data_chunk=8, compensated=True)
+        extra = dict(data_chunk=8 if n_data == 1 else len(x) // n_data // 2,
+                     compensated=True)
     elif name == "plain_hyper":
         (j_model, t_model), (j_lik, t_lik) = _classification(4, 6), _lik(
             "BernoulliLikelihood")
@@ -201,7 +206,8 @@ def _stepped_case(name):
         c, hyper_steps = 4, 10
     else:
         j_model, j_lik, t_model, t_lik = _pair([(1, 6), (6, 1)])
-        x = np.linspace(-1, 1, 9).astype(np.float32)[:, None]
+        x = np.linspace(-1, 1, 9 if n_data == 1 else 12).astype(
+            np.float32)[:, None]
         y = np.sin(np.pi * x[:, 0]).astype(np.float32)
         c, hyper_steps, vg = 6, 6, False
         tempering_beta = (3, np.repeat(j_tempering.make_ladder(3, 0.3), 2))
@@ -237,7 +243,7 @@ def _stepped_case(name):
     if vg:
         main_vg = fused_mlp.try_build_fused_main_vg(
             t_model, t_lik, t_flat.unravel_theta, t_flat.unravel_eta, xt,
-            yt, h)
+            yt, h, n_rows=len(x) // n_data)
         assert main_vg is not None
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         t_model, t_lik, t_flat.unravel_eta, h, hyper_steps)
@@ -336,15 +342,19 @@ def test_graph_runner_matches_eager_runner(name):
         assert tg.uturn.dtype == torch.int32
 
 
-def body_against_jax(case, epoch_fn, monkeypatch, shard=(0, 1)):
+def body_against_jax(case, epoch_fn, monkeypatch, shard=(0, 1),
+                     peers=None):
     """Two epochs of a body (``StaticChunk`` of ``epoch_fn``, running
     chain shard ``shard = (i, k)``: block i of the case's chains) against
     two of the JAX package's ``make_epoch_fn`` (its XLA path) on the same
     chains from one state, fed the JAX package's own draws for them. A
     shard's body draws the fleet's epoch and keeps its rows: the other
-    shards' rows are NaN here, so a body that took them fails. Tolerances
-    of test_torch_sampler.py::test_three_epochs_match_jax_with_injected_
-    draws; U-turn steps and swap decisions equal."""
+    shards' rows are NaN here, so a body that took them fails. With
+    ``peers`` (the shard's ``DataPeers``, which ``epoch_fn`` sums over) a
+    stepped body's parts run as ``SegmentedPart``s of the stand-in graph,
+    split at their sums, against the JAX epochs on the whole rows.
+    Tolerances of test_torch_sampler.py::test_three_epochs_match_jax_with_
+    injected_draws; U-turn steps and swap decisions equal."""
     i, k = shard
     c = case.t_carry.theta.shape[0] // k
     rows = slice(i * c, (i + 1) * c)
@@ -384,9 +394,19 @@ def body_against_jax(case, epoch_fn, monkeypatch, shard=(0, 1)):
         j_traces.append(j_tr)
     monkeypatch.setattr(graphs, "draw_epoch", lambda *a: draws.pop(0))
     if case.kind == "stepped":
+        head, step, tail = (lambda: chunk.head(None)), chunk.step, chunk.tail
+        if peers is not None:
+            head, step, tail = (graphs.SegmentedPart(
+                body, None, peers, EagerGraph, lambda d: None).replay
+                for body in (head, step, tail))
         trace = None
         for j, steps in enumerate(_steps(case, leaps, n)):
-            chunk.epoch(None, steps)
+            head()
+            for _ in range(steps):
+                step()
+            if not steps:
+                chunk.skip()
+            tail()
             trace = graphs._row(trace, chunk.trace, j, n)
         t_carry, t_trace = chunk.result(leaps, chunk.unpack(trace))
     else:
@@ -481,10 +501,12 @@ WORKSPACE = {"K1": 0, "plain": 0, "K3": 1 << 30, "K3 wide": 41 << 30}
     ("K1", (2, 2), "cuda", "eager"),
     ("K3", (2, 1), "cuda", "stepped"),
     ("plain", (4, 1), "cuda", "stepped"),
-    ("K3", (1, 2), "cuda", "eager"),
-    ("plain", (2, 2), "cuda", "eager"),
+    ("K3", (1, 2), "cuda", "stepped"),
+    ("plain", (2, 2), "cuda", "stepped"),
     ("K3 wide", None, "cuda", "eager"),
     ("K3 wide", (2, 1), "cuda", "eager"),
+    ("K3 wide", (1, 2), "cuda", "eager"),
+    ("plain", (1, 4), "cpu", "eager"),
     ("K1", (2, 1), "cpu", "eager"),
     ("K1", None, "cpu", "eager"),
     ("K1", (1, 1), "cpu", "eager"),
@@ -495,8 +517,9 @@ def test_graph_or_eager_follows_the_configuration(path, mesh, device, want,
                                                   monkeypatch):
     """A graph of the chunk where K1 runs the main block on CUDA chains
     without a mesh or on a mesh whose data axis is 1 (here a card
-    repeated); the stepped runner where K3 or the plain path runs it there
-    and K3's workspace fits the card twice (``stepped_fits``); a data axis
+    repeated); the stepped runner where K3 or the plain path runs it,
+    over any mesh of CUDA cards, data axes above 1 included, and K3's
+    workspace fits the card twice (``stepped_fits``); K1 over a data axis
     above 1, a workspace that does not fit and the CPU run eagerly. The
     decision reads the configuration only (no card is needed to make
     it)."""
