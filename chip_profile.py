@@ -81,12 +81,15 @@ Bernoulli over 9,585 rows, 64 chains, 0.3 N(0, 1) weights), kernel by
 kernel: device ms and launches per call of each kernel name, and the
 call's total.
 
-Last, ``predict``: one ``Predictor.predict`` call of the JAX bench's
-predict cell (``chip_smoke.predict_cell``: 2,000 flagship networks x
-4,096 points), its host time split by the host clock into the input's
-copy to the card, the forward's enqueue, the wait for the forward and
-the copy of the predictions to the host, and under ``torch.profiler``
-each kernel's and copy's device ms a call.
+Last, ``predict`` (alone: ``python3 chip_profile.py predict``): one
+``Predictor.predict`` call of the JAX bench's predict cell
+(``chip_smoke.predict_cell``: 2,000 flagship networks x 4,096 points) on
+each route, eager and graph (the forward a replay of its captured
+graph), its host time split by the host clock into the input's copy to
+the card, the forward's enqueue (on the graph route the copy into the
+graph's input buffer and the replay), the wait for the forward and the
+copy of the predictions to the host (through pinned memory), and under
+``torch.profiler`` each kernel's and copy's device ms a call.
 
 It reports, per epoch: the wall time over three unprofiled windows (host
 clock after a synchronize), the enqueue time (until the runner returns),
@@ -332,6 +335,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["pretrain"]:
         pretrain_cells(dev, card)
         return 0
+    if argv[:1] == ["predict"]:
+        predict_breakdown(dev, card)
+        return 0
 
     n_rungs, n_cold = 4, 512
     ladder = make_ladder(n_rungs, 0.5)
@@ -480,58 +486,64 @@ def capture_designs(run, reps=5) -> dict:
 
 
 def predict_breakdown(dev, card, reps=10):
-    """Host ms of one ``Predictor.predict`` call of the predict cell, split
-    into its steps by the host clock (each ending in a synchronize), the
-    whole call's host ms (with each result dropped at once, and kept alive
-    until the next call returns), and each device kernel's and copy's ms a
-    call; one JSON line."""
+    """Host ms of one ``Predictor.predict`` call of the predict cell on
+    each route (eager, then graph), split into its steps by the host clock
+    (each ending in a synchronize), the whole call's host ms (with each
+    result dropped at once, and kept alive until the next call returns),
+    and each device kernel's and copy's ms a call; one JSON line a
+    route."""
     from chip_smoke import predict_cell
+    from tensorbnn_tpu_torch.predictor import _to_host
 
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         pred, x, _ = predict_cell(dev, tmp)
-    ens = pred.ensemble(1)
-    pred.predict(x)
-    steps = {"input": 0.0, "forward_enqueue": 0.0, "forward_wait": 0.0,
-             "copy_to_host": 0.0}
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x_dev = pred._input(x)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y = pred._apply_ens(ens, x_dev)
-        t2 = time.perf_counter()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        y.cpu().numpy()
-        t4 = time.perf_counter()
-        for key, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            steps[key] += 1e3 * dt / reps
-    # the whole call, its result dropped at once and, as a caller's loop
-    # does (`got = pred.predict(x)`), kept alive until the next returns
-    call_ms = {}
-    for label in ("dropped", "kept", "dropped again"):
-        got = pred.predict(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    for route in ("eager", "graph"):
+        pred._eager = route == "eager"
+        pred.predict(x)
+        steps = {"input": 0.0, "forward_enqueue": 0.0, "forward_wait": 0.0,
+                 "copy_to_host": 0.0}
         for _ in range(reps):
-            if label == "kept":
-                got = pred.predict(x)
-            else:
-                pred.predict(x)
-        call_ms[label] = 1e3 * (time.perf_counter() - t0) / reps
-        del got
-    rows = {}
-    for e in device_events(lambda: pred.predict(x), reps):
-        key = e["name"][:80] if e["cat"] == "kernel" else e["cat"]
-        ms, n = rows.get(key, (0.0, 0))
-        rows[key] = (ms + float(e["dur"]) / 1e3, n + 1)
-    device = [[name, ms / reps, n / reps] for name, (ms, n) in
-              sorted(rows.items(), key=lambda kv: -kv[1][0])]
-    print(json.dumps({"cell": "predict 2000 x 4096", "card": card,
-                      "call_host_ms": call_ms, "steps_host_ms": steps,
-                      "device_ms_per_call": sum(r[1] for r in device),
-                      "device": device}), flush=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x_dev = pred._input(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y, _ = pred._forward(x_dev, 1)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            _to_host(y)
+            t4 = time.perf_counter()
+            for key, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                steps[key] += 1e3 * dt / reps
+        # the whole call, its result dropped at once and, as a caller's
+        # loop does (`got = pred.predict(x)`), kept alive until the next
+        # returns
+        call_ms = {}
+        for label in ("dropped", "kept", "dropped again"):
+            got = pred.predict(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                if label == "kept":
+                    got = pred.predict(x)
+                else:
+                    pred.predict(x)
+            call_ms[label] = 1e3 * (time.perf_counter() - t0) / reps
+            del got
+        rows = {}
+        for e in device_events(lambda: pred.predict(x), reps):
+            key = e["name"][:80] if e["cat"] == "kernel" else e["cat"]
+            ms, n = rows.get(key, (0.0, 0))
+            rows[key] = (ms + float(e["dur"]) / 1e3, n + 1)
+        device = [[name, ms / reps, n / reps] for name, (ms, n) in
+                  sorted(rows.items(), key=lambda kv: -kv[1][0])]
+        print(json.dumps({"cell": "predict 2000 x 4096", "route": route,
+                          "card": card, "call_host_ms": call_ms,
+                          "steps_host_ms": steps,
+                          "device_ms_per_call": sum(r[1] for r in device),
+                          "device": device}), flush=True)
+    pred._eager = False
 
 
 def k3_call_breakdown(dev, gen, card, reps=5):

@@ -72,8 +72,14 @@ script exits non-zero:
    and resumed (bit-equal to the uninterrupted run in samples, acceptance
    and store bytes); ``reweight`` to Cauchy priors and the per-chain
    ``autocorrelation_length``; the JAX bench's predict cell (2,000
-   networks x 4,096 points): one ``predict`` call's host time and its
-   forward's device time against the bound, as a ``{"store": ...}`` line;
+   networks x 4,096 points) on the eager route and on the graph route
+   (each call after a key's first a replay of its captured forward):
+   bit-equal, each route's host ms a call and its forward's device ms
+   against the bound, the graph's captures (none in the timed calls),
+   capture ms with and without ``torch.cuda.graph``'s preamble and pool
+   bytes, eager ``train_probs`` and ``reweight`` calls of its ensemble, as
+   a ``{"store": ...}`` line (``--predict-only`` runs phases 1, 2, 7 (e)
+   and 11 (e) alone);
 8. times: each kernel against its twin (CUDA events), K3 against the
    same value and gradient through cuBLAS (the twin) and torch.func, K1's
    U-turn-recording program against the non-recording one on the same
@@ -125,7 +131,9 @@ script exits non-zero:
    K3 and the plain path, and 10 epochs under ``numerics="exact"``; a
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
    mesh-less swap decisions; the predict cell on 2x2 against the unsharded
-   ``predict``; as a ``{"mesh": ...}`` line (``--mesh-only`` runs phases
+   ``predict``, on the eager route and on graphs (a graph an entry),
+   bit-equal, as phase 7 (e) holds it; as a ``{"mesh": ...}`` line
+   (``--mesh-only`` runs phases
    1, 2 and 11 alone). The runs over data axes above 1 take the stepped
    runner, each part split at the data peers' sums, as phase 13 holds;
 12. the graph chunk runner (parallel/graphs.py), which phases 6-11 take
@@ -271,6 +279,8 @@ STORE_EPOCHS, STORE_STOP, STORE_STEP, STORE_PER_FILE = 400, 300, 10, 128
 # 2,000 networks of the flagship around a seed-0 init (sd 0.05) over 4,096
 # points; 220 multiply-adds a point and network
 PREDICT_NETS, PREDICT_POINTS, PREDICT_MACS = 2000, 4096, 220
+# the calls a route of the predict cell is timed over, after one warm call
+PREDICT_REPS = 10
 # K1's U-turn comparisons draw each chain's prior sd (its scale hyper
 # squared) from this range: the tight prior makes a stable oscillator whose
 # half period (pi sd) falls on both sides of eps L, so some chains turn and
@@ -1016,6 +1026,244 @@ def predict_cell(dev, directory):
     return pred, x, model
 
 
+def predict_routes(pred, x, mesh=None) -> dict:
+    """The predict cell's ``Predictor.predict`` on its two routes on the
+    card (over ``mesh``, None: none): the eager forward (``pred._eager``)
+    and the graph route (the forward a replay of a captured graph after a
+    key's first call), in the order eager, graph, graph again, eager
+    again. For each: the first call's host ms (the graph's warm-up and
+    capture, the first time), the reserved bytes it added and those still
+    reserved after emptying the cache (a graph pool's), ``graphs.COUNTS``
+    of that call and of ``PREDICT_REPS`` timed calls after it (no capture
+    there, a replay an entry and call on the graph route), their host ms a
+    call, and the forward's device ms. Raises unless the two routes'
+    predictions are equal bit for bit."""
+    from tensorbnn_tpu_torch.parallel import graphs
+
+    x_dev = torch.as_tensor(x, device=pred.device)
+    kw = {} if mesh is None else {"mesh": mesh}
+    entries = 1 if mesh is None else len(mesh.devices) * len(mesh.devices[0])
+
+    def forward():
+        if mesh is None:
+            return pred._forward(x_dev, 1)
+        return pred._forward_sharded(x_dev, 1, mesh)
+
+    out, got = {}, {}
+    for label in ("eager", "graph", "graph again", "eager again"):
+        route = label.split()[0]
+        pred._eager = route == "eager"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        graphs.COUNTS.reset()
+        t0 = time.perf_counter()
+        got[label] = pred.predict(x, **kw)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        r1 = torch.cuda.memory_reserved()
+        first = graphs.COUNTS.as_dict()
+        torch.cuda.empty_cache()
+        r2 = torch.cuda.memory_reserved()
+        graphs.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_REPS):
+            pred.predict(x, **kw)
+        host_ms = 1e3 * (time.perf_counter() - t0) / PREDICT_REPS
+        timed = graphs.COUNTS.as_dict()
+        out[label] = {"first_call_ms": first_ms, "first_call": first,
+                      "reserved_added": r1 - r0,
+                      "reserved_after_empty_cache": r2 - r0,
+                      "host_ms": host_ms, "timed": timed,
+                      "forward_device_ms": device_ms(forward)}
+    pred._eager = False
+    for label, pred_out in got.items():
+        if not np.array_equal(pred_out.view(np.int32),
+                              got["eager"].view(np.int32)):
+            raise AssertionError(f"predict: the {label} route differs from "
+                                 f"the eager route")
+    want_first = {"graph": entries, "graph again": 0}
+    for label, n_cap in want_first.items():
+        first, timed = out[label]["first_call"], out[label]["timed"]
+        if (first["captures"] != n_cap or first["warmups"] != n_cap
+                or timed["captures"] or timed["warmups"]
+                or timed["replays"] != PREDICT_REPS * entries):
+            raise AssertionError(f"predict, {label}: {out[label]}")
+    for label in ("eager", "eager again"):
+        if out[label]["first_call"]["replays"] or out[label]["timed"][
+                "replays"]:
+            raise AssertionError(f"predict, {label}: {out[label]}")
+    return out
+
+
+def predict_phase(dev, directory, train_x, train_y, lik) -> dict:
+    """Phase 7 (e): the JAX bench's predict cell, 2,000 networks x 4,096
+    points, in ``directory``: ``predict_routes``; one capture of a new key
+    by ``CudaGraph.segment`` (no preamble; the route's) and one through
+    ``torch.cuda.graph`` (its preamble: a synchronize, ``gc.collect`` and
+    emptying the cache); the forward's ms by events and its bound; the
+    output's copy to pageable and to pinned host memory; the predictions
+    against the same forward in float64; two ``train_probs`` calls (the
+    first pays the card's first use of its kernels) and one ``reweight``
+    (to Cauchy priors, the flagship's ``train_x``, ``train_y`` and
+    ``lik``) of the cell's ensemble, eager. Returns the dict."""
+    from tensorbnn_tpu_torch import CauchyDenseLayer, Tanh
+    from tensorbnn_tpu_torch.parallel import graphs
+
+    class PreambleGraph(graphs.CudaGraph):
+        """``CudaGraph`` whose segments take ``torch.cuda.graph``'s
+        preamble."""
+
+        @classmethod
+        def segment(cls, fn, device, pool):
+            return cls(fn, None, device, pool=pool)
+
+    pred, x, model = predict_cell(dev, directory)
+    routes = predict_routes(pred, x)
+    capture_ms = {}
+    for label, graph_type, rows in (
+            ("open/close", None, PREDICT_POINTS - 1),
+            ("torch.cuda.graph preamble", PreambleGraph,
+             PREDICT_POINTS - 2)):
+        pred._graph_type = graph_type
+        graphs.COUNTS.reset()
+        pred.predict(x[:rows])
+        capture_ms[label] = graphs.COUNTS.capture_seconds[0] * 1e3
+    pred._graph_type = None
+    got = pred.predict(x)
+    x_dev = torch.as_tensor(x, device=dev)
+    fwd_ms = cuda_ms(lambda: pred._forward(x_dev, 1))
+    # the output's copy to the host: to pageable memory (the parent's) and
+    # into a pinned buffer
+    y_dev = pred.predict_tensor(x_dev)
+    pinned = torch.empty(y_dev.shape, dtype=y_dev.dtype, pin_memory=True)
+    copy_ms = {}
+    for label, copy in (("pageable", lambda: y_dev.cpu()),
+                        ("pinned", lambda: pinned.copy_(y_dev))):
+        copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_REPS):
+            copy()
+            torch.cuda.synchronize()
+        copy_ms[label] = 1e3 * (time.perf_counter() - t0) / PREDICT_REPS
+    # the predictions against the same forward in float64 on the card
+    assert got.shape == (PREDICT_NETS, PREDICT_POINTS, 1)
+    assert np.isfinite(got).all()
+    ens64 = tuple({k: v.double() for k, v in p.items()}
+                  for p in pred.ensemble(1))
+    want = torch.func.vmap(model.apply, in_dims=(0, None))(
+        ens64, torch.as_tensor(x, dtype=torch.float64, device=dev))
+    err = float(np.abs(got - want.cpu().numpy()).max())
+    assert err < 1e-5, err
+    del ens64, want, y_dev, pinned
+    # the reweighting pass, eager, one call each
+    cauchy = [CauchyDenseLayer(1, 10), Tanh(), CauchyDenseLayer(10, 10),
+              Tanh(), CauchyDenseLayer(10, 10), Tanh(),
+              CauchyDenseLayer(10, 1)]
+    reweight_ms = {}
+    for label in ("train_probs", "train_probs again", "reweight"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "reweight":
+            w = pred.reweight(cauchy, train_x, train_y, likelihood=lik)
+        else:
+            pred.train_probs(train_x, train_y, likelihood=lik)
+        reweight_ms[label] = 1e3 * (time.perf_counter() - t0)
+    assert w.shape == (PREDICT_NETS,) and np.isfinite(w).all(), w
+    assert abs(float(w.sum()) - 1.0) < 1e-5, w.sum()
+    n_pred = PREDICT_NETS * PREDICT_POINTS
+    n_params = sum(v.numel() for p in pred.ensemble(1)
+                   for v in p.values())
+    pb = bound(n_pred * 2 * PREDICT_MACS,
+               4 * (n_pred + n_params + PREDICT_POINTS))
+    host_ms = routes["graph again"]["host_ms"]
+    out = {"networks": PREDICT_NETS, "points": PREDICT_POINTS,
+           "host_ms": host_ms,
+           "eager_host_ms": routes["eager again"]["host_ms"],
+           "forward_ms": fwd_ms,
+           "forward_device_ms": routes["graph again"]["forward_device_ms"],
+           "eager_forward_device_ms": routes["eager again"][
+               "forward_device_ms"],
+           "routes": routes, "capture_ms": capture_ms,
+           "copy_to_host_ms": copy_ms["pageable"],
+           "copy_to_pinned_ms": copy_ms["pinned"], "bound_ms": pb[0],
+           "bound_by": pb[1],
+           "predictions_per_sec": n_pred / (host_ms / 1e3),
+           "forward_predictions_per_sec": n_pred / (
+               routes["graph again"]["forward_device_ms"] / 1e3),
+           "output_mb": got.nbytes / 1e6, "predict_max_abs_err": err,
+           "reweighting_ms": reweight_ms}
+    print(f"(e) predict, {PREDICT_NETS} networks x {PREDICT_POINTS} "
+          f"points, graph route == eager route bit for bit: a call "
+          f"{routes['eager']['host_ms']:.3f} / "
+          f"{routes['eager again']['host_ms']:.3f} host-ms eager, "
+          f"{routes['graph']['host_ms']:.3f} / "
+          f"{routes['graph again']['host_ms']:.3f} on the graph (to numpy "
+          f"through pinned memory, {got.nbytes / 1e6:.1f} MB), "
+          f"{n_pred / (host_ms / 1e3):,.0f} network-predictions/sec; the "
+          f"forward {routes['eager again']['forward_device_ms']:.4f} "
+          f"device-ms eager, "
+          f"{routes['graph again']['forward_device_ms']:.4f} a replay "
+          f"({fwd_ms:.4f} ms by events), bound {pb[0]:.5f} ms ({pb[1]}); "
+          f"first graph call {routes['graph']['first_call_ms']:.1f} ms "
+          f"(capture {routes['graph']['first_call']['capture_ms']} ms; "
+          f"another key's by open/close {capture_ms['open/close']:.1f} ms, "
+          f"through torch.cuda.graph "
+          f"{capture_ms['torch.cuda.graph preamble']:.1f} ms), pool "
+          f"{routes['graph']['reserved_after_empty_cache'] / 1e6:.1f} MB "
+          f"(reserved +{routes['graph']['reserved_added'] / 1e6:.1f} MB); "
+          f"timed graph calls {routes['graph again']['timed']}; the copy "
+          f"to the host {copy_ms['pageable']:.3f} host-ms pageable, "
+          f"{copy_ms['pinned']:.3f} pinned; max abs err against float64 "
+          f"{err:.3e}; the reweighting pass (eager, a call each) "
+          f"{json.dumps(reweight_ms)} ms", flush=True)
+    return out
+
+
+def predict_mesh_phase(dev) -> dict:
+    """Phase 11 (e): the predict cell on a 2x2 virtual mesh of ``dev``
+    against the unsharded ``predict`` (within ``MESH_PREDICT_TOL``), and
+    ``predict_routes`` without the mesh and on it, each on a Predictor of
+    its own (so that each pool's bytes are its own). Returns the dict."""
+    from tensorbnn_tpu_torch import FixedGaussianLikelihood, Predictor
+    from tensorbnn_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp_dir:
+        pred, xp, _ = predict_cell(dev, tmp_dir)
+        sharded = Predictor(tmp_dir, likelihood=FixedGaussianLikelihood(
+            sd=0.1), device=dev)
+        m = make_mesh(2, 2, devices=[dev] * 4)
+        routes = {"meshless": predict_routes(pred, xp),
+                  "2x2": predict_routes(sharded, xp, m)}
+        want = pred.predict(xp)
+        got = sharded.predict(xp, mesh=m)
+    diff = float(np.abs(got - want).max())
+    out = {"networks": PREDICT_NETS, "points": PREDICT_POINTS,
+           "bit_equal_to_meshless": bool((got == want).all()),
+           "max_abs_diff": diff, "max_abs": float(np.abs(want).max()),
+           "host_ms": {f"{mesh} {label}": r["host_ms"]
+                       for mesh, rs in routes.items()
+                       for label, r in rs.items()},
+           "forward_device_ms": {f"{mesh} {label}": r["forward_device_ms"]
+                                 for mesh, rs in routes.items()
+                                 for label, r in rs.items()},
+           "routes": routes}
+    print(f"(e) the predict cell on 2x2, graph route == eager route bit "
+          f"for bit: host-ms a call {json.dumps(out['host_ms'])}; forward "
+          f"device-ms {json.dumps(out['forward_device_ms'])}; 2x2 first "
+          f"graph call {routes['2x2']['graph']['first_call_ms']:.1f} ms "
+          f"(captures {routes['2x2']['graph']['first_call']['capture_ms']}"
+          f" ms), pool "
+          f"{routes['2x2']['graph']['reserved_after_empty_cache'] / 1e6:.1f}"
+          f" MB; against the unsharded predict max abs diff {diff:.3e}",
+          flush=True)
+    if got.shape != want.shape or diff > MESH_PREDICT_TOL * max(
+            1.0, out["max_abs"]):
+        raise AssertionError(f"predict on 2x2: {out}")
+    return out
+
+
 def store_phase(dev, reset_counts, read_counts) -> dict:
     """Phase 7: the sample store, resume and the Predictor on the card, at
     the flagship's full width over 64 chains (K1 (a) + K2). (a) a buffered
@@ -1028,8 +1276,8 @@ def store_phase(dev, reset_counts, read_counts) -> dict:
     resumed is the uninterrupted run, in samples, acceptance and store
     bytes; (d) ``reweight`` to Cauchy priors gives finite weights summing
     to 1, ``autocorrelation_length`` is finite and per chain; (e) the JAX
-    bench's predict cell: 2,000 networks x 4,096 points, one ``predict``
-    call's host time and its forward's device time, against the bound."""
+    bench's predict cell on both routes and the reweighting pass
+    (``predict_phase``)."""
     from tensorbnn_tpu_torch import CauchyDenseLayer, Predictor, Tanh
     from tensorbnn_tpu_torch.io import fast_text
     from tensorbnn_tpu_torch.ops import _build
@@ -1167,69 +1415,10 @@ def store_phase(dev, reset_counts, read_counts) -> dict:
               f"{n_nets}; autocorrelation length {tau:.4f} (per chain, "
               f"{len(blocks)} chains)")
 
-        # (e) the predict cell
-        pred, x, model = predict_cell(dev, d["predict"])
-        for _ in range(3):                              # warm
-            got = pred.predict(x)
-        reps = 10
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            got = pred.predict(x)
-        host_ms = 1e3 * (time.perf_counter() - t0) / reps
-        x_dev = torch.as_tensor(x, device=dev)
-        fwd_ms = cuda_ms(lambda: pred.predict_tensor(x_dev))
-        fwd_dev_ms = device_ms(lambda: pred.predict_tensor(x_dev))
-        # where the call's host time goes besides the forward: the copy of
-        # the predictions to pageable host memory (what predict does), and
-        # to a pinned buffer for comparison
-        y_dev = pred.predict_tensor(x_dev)
-        pinned = torch.empty(y_dev.shape, dtype=y_dev.dtype, pin_memory=True)
-        copy_ms = {}
-        for label, copy in (("pageable", lambda: y_dev.cpu()),
-                            ("pinned", lambda: pinned.copy_(y_dev))):
-            copy()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                copy()
-                torch.cuda.synchronize()
-            copy_ms[label] = 1e3 * (time.perf_counter() - t0) / reps
-        # the predictions against the same forward in float64 on the card
-        assert got.shape == (PREDICT_NETS, PREDICT_POINTS, 1)
-        assert np.isfinite(got).all()
-        ens64 = tuple({k: v.double() for k, v in p.items()}
-                      for p in pred.ensemble(1))
-        want = torch.func.vmap(model.apply, in_dims=(0, None))(
-            ens64, torch.as_tensor(x, dtype=torch.float64, device=dev))
-        out["predict_max_abs_err"] = float(np.abs(got - want.cpu().numpy())
-                                           .max())
-        assert out["predict_max_abs_err"] < 1e-5, out["predict_max_abs_err"]
-        n_pred = PREDICT_NETS * PREDICT_POINTS
-        n_params = sum(v.numel() for p in pred.ensemble(1)
-                       for v in p.values())
-        pb = bound(n_pred * 2 * PREDICT_MACS,
-                   4 * (n_pred + n_params + PREDICT_POINTS))
-        out["predict"] = {
-            "networks": PREDICT_NETS, "points": PREDICT_POINTS,
-            "host_ms": host_ms, "forward_ms": fwd_ms,
-            "forward_device_ms": fwd_dev_ms,
-            "copy_to_host_ms": copy_ms["pageable"],
-            "copy_to_pinned_ms": copy_ms["pinned"], "bound_ms": pb[0],
-            "bound_by": pb[1],
-            "predictions_per_sec": n_pred / (host_ms / 1e3),
-            "forward_predictions_per_sec": n_pred / (fwd_dev_ms / 1e3),
-            "output_mb": got.nbytes / 1e6}
-        print(f"(e) predict, {PREDICT_NETS} networks x {PREDICT_POINTS} "
-              f"points: one call {host_ms:.3f} host-ms (to numpy, "
-              f"{got.nbytes / 1e6:.1f} MB), "
-              f"{n_pred / (host_ms / 1e3):,.0f} network-predictions/sec; "
-              f"its forward {fwd_ms:.4f} ms by events, {fwd_dev_ms:.4f} "
-              f"device-ms, bound {pb[0]:.5f} ms ({pb[1]}); the copy to the "
-              f"host {copy_ms['pageable']:.3f} host-ms (pinned "
-              f"{copy_ms['pinned']:.3f}); max abs err against float64 "
-              f"{out['predict_max_abs_err']:.3e}")
-        del preds, pred, ens, ens64, want, y_dev, pinned
+        # (e) the predict cell on both routes, and the reweighting pass
+        out["predict"] = predict_phase(dev, d["predict"], net.train_x,
+                                       net.train_y, lik)
+        del preds, pred, ens, want
     print(json.dumps({"store": out}), flush=True)
     return out
 
@@ -2041,8 +2230,8 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     0.5) on 1x2, 3 epochs on the plain path against the mesh-less run (the
     swap decisions), and with the kernels the driver picks there (the
     plain main block, K2); (e) the predict cell on 2x2 against the
-    unsharded ``predict``, the host-ms of a call. Prints a ``{"mesh":
-    ...}`` line and returns its dict."""
+    unsharded ``predict``, on both routes (``predict_mesh_phase``). Prints
+    a ``{"mesh": ...}`` line and returns its dict."""
     from tensorbnn_tpu_torch.ops import fused_mlp
     from tensorbnn_tpu_torch.parallel.mesh import DataPeers, make_mesh
     from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
@@ -2345,32 +2534,8 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
         raise AssertionError(f"multiclass tempered on 1x2: "
                              f"{out['multiclass_tempered_1x2']}")
 
-    # (e) the predict cell on 2x2
-    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp_dir:
-        pred, xp, _ = predict_cell(dev, tmp_dir)
-        m = mesh(2, 2)
-        want = pred.predict(xp)
-        got = pred.predict(xp, mesh=m)
-        host = {}
-        for label, kw in (("meshless", {}), ("2x2", {"mesh": m})):
-            for _ in range(3):
-                pred.predict(xp, **kw)
-            times = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                pred.predict(xp, **kw)
-                times.append(1e3 * (time.perf_counter() - t0))
-            host[label] = float(np.median(times))
-    diff = float(np.abs(got - want).max())
-    out["predict_2x2"] = {
-        "networks": PREDICT_NETS, "points": PREDICT_POINTS,
-        "bit_equal": bool((got == want).all()), "max_abs_diff": diff,
-        "max_abs": float(np.abs(want).max()), "host_ms_median_of_5": host}
-    print(f"(e) the predict cell on 2x2 ({card}): "
-          f"{json.dumps(out['predict_2x2'])}", flush=True)
-    if got.shape != want.shape or diff > MESH_PREDICT_TOL * max(
-            1.0, out["predict_2x2"]["max_abs"]):
-        raise AssertionError(f"predict on 2x2: {out['predict_2x2']}")
+    # (e) the predict cell on 2x2, on both routes
+    out["predict_2x2"] = predict_mesh_phase(dev)
 
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"mesh": out}), flush=True)
@@ -2723,15 +2888,17 @@ def mesh_graph_phase(dev, card, warm=None) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only /
-    # --pretrain-only: phases 1, 2 and 10 / 11 / 12 / 13 / 9 alone (a quick
-    # check of that phase; no kernels line)
+    # --pretrain-only / --predict-only: phases 1, 2 and 10 / 11 / 12 / 13 /
+    # 9 / 7 (e) and 11 (e) alone (a quick check of that phase; no kernels
+    # line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
     mesh_graph_only = argv == ["--mesh-graph-only"]
     pretrain_only = argv == ["--pretrain-only"]
+    predict_only = argv == ["--predict-only"]
     if argv and not (surrogate_only or mesh_only or graph_only
-                     or mesh_graph_only or pretrain_only):
+                     or mesh_graph_only or pretrain_only or predict_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -2789,6 +2956,21 @@ def main(argv=None) -> int:
             print(f"graph runner during the {path} path: "
                   f"{json.dumps(graphs.COUNTS.as_dict())}")
         return got
+
+    if predict_only:
+        phase("7 (e) the predict cell on both routes")
+        net, lik = flagship_network(dev)
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            print(json.dumps({"predict": predict_phase(
+                dev, tmp, net.train_x, net.train_y, lik)}))
+        phase("11 (e) the predict cell on 2x2 on both routes")
+        print(json.dumps({"predict_2x2": predict_mesh_phase(dev)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if graph_only or mesh_graph_only:
         if graph_only:

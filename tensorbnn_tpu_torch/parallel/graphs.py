@@ -117,11 +117,21 @@ and replayed a batch at a time (training/pretrain.py). A graph of the
 whole epoch (~27,000 launches at the tutorial's 299 steps) took 1.7 s
 to capture on an H100, a step 14 ms, and the step's replays ran an
 epoch up to 7% faster (``chip_profile.py pretrain``).
+
+``ForwardGraph`` is the port of the JAX ``Predictor``'s compiled forward
+(``jax.jit(jax.vmap(apply))``, ``tensorbnn_tpu/predictor.py:84``, and its
+sharded twin, ``:222-224``), which XLA compiles for each input shape at
+its first call: a ``Predictor`` on a card, or on a mesh whose entries are
+all cards (``predict_route``), captures its ensemble's forward once for
+each key (the thinning and the input's shape; a mesh entry's block of
+networks and of rows) after one eager run of it on the card's side
+stream, and replays it at every later call of the key (predictor.py).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import math
 import time
 from typing import NamedTuple, Optional
@@ -142,10 +152,11 @@ COUNTED = (fused_mlp.fused_trajectory, fused_hyper.fused_hyper_trajectory,
 
 
 class GraphCounts:
-    """What the graph runners did since the last ``reset``: graphs
-    captured, each capture's seconds (its warm-up epoch included), replays,
-    warm-up epochs and, over a data axis above 1, the host's copies of a
-    sum's argument to a peer and of a peer's part back to the home
+    """What the graph runners and the Predictor's forward graphs
+    (``ForwardGraph``) did since the last ``reset``: graphs captured, each
+    capture's seconds (a chunk's warm-up epoch included), replays, warm-up
+    epochs (or forwards) and, over a data axis above 1, the host's copies
+    of a sum's argument to a peer and of a peer's part back to the home
     (``SegmentedPart``), one a peer and direction."""
 
     def __init__(self):
@@ -167,6 +178,22 @@ class GraphCounts:
 COUNTS = GraphCounts()
 
 
+def _entries(mesh, device) -> list:
+    """The devices of a mesh's entries, or ``[device]`` without one."""
+    return ([torch.device(device)] if mesh is None
+            else [d for row in mesh.devices for d in row])
+
+
+def predict_route(device, mesh) -> str:
+    """Which route a ``Predictor.predict`` call takes, from the
+    configuration alone: "graph" (a ``ForwardGraph`` a key, or a mesh
+    entry and key) where the Predictor's ``device`` (no mesh) or every
+    entry of the call's ``mesh`` is a CUDA card, else "eager". The forward
+    draws nothing, so the cards may be of several kinds."""
+    return ("graph" if all(d.type == "cuda" for d in _entries(mesh, device))
+            else "eager")
+
+
 def chunk_runner_kind(batched_main_traj, mesh, device,
                       workspace_bytes: int = 0) -> str:
     """Which runner a chunk takes, from the configuration alone: "graph"
@@ -180,8 +207,7 @@ def chunk_runner_kind(batched_main_traj, mesh, device,
     over the peers mid-trajectory), so there it is "eager" here too.
     ``workspace_bytes`` is a K3 call's workspace on a chain shard's chains
     and a peer's rows (0 for the plain path)."""
-    entries = ([torch.device(device)] if mesh is None
-               else [d for row in mesh.devices for d in row])
+    entries = _entries(mesh, device)
     if any(d.type != "cuda" for d in entries):
         return "eager"
     cards = {d.index for d in entries}
@@ -400,17 +426,35 @@ class CudaGraph:
         caller has made current there, without ``torch.cuda.graph``'s
         preamble (a synchronize, ``gc.collect`` and emptying the cache: up
         to 0.5 s a capture in a long process; a segmented part takes it
-        once); ``close`` ends the capture."""
+        once); ``close`` ends the capture. The garbage collector is off
+        until then: a collection in the capture could destroy an
+        unreachable graph, a call that a capture in "global" mode refuses,
+        and the capture would fail (a Predictor's first capture after the
+        graph runners' tests, on an H100)."""
         self = cls.__new__(cls)
         self.graph, self.device = torch.cuda.CUDAGraph(), torch.device(device)
-        with torch.cuda.device(self.device):
-            self._register(generator)
-            self.graph.capture_begin(pool=pool, capture_error_mode="global")
+        self.collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device):
+                self._register(generator)
+                self.graph.capture_begin(pool=pool,
+                                         capture_error_mode="global")
+        except BaseException:
+            self._collect()
+            raise
         return self
 
     def close(self) -> None:
-        with torch.cuda.device(self.device):
-            self.graph.capture_end()
+        try:
+            with torch.cuda.device(self.device):
+                self.graph.capture_end()
+        finally:
+            self._collect()
+
+    def _collect(self) -> None:
+        if self.collecting:
+            gc.enable()
 
     def abandon(self) -> None:
         """Ends a capture that failed; its own error is dropped for the
@@ -662,6 +706,47 @@ class StepGraph:
     def _replay(self) -> None:
         self.graph.replay()
         COUNTS.replays += 1
+
+
+class ForwardGraph:
+    """``fn(x)``, a forward over tensors it reads in place (a Predictor's
+    ensemble, or a mesh entry's block of it), captured on ``x``'s card for
+    ``x``'s shape. ``warm`` makes it at a key's first call: ``fn(x)`` runs
+    eagerly on the card's side stream (the warm-up a first capture needs;
+    its output is that call's), then ``fn`` is captured over a static copy
+    of ``x`` by ``graph_type.segment`` (``open`` and ``close``, without
+    ``torch.cuda.graph``'s preamble) in ``pool``. A call copies its input
+    into the static buffer and replays; the output it returns is the
+    graph's own, which its next replay overwrites, and so may a replay of
+    a graph captured before it in the same pool: a caller copies it out
+    before either runs. Counted in ``COUNTS``: the warm-up, the capture
+    with its seconds, each replay."""
+
+    def __init__(self, fn, x: torch.Tensor, graph_type, pool):
+        self.fn, self.x, self.out = fn, x.clone(), None
+        if self.x.is_cuda:
+            torch.cuda.synchronize(self.x.device)
+        t0 = time.perf_counter()
+        self.graph = graph_type.segment(self._body, self.x.device, pool)
+        COUNTS.captures += 1
+        COUNTS.capture_seconds.append(time.perf_counter() - t0)
+
+    @classmethod
+    def warm(cls, fn, x: torch.Tensor, graph_type, pool) -> tuple:
+        """A key's first call: ``(graph, fn(x))``."""
+        out = []
+        graph_type.warm_up(lambda: out.append(fn(x)), x.device)
+        COUNTS.warmups += 1
+        return cls(fn, x, graph_type, pool), out[0]
+
+    def _body(self) -> None:
+        self.out = self.fn(self.x)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        self.graph.replay()
+        COUNTS.replays += 1
+        return self.out
 
 
 class _Captured:

@@ -30,10 +30,30 @@ cached per mesh (one mesh at a time, compared by identity); each device
 runs its networks on its rows, with no sum between devices, and the
 blocks are gathered in order. The ensemble is padded with copies of its
 first network and the rows with zeros, both sliced off the result.
+
+On a card, and on a mesh whose entries are all cards
+(``parallel/graphs.py::predict_route``), a call runs its forward as a
+replay of a captured CUDA graph, the port of the JAX package's
+``jax.jit`` of the vmapped forward (``tensorbnn_tpu/predictor.py:84``,
+``:222-224``), which compiles at a key's first call: the graph of a key
+(the thinning and the input's shape; on a mesh, an entry and its block of
+rows) is captured at its first call, after one eager run on the card's
+side stream whose output is that call's, and every later call of the key
+copies its input into the graph's static buffer and replays
+(``graphs.ForwardGraph``). A replay runs the eager forward's kernels, so
+its bits are the eager route's. Every graph of a Predictor on one card
+shares one memory pool; a graph's output is copied out before another
+replays. A new mesh drops the old one's graphs with its blocks. The CPU
+runs eagerly. ``predict`` copies the output into a fresh pinned block of
+torch's host allocator and waits on that copy alone; the reweighting pass
+stays eager (the JAX package's ``jax.jit`` there wraps a closure made
+anew at every call, ``tensorbnn_tpu/predictor.py:259``, ``:271``, so it
+compiles at every call and keeps no program to replay).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -49,6 +69,7 @@ from tensorbnn_tpu_torch.likelihoods import (
 from tensorbnn_tpu_torch.models.layers import LAYER_REGISTRY, LayerSpec
 from tensorbnn_tpu_torch.models.sequential import Sequential
 from tensorbnn_tpu_torch.network import _torch_dtype
+from tensorbnn_tpu_torch.parallel import graphs
 from tensorbnn_tpu_torch.parallel.mesh import CHAIN_AXIS, DATA_AXIS
 from tensorbnn_tpu_torch.sampler.potential import tree_leaves, \
     tree_unflatten
@@ -59,7 +80,27 @@ def _tree_map(fn, tree):
     return tree_unflatten(tree, iter([fn(leaf) for leaf in tree_leaves(tree)]))
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A fresh numpy copy of ``t``: from a card through a fresh block of
+    torch's caching pinned-host allocator (a steady call gets a freed block
+    back and pays no ``cudaHostAlloc``), the host waiting on the copy's
+    stream alone."""
+    if t.device.type != "cuda":
+        return t.numpy().copy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
+
+
 class Predictor:
+    #: the graph route's graph type: None takes ``graphs.CudaGraph`` where
+    #: ``graphs.predict_route`` gives "graph"; the CPU tests set a stand-in,
+    #: which takes the graph route on the CPU
+    _graph_type = None
+    #: True runs every call eagerly, on a card too (for comparisons)
+    _eager = False
+
     def __init__(self, directory_path: str, dtype=torch.float32,
                  custom_layer_dict: Optional[Dict] = None,
                  likelihood: Likelihood = GaussianLikelihood(sd=0.1),
@@ -83,6 +124,8 @@ class Predictor:
         """
         self.mesh = mesh
         self._mesh_cache = None
+        self._graphs = {}
+        self._pools = {}
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -186,10 +229,49 @@ class Predictor:
                             device=self.device)
         return x[:, None] if x.ndim == 1 else x
 
+    def _graph_type_of(self, mesh):
+        """The graph type of a call over ``mesh`` (None: no mesh), or None
+        for the eager route (``_graph_type``, ``_eager``)."""
+        if self._eager:
+            return None
+        if self._graph_type is not None:
+            return self._graph_type
+        return (graphs.CudaGraph if graphs.predict_route(self.device, mesh)
+                == "graph" else None)
+
+    def _run(self, cache: dict, key, fn, x: torch.Tensor, graph_type):
+        """``fn(x)`` on ``x``'s device, eagerly without ``graph_type``, else
+        through the graph of ``key`` in ``cache`` (made at the key's first
+        call, ``graphs.ForwardGraph.warm``, in the card's pool). Returns
+        the output and whether it is a graph's own (overwritten at the
+        graph's next replay, or another's of its pool)."""
+        if graph_type is None:
+            return fn(x), False
+        graph = cache.get(key)
+        if graph is not None:
+            return graph(x), True
+        if x.device not in self._pools:
+            self._pools[x.device] = graph_type.new_pool()
+        cache[key], out = graphs.ForwardGraph.warm(
+            fn, x, graph_type, self._pools[x.device])
+        return out, False
+
+    def _forward(self, input_matrix, n: int):
+        """The forward of every n-th network over the input on the device,
+        and whether its output is a graph's own (``_run``); the graphs are
+        keyed by ``n`` and the input's shape."""
+        x = self._input(input_matrix)
+        return self._run(self._graphs, (n,) + tuple(x.shape),
+                         functools.partial(self._apply_ens, self.ensemble(n)),
+                         x, self._graph_type_of(None))
+
     def predict_tensor(self, input_matrix, n: int = 1) -> torch.Tensor:
         """Ensemble predictions of every n-th network as a device tensor of
-        shape (ceil(S/n), batch, out_dims): one vmapped forward."""
-        return self._apply_ens(self.ensemble(n), self._input(input_matrix))
+        shape (ceil(S/n), batch, out_dims): one vmapped forward, or a
+        replay of its graph (then a copy of the graph's output, which no
+        later call overwrites)."""
+        out, own = self._forward(input_matrix, n)
+        return out.clone() if own else out
 
     def predict(self, input_matrix, n: int = 1, mesh=None) -> np.ndarray:
         """Ensemble predictions using every n-th network, as a numpy array
@@ -197,16 +279,17 @@ class Predictor:
         the constructor's) when there is one."""
         mesh = mesh if mesh is not None else self.mesh
         if mesh is not None:
-            return self._predict_sharded(input_matrix, n, mesh)
-        return self.predict_tensor(input_matrix, n).cpu().numpy()
+            return _to_host(self._forward_sharded(input_matrix, n, mesh))
+        return _to_host(self._forward(input_matrix, n)[0])
 
     def _mesh_ensemble(self, n: int, mesh):
         """``(blocks, S)``: every n-th network, padded to a multiple of the
         chains axis, split in order into one block a mesh row and placed on
         each of the row's devices; cached per thinning factor for one mesh
-        at a time (a new mesh drops the old one's blocks)."""
+        at a time, with the mesh's graphs (``_mesh_cache[2]``), which read
+        the blocks: a new mesh drops the old one's blocks and graphs."""
         if self._mesh_cache is None or self._mesh_cache[0] is not mesh:
-            self._mesh_cache = (mesh, {})
+            self._mesh_cache = (mesh, {}, {})
         cached = self._mesh_cache[1].get(n)
         if cached is None:
             n_ens = mesh.shape[CHAIN_AXIS]
@@ -230,26 +313,41 @@ class Predictor:
             self._mesh_cache[1][n] = cached
         return cached
 
-    def _predict_sharded(self, input_matrix, n: int, mesh) -> np.ndarray:
-        """``predict`` over ``mesh``: device (i, j) runs row i's networks
-        on the j-th block of rows; no device reads another's output."""
+    def _forward_sharded(self, input_matrix, n: int, mesh) -> torch.Tensor:
+        """``predict`` over ``mesh`` on its first device: entry (i, j) runs
+        row i's networks on the j-th block of rows (eagerly, or through its
+        graph, keyed by ``n``, the entry and its rows' shape), and the
+        unpadded part of its output is copied into place before the next
+        entry runs; no device reads another's output. The entries run in
+        one order, the order their graphs were captured in."""
         blocks, s = self._mesh_ensemble(n, mesh)
+        cache, graph_type = self._mesh_cache[2], self._graph_type_of(mesh)
         x = torch.as_tensor(input_matrix, dtype=self.dtype)
         x = x[:, None] if x.ndim == 1 else x
         b = x.shape[0]
-        pad = (-b) % mesh.shape[DATA_AXIS]
-        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
-        x_rows = x.chunk(mesh.shape[DATA_AXIS])
+        n_ens, n_dat = mesh.shape[CHAIN_AXIS], mesh.shape[DATA_AXIS]
+        k, r = -(-s // n_ens), -(-b // n_dat)
+        x = torch.cat([x, x.new_zeros((r * n_dat - b,) + x.shape[1:])])
         # each block of rows reaches the first row's device once; other
         # rows take it from there (no copy on a repeated device)
-        x_rows = [xr.to(d) for xr, d in zip(x_rows, mesh.devices[0])]
-        first = mesh.first
-        out = torch.cat([torch.cat(
-            [self._apply_ens(blk, xr.to(d, non_blocking=True)).to(
-                first, non_blocking=True)
-             for blk, xr, d in zip(row_blocks, x_rows, row)], dim=1)
-            for row_blocks, row in zip(blocks, mesh.devices)])
-        return out.cpu().numpy()[:s, :b]
+        x_rows = [xr.to(d) for xr, d in zip(x.chunk(n_dat),
+                                            mesh.devices[0])]
+        out = None
+        for i, (row_blocks, row) in enumerate(zip(blocks, mesh.devices)):
+            for j, (blk, xr, d) in enumerate(zip(row_blocks, x_rows, row)):
+                xr = xr.to(d, non_blocking=True)
+                y, _ = self._run(cache, (n, i, j) + tuple(xr.shape),
+                                 functools.partial(self._apply_ens, blk),
+                                 xr, graph_type)
+                if out is None:
+                    out = torch.empty((s, b) + y.shape[2:], dtype=y.dtype,
+                                      device=mesh.first)
+                # a block of padding alone has nothing to copy
+                ni, nj = min(k, s - i * k), min(r, b - j * r)
+                if ni > 0 and nj > 0:
+                    out[i * k:i * k + ni, j * r:j * r + nj].copy_(
+                        y[:ni, :nj], non_blocking=True)
+        return out
 
     def predict_mean_sd(self, input_matrix, n: int = 1, mesh=None):
         """Posterior predictive mean and sd over the ensemble."""

@@ -10,7 +10,10 @@ bits with TF32 switched on, "high" differs within TF32's tolerance) and
 the chunked likelihood on the card against the CPU in float64; and the
 ``(chains, data)`` mesh on the card (K1 + K2 on 4x1, K3 + K2 on 2x2, K3
 on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
-the mesh; and the graph chunk runner against the eager runner, without a
+the mesh; and the ``Predictor``'s graph route (a replay of a captured
+forward a key, a graph a mesh entry) against its eager route bit for bit,
+its results never overwritten by a later call, a failed capture raising;
+and the graph chunk runner against the eager runner, without a
 mesh and on chains-only meshes (a graph a chain shard), and the stepped
 runner without a mesh and on data meshes (its parts split at the data
 peers' sums) against the eager mesh runner; each mesh test on a mesh of
@@ -786,12 +789,10 @@ def test_data_mesh_k3_matches_the_meshless_k3(device, layout):
     _close(got[1], want[1], 1e-5, 1e-5 * float(want[1].abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", MESH_LAYOUTS)
-def test_sharded_predictor_on_the_card(device, tmp_path, layout):
-    """11 flagship networks over 13 rows on a 2x2 mesh (both padded)
-    against the unsharded ``predict``, within 1e-6: the blocks run batched
-    products of other shapes, which may sum in another order."""
+def _flagship_predictor(device, tmp_path, n_nets):
+    """A ``Predictor`` on ``device`` over an npz store of ``n_nets``
+    flagship networks around its seed-0 init (sd 0.1, numpy seed 2), and
+    that numpy generator."""
     from tensorbnn_tpu_torch import Predictor
     from tensorbnn_tpu_torch.io import checkpoint
     from tensorbnn_tpu_torch.sampler.potential import host_unraveler
@@ -799,19 +800,139 @@ def test_sharded_predictor_on_the_card(device, tmp_path, layout):
     model, flat = _flagship(lik)
     rng = np.random.default_rng(2)
     thetas = (flat.theta.numpy()[None] + 0.1 * rng.normal(
-        size=(11, flat.theta.numel()))).astype(np.float32)
+        size=(n_nets, flat.theta.numel()))).astype(np.float32)
     params, hypers = model.init(torch.Generator().manual_seed(0))
-    hyper_samples = tuple({k: np.broadcast_to(v.numpy(), (11,))
+    hyper_samples = tuple({k: np.broadcast_to(v.numpy(), (n_nets,))
                            for k, v in hp.items()} for hp in hypers)
     d = str(tmp_path / "run")
     checkpoint.save_samples(d, host_unraveler(params)(thetas),
                             hyper_samples, {})
-    pred = Predictor(d, likelihood=lik, layers=model.layers, device=device)
+    return Predictor(d, likelihood=lik, layers=model.layers,
+                     device=device), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MESH_LAYOUTS)
+def test_sharded_predictor_on_the_card(device, tmp_path, layout):
+    """11 flagship networks over 13 rows on a 2x2 mesh (both padded)
+    against the unsharded ``predict``, within 1e-6: the blocks run batched
+    products of other shapes, which may sum in another order."""
+    pred, rng = _flagship_predictor(device, tmp_path, 11)
     x = rng.normal(size=(13, 1)).astype(np.float32)
     want = pred.predict(x)
     got = pred.predict(x, mesh=_mesh(device, 2, 2, layout))
     assert got.shape == want.shape == (11, 13, 1)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- the Predictor's graph route (parallel/graphs.py::ForwardGraph) against
+# its eager route ----------------------------------------------------------
+
+PREDICT_MESHES = ["none"] + MESH_LAYOUTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", PREDICT_MESHES)
+def test_predictor_graph_route_matches_eager_on_the_card(device, tmp_path,
+                                                         mesh):
+    """301 flagship networks at n = 1 and 2 over 64 and 203 rows, three
+    calls a key with new inputs: the graph route (a key's first call its
+    warm-up, then replays) equal to the eager route bit for bit, without a
+    mesh and on 2x2 (padded on both axes); one warm-up and one capture a
+    key (an entry and key on the mesh), replays after."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    pred, rng = _flagship_predictor(device, tmp_path, 301)
+    m = None if mesh == "none" else _mesh(device, 2, 2, mesh)
+    entries = 1 if m is None else 4
+    graphs.COUNTS.reset()
+    calls = 0
+    for n in (1, 2):
+        for rows in (64, 203):
+            for _ in range(3):
+                x = rng.normal(size=(rows, 1)).astype(np.float32)
+                pred._eager = True
+                want = pred.predict(x, n, mesh=m)
+                pred._eager = False
+                got = pred.predict(x, n, mesh=m)
+                assert got.shape == (-(-301 // n), rows, 1)
+                np.testing.assert_array_equal(got.view(np.int32),
+                                              want.view(np.int32))
+                calls += 1
+    keys = 4 * entries
+    assert (graphs.COUNTS.warmups, graphs.COUNTS.captures,
+            graphs.COUNTS.replays) == (keys, keys, calls * entries - keys)
+
+
+@pytest.mark.cuda
+def test_predictor_graph_results_are_not_aliased(device, tmp_path):
+    """Three ``predict`` and three ``predict_tensor`` calls of one key with
+    new inputs: each earlier result keeps its values, and no tensor result
+    shares memory with the graph's output."""
+    pred, rng = _flagship_predictor(device, tmp_path, 300)
+    got, want = [], []
+    for method in ("predict", "predict_tensor", "predict_tensor",
+                   "predict", "predict_tensor", "predict"):
+        x = rng.normal(size=(100, 1)).astype(np.float32)
+        got.append(getattr(pred, method)(x))
+        pred._eager = True
+        want.append(pred.predict(x))
+        pred._eager = False
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(
+                g if isinstance(g, np.ndarray) else g.cpu().numpy(), w)
+    static = pred._graphs[(1, 100, 1)].out
+    assert all(g.data_ptr() != static.data_ptr() for g in got
+               if torch.is_tensor(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", PREDICT_MESHES)
+def test_predictor_capture_failure_raises(device, tmp_path, mesh):
+    """A forward that copies from pageable host memory cannot be captured:
+    ``predict`` raises at every call (it never carries on eagerly) and
+    keeps no graph."""
+    pred, rng = _flagship_predictor(device, tmp_path, 20)
+    m = None if mesh == "none" else _mesh(device, 2, 2, mesh)
+    apply = pred._apply_ens
+
+    def copying(ens, x):
+        torch.as_tensor(np.zeros(4, np.float32), device=x.device)
+        return apply(ens, x)
+
+    pred._apply_ens = copying
+    x = rng.normal(size=(16, 1)).astype(np.float32)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            pred.predict(x, mesh=m)
+    torch.cuda.synchronize()
+    assert not pred._graphs
+    assert m is None or not pred._mesh_cache[2]
+
+
+@pytest.mark.cuda
+def test_the_collector_is_off_while_a_capture_is_open(device):
+    """A collection inside a capture could destroy an unreachable graph (a
+    graph runner's, in a reference cycle), which a capture in "global"
+    mode refuses: the Predictor's first capture after the graph runners'
+    tests failed so. ``CudaGraph.open`` turns the collector off until
+    ``close``, which turns it back on, after a failed capture too."""
+    import gc
+    from tensorbnn_tpu_torch.parallel import graphs
+    pool = graphs.CudaGraph.new_pool()
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        return torch.ones(4, device=device) * 2
+
+    graphs.CudaGraph.segment(body, device, pool).replay()
+    assert seen == [False] and gc.isenabled()
+    with pytest.raises(RuntimeError):
+        graphs.CudaGraph.segment(lambda: torch.as_tensor(
+            np.zeros(4, np.float32), device=device), device, pool)
+    torch.cuda.synchronize()
+    assert gc.isenabled()
 
 
 # -- the graph chunk runner (parallel/graphs.py) against the eager runner,
