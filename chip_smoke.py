@@ -117,7 +117,11 @@ script exits non-zero:
    float64 at 4 chains; the ``potential_noise`` walk at the MAP under
    precision None, "high" (TF32) and "highest"; ``surrogate_regression
    --smoke`` held to the JAX example's figures; the same model under
-   default numerics (K3 + K2), K3 held against the plain path, as a
+   default numerics (K3 over 125,000-row chunks + K2, stepped), K3 over
+   row chunks and unchunked held against the plain path and each other,
+   with their ms, calls and workspace; the same at 128 chains (a fleet
+   whose unchunked K3 workspace, 131.6 GB, no card holds: the driver's
+   gate declines it without ``data_chunk``), 4 epochs, as a
    ``{"surrogate": ...}`` line (``--surrogate-only`` runs phases 1, 2 and
    10 alone);
 11. the ``(chains, data)`` mesh on a virtual mesh whose entries are all
@@ -331,6 +335,10 @@ SURR_MCMC = dict(step_size_start=5e-7, step_size_min=1e-8,
 # the value's relative error and the gradient's largest error over its
 # largest entry (float32 sums over 1M rows in two orders: ~1e-7 on an H100)
 SURR_VALUE_RTOL, SURR_GRAD_TOL = 1e-5, 1e-4
+# (f) the fleet the driver could not run on K3 before it honoured
+# data_chunk: 128 chains at 1M rows under default numerics (an unchunked
+# K3 call's workspace 131.6 GB), 4 epochs
+WIDE_FLEET_CHAINS, WIDE_FLEET_EPOCHS = 128, 4
 # (c) the potential_noise walk (run_benchmarks.py:859-960): displacements
 # t along one N(0, 1) direction (numpy seed 7)
 NOISE_TS = [0.0] + [float(t) for t in np.logspace(-8, -4.5, 15)]
@@ -636,9 +644,10 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
     per-epoch counts (the driver's) for a shared one; over ``mesh`` (a
     chains-only one) when given; ``n_chains`` the fleet the stepped
     runner's workspace gate is decided for (None: not gated);
-    ``data_chunk`` the stats potential's row chunks. Over a data axis
-    above 1 no K1 is built (it cannot sum over the data peers), and K3 is
-    built for a peer's rows, as the driver builds them."""
+    ``data_chunk`` the row chunks of K3 and of the stats potential. Over a
+    data axis above 1 no K1 is built (it cannot sum over the data peers),
+    and K3 is built for a peer's rows (chunked there), as the driver
+    builds them."""
     from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
     from tensorbnn_tpu_torch.parallel.chains import \
         make_multichain_chunk_runner
@@ -653,7 +662,7 @@ def chunk_runner(net, lik, flat, hyper_steps, hyper_eps, tempering_beta=None,
         tempered=tempered, record_uturn=record_uturn)
     vg = None if traj or tempered else fused_mlp.try_build_fused_main_vg(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
-        n_rows=x.shape[0] // n_data)
+        n_rows=x.shape[0] // n_data, data_chunk=data_chunk)
     hyper = fused_hyper.try_build_fused_hyper_trajectory(
         net.model, lik, flat.unravel_eta, h, hyper_steps)
     # a tempered run over data peers runs the plain main block
@@ -1945,6 +1954,115 @@ def last_state(res, dev, c=None):
             torch.tensor(res.eta_samples[-1, :c], device=dev))
 
 
+def route_errors(got, want) -> dict:
+    """``got``'s value and gradient against ``want``'s: the value's
+    largest relative error and the gradient's largest error over its
+    largest entry."""
+    gmax = float(want[1].abs().max())
+    return {"value_rel": float(((got[0].double() - want[0].double()).abs()
+                                / want[0].double().abs()).max()),
+            "grad_over_max": float((got[1].double() - want[1].double())
+                                   .abs().max()) / gmax}
+
+
+def k3_route(net, lik, flat, thetas, etas, data_chunk, reset_counts) -> dict:
+    """The main block's K3 route at the surrogate's 1M rows, built as the
+    driver builds it (over ``data_chunk``-row chunks, or unchunked with
+    None), at ``thetas``, ``etas``: its calls an evaluation, ms an
+    evaluation (CUDA events), a call's workspace bytes, one evaluation's
+    peak memory above what was held before, and its ``(value, grad)``
+    under ``out``."""
+    from tensorbnn_tpu_torch.ops import fused_mlp
+    vg = fused_mlp.try_build_fused_main_vg(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, net.train_x,
+        net.train_y, flat.eta.numel(), data_chunk=data_chunk)
+    args = (thetas, etas, net.train_x, net.train_y)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = vg(*args)
+    torch.cuda.synchronize()
+    return {"launches_per_eval": fused_mlp.fused_potential.LAUNCHES,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+            "workspace_bytes": vg.workspace_bytes(thetas.shape[0]),
+            "ms": cuda_ms(lambda: vg(*args), reps=3), "out": got}
+
+
+def wide_fleet_cell(dev, card, x, y, warm, flat, reset_counts,
+                    read_counts) -> dict:
+    """Phase 10 (f): the 1M-point surrogate under default numerics at
+    ``WIDE_FLEET_CHAINS`` chains with ``data_chunk=SURR_CHUNK``, 4 epochs
+    through ``Network.train`` (K3 over row chunks on the stepped runner,
+    K2): finite samples, K3's launches, the run's peak memory and wall an
+    epoch (its first chunk's warm-up and captures included), K3's chunked
+    value and gradient at the run's last state against the plain chunked
+    path; and the driver's gate for the same fleet without ``data_chunk``
+    (``sampler.driver._gate_k3``), decided without running it. Returns the
+    cell's dict."""
+    from tensorbnn_tpu_torch.ops import fused_mlp
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.sampler.driver import _gate_k3
+    from tensorbnn_tpu_torch.sampler.potential import make_potentials
+
+    c = WIDE_FLEET_CHAINS
+    net, lik = surrogate_network(dev, x, y, warm, 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = net.train(WIDE_FLEET_EPOCHS, 2, lik, n_chains=c, chain_jitter=0.0,
+                    data_chunk=SURR_CHUNK, verbose=True)
+    counts = read_counts(f"surrogate {c} chains, default numerics, "
+                         f"data_chunk {SURR_CHUNK:,} ({res.main_path})")
+    cell = {"card": card, "chains": c, "points": SURROGATE_POINTS,
+            "data_chunk": SURR_CHUNK, "epochs": WIDE_FLEET_EPOCHS,
+            "main_path": res.main_path, "fused_hyper": res.fused_hyper,
+            "chunk_runner": res.chunk_runner, "launches": counts,
+            "wall_s": res.wall_time,
+            "wall_s_per_epoch": res.wall_time / WIDE_FLEET_EPOCHS,
+            "leapfrog": res.leapfrog.tolist(),
+            "main_accept": res.main_accept.tolist(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+            "held_before_bytes": held,
+            "samples": list(res.theta_samples.shape)}
+    finite = bool(np.isfinite(res.theta_samples).all())
+    thetas, etas = last_state(res, dev)
+    del res
+    plain = make_potentials(net.model, lik, net.train_x, net.train_y,
+                            flat.unravel_theta, flat.unravel_eta,
+                            data_chunk=SURR_CHUNK)
+    want = plain.main_vg(thetas, etas)
+    del plain
+    route = k3_route(net, lik, flat, thetas, etas, SURR_CHUNK, reset_counts)
+    cell["k3"] = dict(route_errors(route.pop("out"), want), **route)
+    del want
+    # the same fleet without data_chunk: the driver's gate, not run
+    whole = fused_mlp.try_build_fused_main_vg(
+        net.model, lik, flat.unravel_theta, flat.unravel_eta, net.train_x,
+        net.train_y, flat.eta.numel())
+    takes = _gate_k3(whole, c, None, net.train_x.device, True)
+    cell["unchunked_gate"] = {
+        "workspace_bytes": whole.workspace_bytes(c),
+        "card_memory_bytes": graphs.card_memory(net.train_x.device.index),
+        "takes_k3": takes is not None}
+    print(f"(f) surrogate {c} chains x {SURROGATE_POINTS:,} points, default "
+          f"numerics, data_chunk {SURR_CHUNK:,}: {json.dumps(cell)}",
+          flush=True)
+    if (not finite or cell["main_path"] != "K3"
+            or cell["chunk_runner"] != "stepped" or counts["K3"] == 0
+            or counts["K3"] % cell["k3"]["launches_per_eval"]
+            or cell["k3"]["value_rel"] > SURR_VALUE_RTOL
+            or cell["k3"]["grad_over_max"] > SURR_GRAD_TOL
+            or cell["unchunked_gate"]["takes_k3"]):
+        raise AssertionError(f"surrogate at {c} chains: {cell}")
+    del net
+    torch.cuda.empty_cache()
+    return cell
+
+
 def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     """Phase 10: the 1M-point surrogate (the JAX bench's
     ``surrogate_quality_exact``) on the card. (a) ``Network.train`` at full
@@ -1959,9 +2077,13 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     precision's value-and-gradient ms at 32 chains; (d)
     ``surrogate_regression --smoke`` through its ``main``, held to the JAX
     example's figures; (e) the same model under default numerics through
-    ``Network.train``: the path that takes its main block, and K3 against
-    the plain path at the surrogate's shape (value, gradient, ms an
-    evaluation, workspace bytes). Prints a ``{"surrogate": ...}`` line and
+    ``Network.train`` with ``data_chunk``: the path and runner that take
+    its main block (K3 over row chunks, stepped), the run's peak memory,
+    and K3 at the run's last state over row chunks (the driver's route)
+    and unchunked (the parent's), each against the plain chunked path and
+    against each other (value, gradient, calls, ms and peak memory an
+    evaluation, workspace bytes); (f) the same at 128 chains
+    (``wide_fleet_cell``). Prints a ``{"surrogate": ...}`` line and
     returns its dict."""
     import dataclasses
 
@@ -2159,50 +2281,68 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
         raise AssertionError(f"surrogate_regression --smoke off the JAX "
                              f"example's figures: {smoke}")
 
-    # (e) default numerics: which path takes the main block
+    # (e) default numerics: K3 over row chunks (the driver's route with
+    # data_chunk) and unchunked (the parent's), each against the plain path
     net_d, lik_d = surrogate_network(dev, x, y, warm, 2)
     reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     res_d = net_d.train(4, 2, lik_d, n_chains=SURR_CHAINS, chain_jitter=0.0,
                         data_chunk=SURR_CHUNK, verbose=True)
     counts_d = read_counts(f"surrogate, default numerics "
                            f"({res_d.main_path})")
     default = {"main_path": res_d.main_path, "fused_hyper":
-               res_d.fused_hyper, "launches": counts_d,
+               res_d.fused_hyper, "chunk_runner": res_d.chunk_runner,
+               "launches": counts_d,
                "main_accept": res_d.main_accept.tolist(),
-               "wall_s": res_d.wall_time}
+               "wall_s": res_d.wall_time,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated() - held}
     assert np.isfinite(res_d.theta_samples).all()
     th_d, et_d = last_state(res_d, dev)
     plain = make_potentials(net_d.model, lik_d, net_d.train_x,
                             net_d.train_y, flat.unravel_theta,
                             flat.unravel_eta, data_chunk=SURR_CHUNK)
     default["plain_ms"] = cuda_ms(lambda: plain.main_vg(th_d, et_d), reps=3)
-    if res_d.main_path == "K3":
-        vg = fused_mlp.try_build_fused_main_vg(
-            net_d.model, lik_d, flat.unravel_theta, flat.unravel_eta,
-            net_d.train_x, net_d.train_y, flat.eta.numel())
-        want = plain.main_vg(th_d, et_d)
-        k3 = vg(th_d, et_d, net_d.train_x, net_d.train_y)
-        ops, tail = fused_mlp._model_program(net_d.model, lik_d)
-        program = fused_mlp.make_fused_potential_vg(
-            ops, SURROGATE_POINTS, tail).args[0]
-        gmax = float(want[1].abs().max())
-        default.update(
-            k3_value_rel=float(((k3[0] - want[0]).abs()
-                                / want[0].abs()).max()),
-            k3_grad_over_max=float((k3[1] - want[1]).abs().max()) / gmax,
-            k3_ms=cuda_ms(lambda: vg(th_d, et_d, net_d.train_x,
-                                     net_d.train_y), reps=3),
-            k3_workspace_bytes=4 * program.workspace_floats(SURR_CHAINS))
-        del want, k3
-        if (default["k3_value_rel"] > SURR_VALUE_RTOL
-                or default["k3_grad_over_max"] > SURR_GRAD_TOL
-                or counts_d["K3"] == 0):
-            raise AssertionError(f"K3 at the surrogate's shape: {default}")
-    out["default_numerics"] = default
+    want = plain.main_vg(th_d, et_d)
+    del plain
+    if res_d.main_path != "K3" or counts_d["K3"] == 0:
+        raise AssertionError(f"surrogate, default numerics: {default}")
+    routes = {}
+    for label, chunk in (("chunked", SURR_CHUNK), ("unchunked", None)):
+        routes[label] = k3_route(net_d, lik_d, flat, th_d, et_d, chunk,
+                                 reset_counts)
+    k3 = {label: r.pop("out") for label, r in routes.items()}
+    for label, r in routes.items():
+        r.update(route_errors(k3[label], want))
+    routes["chunked"]["vs_unchunked"] = route_errors(k3["chunked"],
+                                                     k3["unchunked"])
+    default["k3"] = routes
+    # the parent's keys: the driver's route, now chunked
+    default.update(k3_ms=routes["chunked"]["ms"],
+                   k3_workspace_bytes=routes["chunked"]["workspace_bytes"])
+    del want, k3
     print(f"surrogate, default numerics: {json.dumps(default)} ({card})",
           flush=True)
-    del plain, net_d, res_d
+    if (res_d.chunk_runner != "stepped"
+            or counts_d["K3"] % routes["chunked"]["launches_per_eval"]
+            or routes["chunked"]["launches_per_eval"]
+            != SURROGATE_POINTS // SURR_CHUNK
+            or routes["unchunked"]["launches_per_eval"] != 1
+            or any(e["value_rel"] > SURR_VALUE_RTOL
+                   or e["grad_over_max"] > SURR_GRAD_TOL
+                   for e in (routes["chunked"], routes["unchunked"],
+                             routes["chunked"]["vs_unchunked"]))):
+        raise AssertionError(f"K3 at the surrogate's shape: {default}")
+    out["default_numerics"] = default
+    del net_d, res_d
     torch.cuda.empty_cache()
+
+    # (f) the fleet the parent could not run: 128 chains over the 1M rows
+    # under default numerics, K3 over row chunks on the stepped runner
+    out["default_128"] = wide_fleet_cell(dev, card, x, y, warm, flat,
+                                         reset_counts, read_counts)
     print(json.dumps({"surrogate": out}), flush=True)
     return out
 
@@ -2608,7 +2748,7 @@ def stepped_cells(dev, warm=None):
     classifier at 64 chains (K3, the plain hyper block at 30 steps); the
     1M-point surrogate at 32 chains under exact numerics (the plain path,
     the Kahan leapfrog, ``data_chunk``, a diagonal metric) and under
-    default numerics (K3 over the 1M rows unchunked, K2), from the MAP
+    default numerics (K3 over 125,000-row chunks, K2), from the MAP
     warm start ``warm`` (pretrained here when None), with chunks of 2 and
     a short steady window. Each spec's ``make(net, lik, flat, eager,
     mesh)`` builds its runner, and ``scale(d)`` gives its step scale."""
@@ -4094,7 +4234,13 @@ def main(argv=None) -> int:
     phase("10 the 1M-point surrogate on the card")
     surr = surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts)
     # K3 at the surrogate's shape under default numerics: (e)'s figures
+    # (a main-block evaluation's calls over row chunks and unchunked) and
+    # (f)'s 128-chain fleet
     kernels[2]["surrogate_default_numerics"] = surr["default_numerics"]
+    kernels[2]["surrogate_launches_per_eval"] = {
+        label: r["launches_per_eval"]
+        for label, r in surr["default_numerics"]["k3"].items()}
+    kernels[2]["surrogate_128_chunked"] = surr["default_128"]
 
     phase("11 the mesh on the card")
     mesh = mesh_phase(dev, card, x, y, warm, reset_counts, read_counts)

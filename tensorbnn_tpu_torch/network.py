@@ -180,10 +180,13 @@ class Network:
         runs every burn-in chunk at ``ceil(1.5 * l_hat)``, "alternate"
         interleaves such probe chunks with chunks at ``l_hat``.
 
-        The big-data options, each on the plain path as in the JAX
-        package: ``data_chunk`` sums the likelihood's value and gradient
-        over row chunks of that many rows (a divisor of the rows), which
-        bounds the activations to ``chains x data_chunk x width``;
+        The big-data options, as in the JAX package: ``data_chunk`` sums
+        the likelihood's value and gradient over row chunks of that many
+        rows (a divisor of the rows), on the plain path and on K3's (one
+        K3 call a chunk), which bounds the activations, or K3's workspace,
+        to ``chains x data_chunk x width`` (where even one call's
+        workspace cannot fit the card, the driver builds no K3 and the
+        main block takes the plain path). The others take the plain path:
         ``compensated=True`` runs the main block's leapfrog as Kahan sums,
         for step sizes within a few ulps of the parameters;
         ``numerics="exact"`` is ``compensated`` plus

@@ -34,13 +34,23 @@ gradient per chain, for ``hmc_step_batched``. The likelihood half comes from
 added outside the kernel in closed form (``add_priors``). Scope: K1's ops,
 each activation following a dense layer, and K1's tails (a learned sd must
 be the last eta coordinate). The driver builds K3 where K1 declines a
-model: planes too wide for one block's shared memory.
+model: planes too wide for one block's shared memory. Built with
+``data_chunk`` (a divisor of the rows, more than one chunk), K3 runs over
+row chunks: one call a chunk over contiguous row views, one after another
+on one stream, so that each call's workspace (``C x data_chunk`` rows of
+planes) takes the last one's memory; the values summed with a Kahan
+carry, the gradients plainly, as the chunked plain path sums them.
 
 Not ported: K3's data-axis ``psum``. Deliberate divergences: the TPU's VMEM
 gates (``kernel_vmem_bytes``, ``trajectory_vmem_bytes``), its chain blocks
 (``choose_block_c``) and the TPU-measured ``fused_profitable`` gate do not
-apply on the H100. K3 keeps its planes in device memory and so has no size
-gate; K1's only gate is one block's shared memory.
+apply on the H100. K3 keeps its planes in device memory; its gate is the
+card's memory (``parallel.graphs.k3_fits``, which the driver applies to a
+call's workspace: where even one chunk's does not fit, the main block
+takes the plain path, as the JAX package's VMEM gate sends it to XLA).
+Where the JAX package's gate declines K3 under ``data_chunk``, the port
+runs K3 over row chunks: the same function up to float association. K1's
+only gate is one block's shared memory.
 """
 
 from __future__ import annotations
@@ -776,7 +786,8 @@ fused_potential.LAUNCHES = 0
 
 def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
                             x, y, eta_dim: int,
-                            n_rows: Optional[int] = None
+                            n_rows: Optional[int] = None,
+                            data_chunk: Optional[int] = None
                             ) -> Optional[Callable]:
     """``batched_main_vg(thetas, etas, x, y, peers=None) -> ((C,), (C,
     D))`` for a model in K3's scope (see the module docstring), else None
@@ -785,13 +796,24 @@ def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
     closed-form priors from ``add_priors``, outside it.
 
     K3 is built for ``n_rows`` rows (``x``'s by default): on a data mesh,
-    a peer's local rows. Given ``peers`` (``parallel.mesh.DataPeers``),
-    ``batched_main_vg`` runs K3 on each peer's rows, sums the peers'
-    ``(value, grad)`` and then adds the priors, once (the JAX package's
-    psum around K3, ``tensorbnn_tpu/ops/fused_mlp.py:1191-1197``); ``x``,
-    ``y`` are then not read. Each call's workspace is ``C x N_local x
-    257`` floats a peer, allocated on the peer's stream, so peers that
-    share a card reuse one."""
+    a peer's local rows. Where ``data_chunk`` makes more than one chunk of
+    them (``sampler.potential.n_row_chunks``, which raises where it does
+    not divide them), K3 is built for ``data_chunk`` rows and each
+    evaluation makes one call a chunk over row views of ``x`` and ``y``,
+    the values summed with the Kahan carry of ``_chunked_loglik``, the
+    gradients plainly. Given ``peers`` (``parallel.mesh.DataPeers``),
+    ``batched_main_vg`` runs K3 on each peer's rows (chunked there, with a
+    carry of its own), sums the peers' ``(value, grad)`` and then adds the
+    priors, once (the JAX package's psum around K3,
+    ``tensorbnn_tpu/ops/fused_mlp.py:1191-1197``); ``x``, ``y`` are then
+    not read. Each call's workspace is ``C`` x (a chunk's or a peer's
+    rows) x 257 floats at the surrogate's 8-64-64-1, allocated on the
+    calling stream, so the chunks and the peers that share a card reuse
+    one. ``batched_main_vg.workspace_bytes(c)`` gives one call's bytes at
+    ``c`` chains: the driver's gate and the stepped runner's read it."""
+    from tensorbnn_tpu_torch.sampler.hmc import _kahan_add
+    from tensorbnn_tpu_torch.sampler.potential import n_row_chunks
+
     del y
     matched = _model_program(model, likelihood)
     if matched is None:
@@ -806,14 +828,24 @@ def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
     # the sd_root hyper must be the last flat-eta coordinate
     if sd_idx is not None and sd_idx != eta_dim - 1:
         return None
-    vg = make_fused_potential_vg(
-        ops, x.shape[0] if n_rows is None else n_rows, lik)
+    n = int(x.shape[0] if n_rows is None else n_rows)
+    n_chunks = n_row_chunks(n, data_chunk)
+    chunk = n // n_chunks
+    vg = make_fused_potential_vg(ops, chunk, lik)
     if vg is None:
         return None
 
     def likelihood_vg(x_in, y_in, thetas, etas):
         sd_c = sd_fixed if sd_idx is None else etas[:, sd_idx] ** 2
-        return vg(thetas, sd_c, x_in, y_in)
+        if n_chunks == 1:
+            return vg(thetas, sd_c, x_in, y_in)
+        acc = comp = thetas.new_zeros(thetas.shape[0])
+        grad = None
+        for i in range(0, n, chunk):
+            value, g = vg(thetas, sd_c, x_in[i:i + chunk], y_in[i:i + chunk])
+            acc, comp = _kahan_add(acc, comp, value)
+            grad = g if grad is None else grad + g
+        return acc, grad
 
     def batched_main_vg(thetas, etas, x_in, y_in, peers=None):
         if peers is None:
@@ -825,7 +857,8 @@ def try_build_fused_main_vg(model, likelihood, unravel_theta, unravel_eta,
         return add_priors(blocks, thetas, etas, value, grad)
 
     program = vg.args[0]
-    # a call's workspace bytes at c chains: the stepped graph runner's gate
+    # one call's workspace bytes at c chains (a chunk's rows): the driver's
+    # gate on the card's memory and the stepped graph runner's
     batched_main_vg.workspace_bytes = lambda c: 4 * program.workspace_floats(c)
     return batched_main_vg
 

@@ -219,24 +219,37 @@ def chunk_runner_kind(batched_main_traj, mesh, device,
     return "stepped" if stepped_fits(workspace_bytes, cards) else "eager"
 
 
+def k3_fits(workspace_bytes: int, cards) -> bool:
+    """The driver's gate on K3, the counterpart of the JAX package's VMEM
+    gate (``tensorbnn_tpu/ops/fused_mlp.py:1147-1155``): a K3 call's
+    workspace (``workspace_bytes``, at a chain shard's chains and one
+    chunk's or a data peer's rows) fits the memory of each card of
+    ``cards`` (CUDA device indices; none on the CPU, which has no gate).
+    Where it does not, the driver builds no K3 and the main block takes the
+    plain path, chunked where ``data_chunk`` says so. At the surrogate's
+    8-64-64-1 over 1M rows a call takes C x 1.028 GB unchunked (131.6 GB
+    at 128 chains, over an 80 GB card) and C x 128.5 MB with
+    ``data_chunk=125,000`` (16.45 GB at 128 chains)."""
+    return all(workspace_bytes <= card_memory(i) for i in cards)
+
+
 def stepped_fits(workspace_bytes: int, cards) -> bool:
     """The stepped runner's gate: a K3 call's workspace fits twice on each
     card of the mesh, once in the card's graph pool and once in the
     caching allocator (an eager call on another stream, the warm-up's,
     the driver's or the caller's, may hold it when a capture starts, and
     a capture cannot hand it back to the card). A card's pool holds one
-    workspace at a time however many chain shards or data peers it
-    serves: each K3 call frees its workspace when it ends, and the card's
-    graphs (home segments and peers' evaluations) are captured and
-    replayed one after another in that one pool, so each capture reuses
-    the last one's. The default-numerics surrogate on a 1x4 mesh of one
+    workspace at a time however many chain shards, data peers or row
+    chunks it serves: each K3 call frees its workspace when it ends, and
+    the card's graphs (home segments and peers' evaluations) are captured
+    and replayed one after another in that one pool, so each capture
+    reuses the last one's. The default-numerics surrogate on a 1x4 mesh of one
     H100 80GB (four peers of 250,000 rows, 8.23 GB of workspace each)
     reserved 25.95 GB on the stepped runner against 17.70 GB eager, one
     workspace more, at the same 8.24 GB peak allocated (``PERF.md``, the
     stepped runner over data meshes). The plain path (no workspace)
     always passes."""
-    return workspace_bytes == 0 or all(
-        2 * workspace_bytes <= card_memory(i) for i in cards)
+    return workspace_bytes == 0 or k3_fits(2 * workspace_bytes, cards)
 
 
 def card_memory(index) -> int:

@@ -33,12 +33,17 @@ only). A tempered run builds K1's tempered program and never K3, which
 bakes the untempered posterior (so a tempered model outside K1 takes the
 plain main block), and no K2 when the likelihood couples into the hypers.
 The JAX package's TPU gates (its VMEM budget and measured profitability)
-are not carried over.
+are not carried over; K3's counterpart of the VMEM gate is the card's
+memory (``parallel.graphs.k3_fits``): where one K3 call's workspace, at a
+chain shard's chains, exceeds a card's memory, no K3 is built and the
+main block takes the plain path (said under ``verbose``).
 
-The big-data options (the JAX driver's, on its plain path):
-``data_chunk`` sums the likelihood over row chunks (sampler/potential.py);
-``compensated`` runs the main block's leapfrog as Kahan sums
-(sampler/hmc.py); ``numerics="exact"`` is ``compensated`` plus
+The big-data options (the JAX driver's): ``data_chunk`` sums the
+likelihood over row chunks (sampler/potential.py), on the plain path and
+on K3's (one call a chunk, each call's workspace a chunk's: ``chains x
+data_chunk`` rows of planes), so that a wide fleet over a big-data
+likelihood fits one card; ``compensated`` runs the main block's leapfrog
+as Kahan sums (sampler/hmc.py); ``numerics="exact"`` is ``compensated`` plus
 ``matmul_precision="highest"`` on every dense layer
 (``exact_numerics_model``); ``precondition`` estimates a diagonal metric
 from the fleet's spread (``estimate_step_scale``) at one or more burn-in
@@ -124,6 +129,29 @@ def _is(value, off) -> bool:
     if off is None or isinstance(off, bool) or isinstance(value, bool):
         return value is off
     return type(value) is type(off) and value == off
+
+
+def _gate_k3(main_vg, n_chains: int, mesh, device, verbose: bool):
+    """``main_vg`` where one K3 call's workspace, at a chain shard's share
+    of ``n_chains``, fits each card the run's chains and data live on
+    (``parallel.graphs.k3_fits``; no card, no gate), else None: the main
+    block then takes the plain path, as the JAX package's VMEM gate sends
+    it to XLA. Decided from the configuration, before any epoch."""
+    from tensorbnn_tpu_torch.parallel.graphs import card_memory, k3_fits
+    devices = ([device] if mesh is None
+               else [d for row in mesh.devices for d in row])
+    cards = {d.index for d in devices if d.type == "cuda"}
+    shards = 1 if mesh is None else mesh.shape[CHAIN_AXIS]
+    workspace = main_vg.workspace_bytes(n_chains // shards)
+    if k3_fits(workspace, cards):
+        return main_vg
+    if verbose:
+        memory = min(card_memory(i) for i in cards)
+        print(f"K3 declined: a call's workspace at {n_chains // shards} "
+              f"chains is {workspace / 1e9:.2f} GB, over the card's "
+              f"{memory / 1e9:.2f} GB (pass data_chunk to bound it); the "
+              f"main block takes the plain path")
+    return None
 
 
 def check_options(options: dict) -> None:
@@ -551,7 +579,10 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         if main_traj is None and not tempered:
             main_vg = try_build_fused_main_vg(
                 model, likelihood, flat.unravel_theta, flat.unravel_eta,
-                x_train, y_train, eta_dim=eta_dim, n_rows=n_local)
+                x_train, y_train, eta_dim=eta_dim, n_rows=n_local,
+                data_chunk=data_chunk)
+        if main_vg is not None:
+            main_vg = _gate_k3(main_vg, fleet_chains, mesh, device, verbose)
         # beta scales a coupled likelihood's term of the hyper potential,
         # which K2 does not take: such tempered runs use the plain block
         if adjust_hypers and not (tempered

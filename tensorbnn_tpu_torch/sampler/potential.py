@@ -138,19 +138,25 @@ def _batched_value_and_grad(fn: Callable) -> Callable:
     return value_and_grad
 
 
-def row_chunks(x, y, data_chunk: Optional[int]) -> Optional[list]:
-    """``[(x_c, y_c), ...]``, views of ``data_chunk`` rows each, or None
-    when chunking is off (no ``data_chunk``, or one chunk). Raises when
-    ``data_chunk`` does not divide the rows, with the JAX package's
-    message."""
+def n_row_chunks(n_rows: int, data_chunk: Optional[int]) -> int:
+    """The number of ``data_chunk``-row chunks of ``n_rows`` rows, 1 when
+    chunking is off (no ``data_chunk``). Raises when ``data_chunk`` does
+    not divide the rows, with the JAX package's message."""
     if not data_chunk:
-        return None
-    n_rows = int(x.shape[0])
+        return 1
     if n_rows % data_chunk:
         raise ValueError(
             f"data_chunk ({data_chunk}) must divide the (local) training "
             f"rows ({n_rows}); pad the dataset or pick a divisor")
-    if n_rows // data_chunk == 1:
+    return n_rows // data_chunk
+
+
+def row_chunks(x, y, data_chunk: Optional[int]) -> Optional[list]:
+    """``[(x_c, y_c), ...]``, views of ``data_chunk`` rows each, or None
+    when chunking is off (no ``data_chunk``, or one chunk). Raises as
+    ``n_row_chunks``."""
+    n_rows = int(x.shape[0])
+    if n_row_chunks(n_rows, data_chunk) == 1:
         return None
     return [(x[i:i + data_chunk], y[i:i + data_chunk])
             for i in range(0, n_rows, data_chunk)]

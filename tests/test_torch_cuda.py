@@ -7,7 +7,9 @@ card, K1's, K2's and K3's repeats bit-equal, and K1's and K2's entry
 points refusing tables that cannot hold; and, with no kernel, the dense
 layers' ``matmul_precision`` on the card ("highest" gives the float32
 bits with TF32 switched on, "high" differs within TF32's tolerance) and
-the chunked likelihood on the card against the CPU in float64; and the
+the chunked likelihood on the card against the CPU in float64; and K3
+over row chunks against one unchunked call and the plain chunked path,
+on the stepped runner bit-equal to eager; and the
 ``(chains, data)`` mesh on the card (K1 + K2 on 4x1, K3 + K2 on 2x2, K3
 on 1x4, the sharded ``Predictor`` on 2x2) against the same work without
 the mesh; and the ``Predictor``'s graph route (a replay of a captured
@@ -1442,6 +1444,100 @@ def test_stepped_gate_declines_a_workspace_that_cannot_fit_twice(device):
             n_chains=c).runner)
     assert kinds == ["stepped", "eager"]
     assert graphs.stepped_fits(0, {device.index})
+
+
+# -- K3 over row chunks (``try_build_fused_main_vg(..., data_chunk=)``) ----
+
+def _chunked_k3_problem(device):
+    """The surrogate's widths (8-64-64-1 tanh, a learned sd) over 4,096
+    rows at 8 float32 states, as ``_chunked_main_vg`` draws them, on the
+    card: ``(model, lik, flat, x, y, thetas, etas)``."""
+    lik = GaussianLikelihood(sd=0.1)
+    model = _dense_stack()
+    params, hypers = model.init(torch.Generator().manual_seed(1))
+    flat = flatten_state(params, hypers, lik.init_hypers())
+    rng = np.random.default_rng(1)
+    thetas = flat.theta + 0.01 * torch.tensor(
+        rng.normal(size=(8, flat.theta.numel())), dtype=torch.float32)
+    x = rng.normal(size=(4096, 8))
+    y = np.sin(x.sum(axis=1)) + 0.1 * rng.normal(size=4096)
+    return (model, lik, flat,
+            torch.tensor(x, dtype=torch.float32, device=device),
+            torch.tensor(y, dtype=torch.float32, device=device),
+            thetas.to(device), flat.eta.expand(8, -1).to(device))
+
+
+@pytest.mark.cuda
+def test_chunked_k3_matches_unchunked_k3_and_the_plain_path(device):
+    """K3 over chunks of 512 rows (eight calls an evaluation, counted) at
+    the surrogate's widths against the unchunked K3 call and the chunked
+    plain path: relative 1e-5 on the values, 1e-5 of the largest entry on
+    the gradients; a call's workspace is a chunk's."""
+    from tensorbnn_tpu_torch.sampler.potential import make_potentials
+    model, lik, flat, x, y, thetas, etas = _chunked_k3_problem(device)
+    h = flat.eta.numel()
+    chunked, whole = (fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+        data_chunk=chunk) for chunk in (512, None))
+    before = fused_mlp.fused_potential.LAUNCHES
+    got = chunked(thetas, etas, x, y)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_potential.LAUNCHES - before == 8
+    assert 8 * chunked.workspace_bytes(8) <= whole.workspace_bytes(8)
+    plain = make_potentials(model, lik, x, y, flat.unravel_theta,
+                            flat.unravel_eta, data_chunk=512)
+    for want in (whole(thetas, etas, x, y), plain.main_vg(thetas, etas)):
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0,
+                                   atol=1e-5 * float(want[1].abs().max()))
+
+
+@pytest.mark.cuda
+def test_stepped_runner_on_chunked_k3_matches_eager(device):
+    """Two chunks through the stepped runner and the eager runner on K3
+    over chunks of 512 rows (K2's coupled block) from one carry and one
+    generator seed: the carry, every trace and the generator's state bit
+    for bit, K3's launches equal (eight a main-block evaluation)."""
+    from tensorbnn_tpu_torch.parallel import graphs
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state, \
+        make_multichain_chunk_runner
+    model, lik, flat, x, y, _, _ = _chunked_k3_problem(device)
+    h = flat.eta.numel()
+    vg = fused_mlp.try_build_fused_main_vg(
+        model, lik, flat.unravel_theta, flat.unravel_eta, x, y, h,
+        data_chunk=512)
+    hyper = fused_hyper.try_build_fused_hyper_trajectory(
+        model, lik, flat.unravel_eta, h, 5)
+    carry0 = init_multichain_state(
+        flat.theta.to(device), flat.eta.to(device), 1e-4, 8,
+        torch.Generator(device=device).manual_seed(2), jitter=0.01)
+    out = {}
+    for eager in (True, False):
+        run = make_multichain_chunk_runner(
+            model, lik, x, y, flat.unravel_theta, flat.unravel_eta,
+            adjust_hypers=True, hyper_leapfrog=5, burnin=100.0,
+            hyper_step_size_init=1e-4, eta_dim=h, batched_main_vg=vg,
+            batched_hyper_traj=hyper, data_chunk=512, eager=eager,
+            n_chains=8)
+        assert run.runner == ("eager" if eager else "stepped")
+        graphs.COUNTS.reset()
+        gen = torch.Generator(device=device).manual_seed(5)
+        before = fused_mlp.fused_potential.LAUNCHES
+        carry, got = carry0, []
+        for eps, leap, n in ((1e-4, 10, 3), (5e-5, 15, 2)):
+            carry, trace = run(carry, eps, leap, n, gen)
+            got.append((carry, trace))
+        torch.cuda.synchronize()
+        out[eager] = (got, gen.get_state(),
+                      fused_mlp.fused_potential.LAUNCHES - before,
+                      graphs.COUNTS.as_dict())
+    for (cg, tg), (ce, te) in zip(out[False][0], out[True][0]):
+        _same_bits(cg, ce, "carry")
+        _same_bits(tg, te, "trace")
+    assert torch.equal(out[False][1], out[True][1])
+    assert out[False][2] == out[True][2] == 8 * (3 * 11 + 2 * 16)
+    counts = out[False][3]
+    assert (counts["captures"], counts["warmups"]) == (3, 1), counts
 
 
 # -- the stepped runner over data meshes: each part split at its sums over
