@@ -47,14 +47,21 @@ script exits non-zero:
    path (same seed, same draws), then each main path with the kernels'
    launch counts set to 0 just before it and read just after: the flagship
    at 64 chains (one adapter, the verify recipe) and the 512-chain, G = 4
-   quality block (the JAX bench's ``ess_run`` settings, 1,300 epochs) on
-   K1 + K2; the tempered quality block (512 chains x 4 rungs at beta_min
-   0.5, ``ess_run``'s settings) on tempered K1 + K2, with its swap rate
-   per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps, L) = (1e-5, 20)),
-   then on the plain path as a witness of its hyper acceptance; the
-   learned-sd flagship on K1 (d) + K2; the JAX bench's ``classification``
-   (K1 (d), plain hyper block) and ``multiclass`` (K1 (d) + K2) cells, 128
-   chains over 60 epochs after 3 epochs against the plain path, held to
+   quality block (the JAX bench's ``ess_run`` settings, 1,300 epochs,
+   Network seed 11) on K1 + K2; then, counts read, the same block at
+   seeds 12-20, a ``quality`` line a seed, and the ten seeds' band against
+   the JAX package's seeds 11-15 (``G4_JAX_SEEDS``) as a ``{"g4_band":
+   ...}`` line, failing where total ESS, min-param ESS or main acceptance
+   is more than 3 standard errors from the JAX package's mean or the mean
+   hyper acceptance leaves 0.925 +- 0.011 (``--quality-only`` runs phases
+   1, 2 and this block alone); the tempered quality block (512 chains x
+   4 rungs at beta_min 0.5, ``ess_run``'s settings) on tempered K1 + K2,
+   with its swap rate per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps,
+   L) = (1e-5, 20)), then on the plain path as a witness of its hyper
+   acceptance; the learned-sd flagship on K1 (d) + K2; the JAX bench's
+   ``classification`` (K1 (d), plain hyper block) and ``multiclass``
+   (K1 (d) + K2) cells, 128 chains over 60 epochs after 3 epochs against
+   the plain path, held to
    the JAX package's acceptance and (classification) a training accuracy
    above 0.9, each printed as a ``{"cell": ...}`` line with its steady
    steps/sec; the tutorial-shaped model on K3 (6 epochs); the U-turn
@@ -184,6 +191,7 @@ It prints the kernels' JSON line and the card's line before its last line,
 ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -245,6 +253,53 @@ UTURN_REF = {
 UTURN_ACCEPT_TOL = 0.05
 UTURN_TOTAL_ESS_TOL = 0.30
 UTURN_MIN_ESS_TOL = 0.50
+# the JAX package's seed distribution of the 512-chain, G = 4 quality block
+# (ess_run(n_chains=512, n_adapters=4, epochs=1300) at Network seeds 11-15,
+# the XLA path on the CPU), one entry a seed, as printed by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py quality
+# (the n_chains, epochs and cpu_seconds keys left out): statistics of the
+# sampler, not of any chip. Phase 6 (b) runs the port at G4_SEEDS and fails
+# where a G4_GATED statistic's mean is more than G4_BAND_Z standard errors
+# from these seeds' (sqrt(sd_p^2 / n_p + sd_j^2 / n_j)), or where the
+# port's mean hyper acceptance leaves HYPER_ACCEPT_REF (0.925 +- 0.011 over
+# 10 seeds, benchmarks/PARITY_r04.json)
+G4_JAX_SEEDS = (
+    dict(seed=11, total_ess=127017.8, min_param_ess=14047.6,
+         median_param_ess=20122.1, main_accept=0.6357,
+         hyper_accept=0.929, final_step_size=0.003875,
+         final_leapfrog=189,
+         group_step_size=[0.0045, 0.0035, 0.0035, 0.004],
+         group_leapfrog=[200, 185, 200, 170]),
+    dict(seed=12, total_ess=136817.5, min_param_ess=14091.2,
+         median_param_ess=20345.8, main_accept=0.6503,
+         hyper_accept=0.9264, final_step_size=0.003625,
+         final_leapfrog=191,
+         group_step_size=[0.0035, 0.0035, 0.0035, 0.004],
+         group_leapfrog=[185, 185, 200, 195]),
+    dict(seed=13, total_ess=111508.0, min_param_ess=12609.6,
+         median_param_ess=17424.2, main_accept=0.5837,
+         hyper_accept=0.9263, final_step_size=0.003875,
+         final_leapfrog=198,
+         group_step_size=[0.004, 0.004, 0.0035, 0.004],
+         group_leapfrog=[200, 190, 200, 200]),
+    dict(seed=14, total_ess=140207.7, min_param_ess=14851.9,
+         median_param_ess=21391.7, main_accept=0.6491,
+         hyper_accept=0.9263, final_step_size=0.00375,
+         final_leapfrog=200,
+         group_step_size=[0.0045, 0.0035, 0.0035, 0.0035],
+         group_leapfrog=[200, 200, 200, 200]),
+    dict(seed=15, total_ess=105516.6, min_param_ess=12122.4,
+         median_param_ess=17016.6, main_accept=0.5677,
+         hyper_accept=0.9254, final_step_size=0.004625,
+         final_leapfrog=196,
+         group_step_size=[0.0065, 0.004, 0.0035, 0.0045],
+         group_leapfrog=[200, 190, 200, 195]))
+G4_SEEDS = tuple(range(11, 21))
+G4_BAND = ("total_ess", "min_param_ess", "median_param_ess", "main_accept",
+           "hyper_accept")
+G4_GATED = ("total_ess", "min_param_ess", "main_accept")
+G4_BAND_Z = 3.0
+HYPER_ACCEPT_REF = (0.925, 0.011)
 # a kernel's recorded U-turn step may differ from the twin's only where the
 # twin's projection at the first step either records is this close to 0,
 # relative to ||q - q0|| ||v||: there two float32 orders of summation may
@@ -686,12 +741,20 @@ def rung_groups(c, n_rungs=4):
 
 
 def quality(label, net, res, wall, burnin, xq=None, **extra):
+    """``quality_figures``, printed as one JSON line."""
+    out = quality_figures(label, net, res, wall, burnin, xq, **extra)
+    print(json.dumps({"quality": out}), flush=True)
+    return out
+
+
+def quality_figures(label, net, res, wall, burnin, xq=None, **extra):
     """The quality figures of ``ess_run``: total ESS of the predictive mean
     at x = 0.5 (or at the input row ``xq``;
     ``effective_sample_size_batch`` over chains), the worst
     parameter's pooled ESS, both per second of ``wall``, and the
-    post-burn-in main and hyper acceptance (and the swap rate per rung of
-    a tempered run, and ``extra``). Prints them as one JSON line."""
+    post-burn-in main and hyper acceptance, the final (eps, L) of each
+    adapter group (rung) and their means (and the swap rate per rung of a
+    tempered run, and ``extra``)."""
     from tensorbnn_tpu_torch.sampler.potential import flatten_state
     from tensorbnn_tpu_torch.utils.autocorr import \
         effective_sample_size_batch
@@ -714,12 +777,82 @@ def quality(label, net, res, wall, burnin, xq=None, **extra):
            "main_accept": float(res.main_accept[burnin:].mean()),
            "hyper_accept": float(res.hyper_accept[burnin:].mean()),
            "final_step_size": res.final_step_size,
-           "final_leapfrog": res.final_leapfrog}
+           "final_leapfrog": res.final_leapfrog,
+           "group_step_size": list(res.group_step_size),
+           "group_leapfrog": list(res.group_leapfrog)}
     if res.swap_accept_rung is not None:
         out["swap_accept_rung"] = res.swap_accept_rung.mean(axis=0).tolist()
     out.update(extra)
-    print(json.dumps({"quality": out}), flush=True)
     return out
+
+
+def g4_run(dev, seed):
+    """The 512-chain, G = 4 quality block (``ess_run``'s settings) through
+    ``Network.train`` at Network seed ``seed``: ``(net, res, wall)``."""
+    net, lik = flagship_network(dev, seed=seed)
+    net.setup_mcmc(**ESS_RUN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = net.train(ESS_EPOCHS, 2, lik, n_chains=512, n_adapters=4,
+                    chain_jitter=0.05, verbose=False)
+    torch.cuda.synchronize()
+    return net, res, time.perf_counter() - t0
+
+
+def seed_band(port, ref) -> dict:
+    """For each of ``G4_BAND``'s statistics over the port's seed lines
+    ``port`` and the JAX package's ``ref``: each side's mean and sample sd,
+    and ``z = |mean_p - mean_j| / sqrt(sd_p^2 / n_p + sd_j^2 / n_j)``."""
+    band = {}
+    for key in G4_BAND:
+        p = np.asarray([line[key] for line in port], np.float64)
+        j = np.asarray([line[key] for line in ref], np.float64)
+        sp, sj = p.std(ddof=1), j.std(ddof=1)
+        se = math.sqrt(sp ** 2 / p.size + sj ** 2 / j.size)
+        z = abs(p.mean() - j.mean()) / se if se > 0 else math.inf
+        band[key] = {"port_mean": p.mean(), "port_sd": sp,
+                     "jax_mean": j.mean(), "jax_sd": sj, "z": z}
+    return band
+
+
+def g4_band(dev, first) -> dict:
+    """Phase 6 (b)'s seed band: the G = 4 block at each seed of
+    ``G4_SEEDS`` after the first (whose ``quality`` line is ``first``), a
+    ``quality`` line each, then the band against ``G4_JAX_SEEDS`` as a
+    ``{"g4_band": ...}`` line. Raises where a gated statistic's z exceeds
+    ``G4_BAND_Z`` or the seeds' mean hyper acceptance leaves
+    ``HYPER_ACCEPT_REF``."""
+    runs = []
+    for seed in G4_SEEDS[1:]:
+        net, res, wall = g4_run(dev, seed)
+        assert res.main_path == "K1" and res.fused_hyper, res.main_path
+        assert np.isfinite(res.theta_samples).all()
+        runs.append((net, res, wall, seed))
+    # the runs first, so that no wall shares the host; then their
+    # diagnostics (numpy's, ~10 s a seed at this size) three at a time,
+    # printed in seed order
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        lines = [first, *pool.map(
+            lambda run: quality_figures("512 chains, G = 4", *run[:3],
+                                        ESS_RUN["burnin"], seed=run[3]),
+            runs)]
+    del runs
+    for line in lines[1:]:
+        print(json.dumps({"quality": line}), flush=True)
+    band = seed_band(lines, G4_JAX_SEEDS)
+    mid, half = HYPER_ACCEPT_REF
+    failed = [k for k in G4_GATED if not band[k]["z"] <= G4_BAND_Z]
+    if not abs(band["hyper_accept"]["port_mean"] - mid) <= half:
+        failed.append("hyper_accept")
+    print(json.dumps({"g4_band": {
+        "port_seeds": list(G4_SEEDS),
+        "jax_seeds": [line["seed"] for line in G4_JAX_SEEDS],
+        "z_limit": G4_BAND_Z, "hyper_accept_ref": HYPER_ACCEPT_REF,
+        "failed": failed, **band}}), flush=True)
+    if failed:
+        raise AssertionError(f"the port's G = 4 seeds miss the JAX "
+                             f"package's band in {failed}")
+    return band
 
 
 def uturn_inputs(program, flat, c, x, y, g):
@@ -3028,17 +3161,19 @@ def mesh_graph_phase(dev, card, warm=None) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only /
-    # --pretrain-only / --predict-only: phases 1, 2 and 10 / 11 / 12 / 13 /
-    # 9 / 7 (e) and 11 (e) alone (a quick check of that phase; no kernels
-    # line)
+    # --pretrain-only / --predict-only / --quality-only: phases 1, 2 and
+    # 10 / 11 / 12 / 13 / 9 / 7 (e) and 11 (e) / 6 (b)'s G = 4 seed band
+    # alone (a quick check of that phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
     mesh_graph_only = argv == ["--mesh-graph-only"]
     pretrain_only = argv == ["--pretrain-only"]
     predict_only = argv == ["--predict-only"]
+    quality_only = argv == ["--quality-only"]
     if argv and not (surrogate_only or mesh_only or graph_only
-                     or mesh_graph_only or pretrain_only or predict_only):
+                     or mesh_graph_only or pretrain_only or predict_only
+                     or quality_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -3106,6 +3241,21 @@ def main(argv=None) -> int:
                 dev, tmp, net.train_x, net.train_y, lik)}))
         phase("11 (e) the predict cell on 2x2 on both routes")
         print(json.dumps({"predict_2x2": predict_mesh_phase(dev)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if quality_only:
+        phase("6 (b) the G = 4 quality block over seeds "
+              f"{G4_SEEDS[0]}-{G4_SEEDS[-1]}")
+        reset_counts()
+        net, res, wall = g4_run(dev, G4_SEEDS[0])
+        launches = read_counts("G = 4 quality block (K1 + K2)")
+        assert min(launches["K1"], launches["K2"]) >= 1, launches
+        g4_band(dev, quality("512 chains, G = 4", net, res, wall,
+                             ESS_RUN["burnin"], seed=G4_SEEDS[0]))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -3589,20 +3739,14 @@ def main(argv=None) -> int:
     # 512-chain, G = 4 quality block at ess_run's settings; launches
     # counted from here
     reset_counts()
-    runs = {}
-    for n_chains, n_adapters, epochs, step, mcmc, seed, jitter in (
-            (64, 1, 800, 10, RECIPE, 0, 0.0),
-            (512, 4, ESS_EPOCHS, 2, ESS_RUN, 11, 0.05)):
-        net5, lik5 = flagship_network(dev, seed=seed)
-        net5.setup_mcmc(**mcmc)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = net5.train(epochs, step, lik5, n_chains=n_chains,
-                         n_adapters=n_adapters, chain_jitter=jitter,
-                         verbose=False)
-        torch.cuda.synchronize()
-        runs[n_chains] = (net5, res, time.perf_counter() - t0,
-                          mcmc["burnin"])
+    net5, lik5 = flagship_network(dev, seed=0)
+    net5.setup_mcmc(**RECIPE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = net5.train(800, 10, lik5, n_chains=64, verbose=False)
+    torch.cuda.synchronize()
+    runs = {64: (net5, res, time.perf_counter() - t0, RECIPE["burnin"]),
+            512: (*g4_run(dev, G4_SEEDS[0]), ESS_RUN["burnin"])}
     launches = read_counts("flagship (K1 + K2)")
     if min(launches["K1"], launches["K2"]) < 1 or launches["K3"]:
         raise AssertionError(f"the flagship path did not run on K1 + K2 "
@@ -3622,8 +3766,12 @@ def main(argv=None) -> int:
         assert 0.0 < main_acc < 1.0, main_acc
         assert abs(hyper_acc - 0.95) < 0.15, hyper_acc
     net512, res512, wall512, _ = runs[512]
-    quality("512 chains, G = 4", net512, res512, wall512, ESS_RUN["burnin"])
+    first = quality("512 chains, G = 4", net512, res512, wall512,
+                    ESS_RUN["burnin"], seed=G4_SEEDS[0])
     del net512, res512
+    # the same block at the other seeds, and the band against the JAX
+    # package's seeds (after the counts were read)
+    g4_band(dev, first)
 
     # (c) the tempered quality block: 512 cold chains x 4 rungs at beta_min
     # 0.5 (2,048 replicas, one adapter per rung) on tempered K1 + K2

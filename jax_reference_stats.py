@@ -23,13 +23,34 @@ initial weights), then ``examples/surrogate_regression.py --cpu --smoke``'s
 sample count, main acceptance and learned sd (100,000 points, one chain,
 60 epochs under ``numerics="exact"``). One JSON line per run (~30 s
 each; the surrogate a few minutes).
+
+``JAX_PLATFORMS=cpu python3 jax_reference_stats.py quality`` prints the
+JAX package's seed distribution of the 512-chain, G = 4 quality block
+that ``chip_smoke.py``'s phase 6 (b) gates the port's seeds against:
+``benchmarks/run_benchmarks.py::ess_run(n_chains=512, n_adapters=4,
+epochs=1300)`` at ``Network`` seeds 11-15, one process a seed, all
+started together. ``ess_run`` fixes ``seed=11``, so each process moves it
+by patching ``tensorbnn_tpu.network.Network`` as ``example_figure`` does.
+One JSON line a seed, in seed order: total ESS, min- and median-param
+ESS, post-burn-in main and hyper acceptance, the fleet means of the final
+(eps, L) and each adapter group's final (eps, L), under the keys of
+``chip_smoke.py::quality``. ``--block tempered`` runs the tempered K = 4
+block (512 cold chains, beta_min 0.5) and ``--block uturn`` the U-turn
+block (``--probe always|alternate``); ``--seed N`` runs one seed in this
+process.
 """
 
 import json
+import os
+import subprocess
 import sys
 import time
 
 import numpy as np
+
+# the JAX seeds of the quality blocks (Network seed; chip_smoke.py runs the
+# port at 11-20)
+QUALITY_SEEDS = range(11, 16)
 
 
 def example_figure(name, pattern, seed=None) -> float:
@@ -116,9 +137,86 @@ def examples() -> int:
     return 0
 
 
+def quality_figures(seed: int, block: str = "g4",
+                    probe: str = "always") -> dict:
+    """``ess_run``'s figures for one quality block at ``Network`` seed
+    ``seed``, with each adapter group's final (eps, L): the driver keeps
+    only their means, so each group's adapter is recorded where the driver
+    makes it, and its last answer read as the driver reads it
+    (driver.py:1306-1309)."""
+    from benchmarks import run_benchmarks as rb
+    import tensorbnn_tpu.network as net_mod
+    from tensorbnn_tpu.sampler.driver import MCMCConfig
+
+    made = []
+    saved = (net_mod.Network, MCMCConfig.make_adapter)
+
+    class Seeded(saved[0]):
+        def __init__(self, *args, **kwargs):
+            kwargs["seed"] = seed
+            super().__init__(*args, **kwargs)
+
+    def make_adapter(self, seed=None):
+        made.append(saved[1](self, seed))
+        return made[-1]
+
+    net_mod.Network, MCMCConfig.make_adapter = Seeded, make_adapter
+    kwargs = {"g4": dict(n_chains=512, n_adapters=4),
+              "tempered": dict(n_chains=512, tempering=4,
+                               tempering_beta_min=0.5),
+              "uturn": dict(n_chains=512, trajectory="uturn",
+                            uturn_probe=probe)}[block]
+    t0 = time.perf_counter()
+    try:
+        r = rb.ess_run(epochs=1300, **kwargs)
+    finally:
+        net_mod.Network, MCMCConfig.make_adapter = saved
+    out = {"block": block if block != "uturn" else f"uturn:{probe}",
+           "seed": seed, "n_chains": r["n_chains"], "epochs": r["epochs"],
+           "total_ess": r["total_ess"], "min_param_ess": r["min_param_ess"],
+           "median_param_ess": r["median_param_ess"],
+           "main_accept": r["accept_post_burnin"],
+           "hyper_accept": r["hyper_accept_post_burnin"],
+           "final_step_size": r["final_step_size"],
+           "final_leapfrog": r["final_leapfrog"]}
+    if block != "uturn":
+        out["group_step_size"] = [float(np.clip(a.current_e, 1e-12, None))
+                                  for a in made]
+        out["group_leapfrog"] = [int(a.current_l) for a in made]
+    if r["swap_accept_rung"] is not None:
+        out["swap_accept_rung"] = r["swap_accept_rung"]
+    out["cpu_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def quality(args) -> int:
+    """Runs ``quality_figures`` for each seed, one process a seed, all at
+    once, and prints their lines in seed order."""
+    opts = dict(zip(args[::2], args[1::2]))
+    block = opts.get("--block", "g4")
+    probe = opts.get("--probe", "always")
+    if "--seed" in opts:
+        print(json.dumps(quality_figures(int(opts["--seed"]), block, probe)),
+              flush=True)
+        return 0
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "quality", "--block",
+         block, "--probe", probe, "--seed", str(s)],
+        stdout=subprocess.PIPE, text=True) for s in QUALITY_SEEDS]
+    rc = 0
+    for p in procs:
+        out, _ = p.communicate()
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        rc = rc or p.returncode
+    return rc
+
+
 def main() -> int:
     if sys.argv[1:] == ["examples"]:
         return examples()
+    if sys.argv[1:2] == ["quality"]:
+        return quality(sys.argv[2:])
     from benchmarks import run_benchmarks as rb
     from tensorbnn_tpu import BernoulliLikelihood, CategoricalLikelihood, \
         GaussianDenseLayer, Sigmoid, Softmax, SquarePrelu, Tanh

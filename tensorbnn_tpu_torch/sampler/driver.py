@@ -281,6 +281,8 @@ class RunResult:
     sjd: np.ndarray
     main_accept: np.ndarray
     hyper_accept: np.ndarray
+    #: the means over the adapter groups (the rungs) of their final step
+    #: size and leapfrog count, as the JAX driver reports them
     final_step_size: float
     final_leapfrog: int
     final_hyper_step: float
@@ -316,6 +318,10 @@ class RunResult:
     #: K3 or the plain path; parallel/graphs.py) or "eager" (the Python
     #: loop over epochs)
     chunk_runner: str = "eager"
+    #: each adapter group's (each rung's) final step size and leapfrog
+    #: count, in group order
+    group_step_size: tuple = ()
+    group_leapfrog: tuple = ()
 
     def after_epoch(self, values, epoch: int) -> np.ndarray:
         """The entries of a per-epoch array (``main_accept``, ``sjd``, ...)
@@ -931,7 +937,9 @@ def sample_posterior(model: Sequential, likelihood: Likelihood,
         fused_hyper=hyper_traj is not None,
         main_path=main_path,
         resume_epoch=resume_epoch,
-        chunk_runner=run_chunk.runner)
+        chunk_runner=run_chunk.runner,
+        group_step_size=tuple(float(v) for v in step_sizes),
+        group_leapfrog=tuple(int(v) for v in leapfrogs))
 
 
 def _advise_numerics(theta: torch.Tensor, step: float) -> bool:
