@@ -53,10 +53,16 @@ script exits non-zero:
    the JAX package's seeds 11-15 (``G4_JAX_SEEDS``) as a ``{"g4_band":
    ...}`` line, failing where total ESS, min-param ESS or main acceptance
    is more than 3 standard errors from the JAX package's mean or the mean
-   hyper acceptance leaves 0.925 +- 0.011 (``--quality-only`` runs phases
-   1, 2 and this block alone); the tempered quality block (512 chains x
-   4 rungs at beta_min 0.5, ``ess_run``'s settings) on tempered K1 + K2,
-   with its swap rate per rung; ``wide_deep`` on K3 + K2 (6 epochs, (eps,
+   hyper acceptance leaves 0.925 +- 0.011; the tempered quality block
+   (512 chains x 4 rungs at beta_min 0.5, ``ess_run``'s settings, one
+   adapter a rung) on tempered K1 + K2, with its swap rate per rung, then,
+   counts read, at seeds 12-15 and the five seeds' band against the JAX
+   package's seeds 11-15 (``TEMPERED_JAX_SEEDS``) as a
+   ``{"tempered_band": ...}`` line with each rung's final (eps, L) on
+   both sides, failing where total ESS, min-param ESS or main acceptance
+   is more than 3 standard errors from the JAX package's mean or a seed's
+   swap rate on a rung is more than 0.06 from the JAX seeds' mean there;
+   ``wide_deep`` on K3 + K2 (6 epochs, (eps,
    L) = (1e-5, 20)), then on the plain path as a witness of its hyper
    acceptance; the learned-sd flagship on K1 (d) + K2; the JAX bench's
    ``classification`` (K1 (d), plain hyper block) and ``multiclass``
@@ -68,9 +74,15 @@ script exits non-zero:
    quality block
    (``trajectory="uturn"``, 512 chains at ``ess_run``'s settings) under
    the "alternate" and then the "always" probe on K1's U-turn-recording
-   program + K2, held to the JAX package's seed-deterministic statistics;
-   ``wide_deep`` in U-turn mode on K3 + K2. The quality blocks report ESS
-   (the predictive mean at x = 0.5 and the worst parameter) per second;
+   program + K2, each at seed 11 held to the JAX package's one-seed
+   statistics, and "always" then at seeds 12-15 and the five seeds' band
+   against the JAX package's seeds 11-15 (``UTURN_JAX_SEEDS``) as a
+   ``{"uturn_band": ...}`` line, failing where total ESS, min-param ESS or
+   main acceptance is more than 3 standard errors from the JAX package's
+   mean or a seed's final L leaves the JAX seeds' range (``--quality-only``
+   runs phases 1, 2 and the three bands alone); ``wide_deep`` in U-turn
+   mode on K3 + K2. The quality blocks report ESS (the predictive mean at
+   x = 0.5 and the worst parameter) per second;
 7. the sample store, resume and the Predictor on the card: the flagship
    at 64 chains on K1 + K2 with ``folder_name``, buffered and streamed
    (each store loads to the run's samples bit for bit); ``Predictor(
@@ -234,6 +246,7 @@ ESS_RUN = dict(step_size_start=2e-3, step_size_min=5e-4, step_size_max=2e-2,
                hyper_leapfrog=30, burnin=300, averaging_steps=10,
                random_steps=5)
 ESS_EPOCHS = 1300
+QUALITY_CHAINS = 512
 # the JAX package's swap rates per rung for the tempered block (K = 4 at
 # beta_min 0.5; BENCH_r05.json, at 64 and 512 chains), a statistic of the
 # sampler and not of the chip, and how far the port may be from them
@@ -300,6 +313,69 @@ G4_BAND = ("total_ess", "min_param_ess", "median_param_ess", "main_accept",
 G4_GATED = ("total_ess", "min_param_ess", "main_accept")
 G4_BAND_Z = 3.0
 HYPER_ACCEPT_REF = (0.925, 0.011)
+# the JAX package's seed distributions of the tempered block (K = 4 at
+# beta_min 0.5, 512 cold chains, one adapter a rung) and the U-turn block
+# under the "always" probe (512 chains), at Network seeds 11-15 on the XLA
+# path on the CPU, one entry a seed, as printed by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py quality --block tempered
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py quality --block uturn \
+#       --probe always
+# (the block, n_chains, epochs and cpu_seconds keys left out, the tempered
+# step sizes to 12 significant digits): statistics of the sampler, not of
+# any chip. Phase 6 (c) and (g) run the port at TEMPERED_SEEDS and
+# UTURN_SEEDS and fail where a G4_GATED statistic's mean is more than
+# G4_BAND_Z standard errors from these seeds'; the tempered band also where
+# a seed's swap rate on a rung is more than SWAP_RUNG_TOL from these seeds'
+# mean on that rung, the U-turn band where a seed's final L leaves these
+# seeds' range
+TEMPERED_JAX_SEEDS = (
+    dict(seed=11, total_ess=205138.2, min_param_ess=43053.2,
+         median_param_ess=55852.3, main_accept=0.751, hyper_accept=0.9291,
+         final_step_size=0.0045, final_leapfrog=161,
+         group_step_size=[0.0035, 0.0045, 0.0055, 0.0045],
+         group_leapfrog=[200, 180, 75, 190],
+         swap_accept_rung=[0.3422, 0.6877, 0.684, 0.3385]),
+    dict(seed=12, total_ess=182666.8, min_param_ess=39637.6,
+         median_param_ess=48807.2, main_accept=0.6193, hyper_accept=0.9305,
+         final_step_size=0.002875, final_leapfrog=138,
+         group_step_size=[0.004, 0.0005, 0.0005, 0.0065],
+         group_leapfrog=[200, 180, 40, 130],
+         swap_accept_rung=[0.3427, 0.6876, 0.6873, 0.3424]),
+    dict(seed=13, total_ess=191145.0, min_param_ess=43177.2,
+         median_param_ess=55019.7, main_accept=0.6218, hyper_accept=0.9291,
+         final_step_size=0.00375, final_leapfrog=176,
+         group_step_size=[0.004, 0.0045, 0.0015, 0.005],
+         group_leapfrog=[195, 180, 130, 200],
+         swap_accept_rung=[0.3423, 0.688, 0.6873, 0.3416]),
+    dict(seed=14, total_ess=172928.1, min_param_ess=48687.8,
+         median_param_ess=63719.6, main_accept=0.4765, hyper_accept=0.9297,
+         final_step_size=0.004375, final_leapfrog=196,
+         group_step_size=[0.0045, 0.0045, 0.0035, 0.005],
+         group_leapfrog=[200, 185, 200, 200],
+         swap_accept_rung=[0.3428, 0.6875, 0.687, 0.3423]),
+    dict(seed=15, total_ess=135570.7, min_param_ess=36868.4,
+         median_param_ess=46664.9, main_accept=0.3708, hyper_accept=0.93,
+         final_step_size=0.003375, final_leapfrog=152,
+         group_step_size=[0.0035, 0.0045, 0.0005, 0.005],
+         group_leapfrog=[190, 200, 20, 200],
+         swap_accept_rung=[0.3431, 0.6884, 0.6894, 0.344]))
+UTURN_JAX_SEEDS = (
+    dict(seed=11, total_ess=189248.9, min_param_ess=15214.5,
+         median_param_ess=22034.9, main_accept=0.7935, hyper_accept=0.928,
+         final_step_size=0.003345931893622231, final_leapfrog=200),
+    dict(seed=12, total_ess=186674.9, min_param_ess=14647.1,
+         median_param_ess=22142.3, main_accept=0.7913, hyper_accept=0.9289,
+         final_step_size=0.003349720705330565, final_leapfrog=200),
+    dict(seed=13, total_ess=187925.1, min_param_ess=15273.8,
+         median_param_ess=22144.2, main_accept=0.8058, hyper_accept=0.9285,
+         final_step_size=0.0033139196395274217, final_leapfrog=200),
+    dict(seed=14, total_ess=187828.8, min_param_ess=15397.4,
+         median_param_ess=22266.1, main_accept=0.7934, hyper_accept=0.929,
+         final_step_size=0.003358840845612399, final_leapfrog=200),
+    dict(seed=15, total_ess=186955.3, min_param_ess=14978.9,
+         median_param_ess=22179.7, main_accept=0.7892, hyper_accept=0.9292,
+         final_step_size=0.0033678493925288814, final_leapfrog=200))
+TEMPERED_SEEDS = UTURN_SEEDS = tuple(range(11, 16))
 # a kernel's recorded U-turn step may differ from the twin's only where the
 # twin's projection at the first step either records is this close to 0,
 # relative to ||q - q0|| ||v||: there two float32 orders of summation may
@@ -789,22 +865,53 @@ def quality_figures(label, net, res, wall, burnin, xq=None, **extra):
 def g4_run(dev, seed):
     """The 512-chain, G = 4 quality block (``ess_run``'s settings) through
     ``Network.train`` at Network seed ``seed``: ``(net, res, wall)``."""
+    return quality_run(dev, seed, n_adapters=4)
+
+
+def tempered_run(dev, seed):
+    """The tempered quality block (512 cold chains x 4 rungs at beta_min
+    0.5, one adapter a rung) at Network seed ``seed``."""
+    return quality_run(dev, seed, tempering=4, tempering_beta_min=0.5)
+
+
+def uturn_run(dev, seed, probe):
+    """The U-turn quality block (512 chains, one shared length schedule)
+    under ``probe`` at Network seed ``seed``."""
+    return quality_run(dev, seed, trajectory="uturn", uturn_probe=probe)
+
+
+def quality_run(dev, seed, **train):
+    """A quality block of ``QUALITY_CHAINS`` chains at ``ess_run``'s
+    settings through ``Network.train`` at Network seed ``seed``, with the
+    further ``train`` keywords: ``(net, res, wall)``."""
     net, lik = flagship_network(dev, seed=seed)
     net.setup_mcmc(**ESS_RUN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = net.train(ESS_EPOCHS, 2, lik, n_chains=512, n_adapters=4,
-                    chain_jitter=0.05, verbose=False)
+    res = net.train(ESS_EPOCHS, 2, lik, n_chains=QUALITY_CHAINS,
+                    chain_jitter=0.05, verbose=False, **train)
     torch.cuda.synchronize()
     return net, res, time.perf_counter() - t0
 
 
-def seed_band(port, ref) -> dict:
-    """For each of ``G4_BAND``'s statistics over the port's seed lines
-    ``port`` and the JAX package's ``ref``: each side's mean and sample sd,
-    and ``z = |mean_p - mean_j| / sqrt(sd_p^2 / n_p + sd_j^2 / n_j)``."""
+def uturn_extra(res, probe) -> dict:
+    """A U-turn block's own figures for its ``quality`` line: the probe,
+    the executed leapfrog work in all and in burn-in, and the chain-epochs
+    whose trajectory turned within its L (the rest were censored) in
+    burn-in (what the adapter's reservoir saw) and after."""
+    burnin = ESS_RUN["burnin"]
+    return dict(probe=probe, leapfrog_work=float(res.leapfrog.sum()),
+                burnin_leapfrog_work=float(res.leapfrog[:burnin].sum()),
+                burnin_turned=int(res.uturn_turned[:burnin].sum()),
+                sampling_turned=int(res.uturn_turned[burnin:].sum()))
+
+
+def seed_band(port, ref, keys=G4_BAND) -> dict:
+    """For each statistic in ``keys`` over the port's seed lines ``port``
+    and the JAX package's ``ref``: each side's mean and sample sd, and
+    ``z = |mean_p - mean_j| / sqrt(sd_p^2 / n_p + sd_j^2 / n_j)``."""
     band = {}
-    for key in G4_BAND:
+    for key in keys:
         p = np.asarray([line[key] for line in port], np.float64)
         j = np.asarray([line[key] for line in ref], np.float64)
         sp, sj = p.std(ddof=1), j.std(ddof=1)
@@ -815,6 +922,47 @@ def seed_band(port, ref) -> dict:
     return band
 
 
+def seed_lines(label, run, seeds, first, extra=lambda res: {}) -> list:
+    """The ``quality`` lines of a block over ``seeds``: ``first`` (the
+    first seed's, already printed), then ``run(seed) -> (net, res, wall)``
+    at each later seed, each on K1 + K2 with finite samples, its line
+    printed with ``extra(res)``. The runs come first, so that no wall
+    shares the host; then their diagnostics (numpy's, ~10 s a seed at this
+    size) three at a time, printed in seed order."""
+    runs = []
+    for seed in seeds[1:]:
+        net, res, wall = run(seed)
+        assert res.main_path == "K1" and res.fused_hyper, res.main_path
+        assert np.isfinite(res.theta_samples).all()
+        runs.append((net, res, wall, seed))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        lines = [first, *pool.map(
+            lambda r: quality_figures(label, *r[:3], ESS_RUN["burnin"],
+                                      seed=r[3], **extra(r[1])), runs)]
+    del runs
+    for line in lines[1:]:
+        print(json.dumps({"quality": line}), flush=True)
+    return lines
+
+
+def band_gate(name, lines, ref, failed, keys=G4_BAND, **more) -> dict:
+    """Prints ``{name: ...}``: the seeds of both sides, the band of the
+    statistics ``keys`` over ``lines`` against ``ref``, and ``more``. Adds
+    to ``failed`` each ``G4_GATED`` statistic whose z exceeds
+    ``G4_BAND_Z``, and raises where ``failed`` is not empty."""
+    band = seed_band(lines, ref, keys)
+    failed[:0] = [k for k in G4_GATED if not band[k]["z"] <= G4_BAND_Z]
+    print(json.dumps({name: {
+        "port_seeds": [line["seed"] for line in lines],
+        "jax_seeds": [line["seed"] for line in ref],
+        "z_limit": G4_BAND_Z, **more, "failed": failed, **band}}),
+        flush=True)
+    if failed:
+        raise AssertionError(f"{name}: the port's seeds miss the JAX "
+                             f"package's band in {failed}")
+    return band
+
+
 def g4_band(dev, first) -> dict:
     """Phase 6 (b)'s seed band: the G = 4 block at each seed of
     ``G4_SEEDS`` after the first (whose ``quality`` line is ``first``), a
@@ -822,37 +970,148 @@ def g4_band(dev, first) -> dict:
     ``{"g4_band": ...}`` line. Raises where a gated statistic's z exceeds
     ``G4_BAND_Z`` or the seeds' mean hyper acceptance leaves
     ``HYPER_ACCEPT_REF``."""
-    runs = []
-    for seed in G4_SEEDS[1:]:
-        net, res, wall = g4_run(dev, seed)
-        assert res.main_path == "K1" and res.fused_hyper, res.main_path
-        assert np.isfinite(res.theta_samples).all()
-        runs.append((net, res, wall, seed))
-    # the runs first, so that no wall shares the host; then their
-    # diagnostics (numpy's, ~10 s a seed at this size) three at a time,
-    # printed in seed order
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        lines = [first, *pool.map(
-            lambda run: quality_figures("512 chains, G = 4", *run[:3],
-                                        ESS_RUN["burnin"], seed=run[3]),
-            runs)]
-    del runs
-    for line in lines[1:]:
-        print(json.dumps({"quality": line}), flush=True)
-    band = seed_band(lines, G4_JAX_SEEDS)
+    lines = seed_lines("512 chains, G = 4", lambda s: g4_run(dev, s),
+                       G4_SEEDS, first)
     mid, half = HYPER_ACCEPT_REF
-    failed = [k for k in G4_GATED if not band[k]["z"] <= G4_BAND_Z]
-    if not abs(band["hyper_accept"]["port_mean"] - mid) <= half:
-        failed.append("hyper_accept")
-    print(json.dumps({"g4_band": {
-        "port_seeds": list(G4_SEEDS),
-        "jax_seeds": [line["seed"] for line in G4_JAX_SEEDS],
-        "z_limit": G4_BAND_Z, "hyper_accept_ref": HYPER_ACCEPT_REF,
-        "failed": failed, **band}}), flush=True)
-    if failed:
-        raise AssertionError(f"the port's G = 4 seeds miss the JAX "
-                             f"package's band in {failed}")
-    return band
+    port_hyper = np.mean([line["hyper_accept"] for line in lines])
+    failed = [] if abs(port_hyper - mid) <= half else ["hyper_accept"]
+    return band_gate("g4_band", lines, G4_JAX_SEEDS, failed,
+                     hyper_accept_ref=HYPER_ACCEPT_REF)
+
+
+def finals(lines, keys) -> list:
+    """Each line's final (eps, L) under ``keys``, in seed order."""
+    return [[line[k] for k in keys] for line in lines]
+
+
+def tempered_band(dev, first) -> dict:
+    """Phase 6 (c)'s seed band: the tempered block at each seed of
+    ``TEMPERED_SEEDS`` after the first (``first``), a ``quality`` line
+    each, then the band against ``TEMPERED_JAX_SEEDS`` as a
+    ``{"tempered_band": ...}`` line with each rung's final (eps, L) over
+    the seeds on both sides. Raises where a gated statistic's z exceeds
+    ``G4_BAND_Z`` or a seed's swap rate on a rung is more than
+    ``SWAP_RUNG_TOL`` from the JAX seeds' mean on that rung."""
+    lines = seed_lines("tempered K = 4 at beta_min 0.5, 512 cold chains",
+                       lambda s: tempered_run(dev, s), TEMPERED_SEEDS,
+                       first)
+    jax_swap = np.mean([line["swap_accept_rung"]
+                        for line in TEMPERED_JAX_SEEDS], axis=0)
+    port_swap = np.asarray([line["swap_accept_rung"] for line in lines])
+    failed = ([] if (np.abs(port_swap - jax_swap) <= SWAP_RUNG_TOL).all()
+              else ["swap_accept_rung"])
+    rungs = ("group_step_size", "group_leapfrog")
+    return band_gate(
+        "tempered_band", lines, TEMPERED_JAX_SEEDS, failed,
+        swap_rung_tol=SWAP_RUNG_TOL, jax_swap_accept_rung=jax_swap.tolist(),
+        port_swap_accept_rung=port_swap.tolist(),
+        port_rungs=finals(lines, rungs),
+        jax_rungs=finals(TEMPERED_JAX_SEEDS, rungs))
+
+
+def uturn_band(dev, first) -> dict:
+    """Phase 6 (g)'s seed band: the U-turn block under the "always" probe
+    at each seed of ``UTURN_SEEDS`` after the first (``first``), a
+    ``quality`` line each, then the band against ``UTURN_JAX_SEEDS`` as a
+    ``{"uturn_band": ...}`` line with the final (eps, L) over the seeds on
+    both sides and the band of the final eps. Raises where a gated statistic's z exceeds ``G4_BAND_Z``
+    or a seed's final L leaves the JAX seeds' range."""
+    lines = seed_lines("U-turn, probe always, 512 chains",
+                       lambda s: uturn_run(dev, s, "always"), UTURN_SEEDS,
+                       first, lambda res: uturn_extra(res, "always"))
+    jax_l = [line["final_leapfrog"] for line in UTURN_JAX_SEEDS]
+    l_range = [min(jax_l), max(jax_l)]
+    failed = ([] if all(l_range[0] <= line["final_leapfrog"] <= l_range[1]
+                        for line in lines) else ["final_leapfrog"])
+    fin = ("final_step_size", "final_leapfrog")
+    # the frozen step size varies over seeds on both sides: its band too,
+    # not gated
+    return band_gate("uturn_band", lines, UTURN_JAX_SEEDS, failed,
+                     keys=G4_BAND + fin[:1],
+                     jax_final_leapfrog_range=l_range,
+                     port_finals=finals(lines, fin),
+                     jax_finals=finals(UTURN_JAX_SEEDS, fin))
+
+
+def tempered_block(dev, d, reset_counts, read_counts) -> dict:
+    """Phase 6 (c): the tempered quality block at ``TEMPERED_SEEDS[0]``
+    with the kernels' launches counted (one tempered K1 launch an epoch,
+    some of K2, none of K3), its samples' shape (``d`` weights), its swap
+    rates per rung against ``SWAP_RUNG_REF``, then ``tempered_band``.
+    Returns the counts."""
+    reset_counts()
+    net, res, wall = tempered_run(dev, TEMPERED_SEEDS[0])
+    counts = read_counts("tempered quality block (K1 tempered + K2)")
+    if counts["K1"] != ESS_EPOCHS or counts["K3"] or counts["K2"] < 1:
+        raise AssertionError(f"the tempered block did not run on tempered "
+                             f"K1 (one launch per epoch) + K2 alone: "
+                             f"{counts}")
+    assert res.main_path == "K1" and res.fused_hyper, res.main_path
+    n_samples = (ESS_EPOCHS - ESS_RUN["burnin"]) // 2
+    assert res.theta_samples.shape == (n_samples, QUALITY_CHAINS, d), \
+        res.theta_samples.shape
+    assert np.isfinite(res.theta_samples).all()
+    assert np.isfinite(res.eta_samples).all()
+    tq = quality("tempered K = 4 at beta_min 0.5, 512 cold chains", net,
+                 res, wall, ESS_RUN["burnin"], seed=TEMPERED_SEEDS[0])
+    del net, res
+    swap_err = np.abs(np.asarray(tq["swap_accept_rung"])
+                      - np.asarray(SWAP_RUNG_REF))
+    if (swap_err > SWAP_RUNG_TOL).any():
+        raise AssertionError(f"swap rates per rung {tq['swap_accept_rung']} "
+                             f"are not within {SWAP_RUNG_TOL} of the JAX "
+                             f"package's {SWAP_RUNG_REF}")
+    assert abs(tq["hyper_accept"] - 0.95) < 0.15, tq["hyper_accept"]
+    assert 0.0 < tq["main_accept"] < 1.0, tq["main_accept"]
+    tempered_band(dev, tq)
+    return counts
+
+
+def uturn_block(dev, d, probe, reset_counts, read_counts) -> dict:
+    """Phase 6 (g): the U-turn quality block under ``probe`` at
+    ``UTURN_SEEDS[0]`` with the kernels' launches counted (one K1
+    launch an epoch, some of K2, none of K3), held to the JAX package's
+    one-seed statistics (``UTURN_REF``); under "always" then
+    ``uturn_band``. Returns the counts."""
+    reset_counts()
+    net, res, wall = uturn_run(dev, UTURN_SEEDS[0], probe)
+    counts = read_counts(f"U-turn quality block, probe {probe} (K1 "
+                         f"record_uturn + K2)")
+    if counts["K1"] != ESS_EPOCHS or counts["K3"] or counts["K2"] < 1:
+        raise AssertionError(f"the U-turn block did not run on K1 (one "
+                             f"launch per epoch) + K2 alone: {counts}")
+    assert res.main_path == "K1" and res.fused_hyper, res.main_path
+    assert res.leapfrog.shape == (ESS_EPOCHS,), res.leapfrog.shape
+    n_samples = (ESS_EPOCHS - ESS_RUN["burnin"]) // 2
+    assert res.theta_samples.shape == (n_samples, QUALITY_CHAINS, d), \
+        res.theta_samples.shape
+    assert np.isfinite(res.theta_samples).all()
+    assert np.isfinite(res.eta_samples).all()
+    # the turned counts, not the burn-in work (the ratchet of an
+    # all-censored fleet), show that the path's recorded steps reach the
+    # adapter
+    uq = quality(f"U-turn, probe {probe}, 512 chains", net, res, wall,
+                 ESS_RUN["burnin"], seed=UTURN_SEEDS[0],
+                 **uturn_extra(res, probe))
+    del net, res
+    ref = UTURN_REF[probe]
+    gates = {
+        "main acceptance": abs(uq["main_accept"] - ref["main_accept"])
+        <= UTURN_ACCEPT_TOL,
+        "hyper acceptance": abs(uq["hyper_accept"] - 0.95) < 0.15,
+        "final L": uq["final_leapfrog"] == ref["final_leapfrog"],
+        "total ESS": abs(uq["total_ess"] / ref["total_ess"] - 1.0)
+        <= UTURN_TOTAL_ESS_TOL,
+        "min-param ESS": abs(uq["min_param_ess"] / ref["min_param_ess"]
+                             - 1.0) <= UTURN_MIN_ESS_TOL,
+        "turned in burn-in": uq["burnin_turned"] > 0}
+    missed = [name for name, ok in gates.items() if not ok]
+    if missed:
+        raise AssertionError(f"U-turn block, probe {probe}: {missed} "
+                             f"off the JAX package's {ref}: {uq}")
+    if probe == "always":
+        uturn_band(dev, uq)
+    return counts
 
 
 def uturn_inputs(program, flat, c, x, y, g):
@@ -3162,8 +3421,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only /
     # --pretrain-only / --predict-only / --quality-only: phases 1, 2 and
-    # 10 / 11 / 12 / 13 / 9 / 7 (e) and 11 (e) / 6 (b)'s G = 4 seed band
-    # alone (a quick check of that phase; no kernels line)
+    # 10 / 11 / 12 / 13 / 9 / 7 (e) and 11 (e) / 6's three seed bands (G =
+    # 4, tempered, U-turn "always") alone (a quick check of that phase; no
+    # kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
@@ -3256,6 +3516,14 @@ def main(argv=None) -> int:
         assert min(launches["K1"], launches["K2"]) >= 1, launches
         g4_band(dev, quality("512 chains, G = 4", net, res, wall,
                              ESS_RUN["burnin"], seed=G4_SEEDS[0]))
+        d = res.theta_samples.shape[2]
+        del net, res
+        phase("6 (c) the tempered quality block over seeds "
+              f"{TEMPERED_SEEDS[0]}-{TEMPERED_SEEDS[-1]}")
+        tempered_block(dev, d, reset_counts, read_counts)
+        phase("6 (g) the U-turn quality block, probe always, over seeds "
+              f"{UTURN_SEEDS[0]}-{UTURN_SEEDS[-1]}")
+        uturn_block(dev, d, "always", reset_counts, read_counts)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -3774,40 +4042,10 @@ def main(argv=None) -> int:
     g4_band(dev, first)
 
     # (c) the tempered quality block: 512 cold chains x 4 rungs at beta_min
-    # 0.5 (2,048 replicas, one adapter per rung) on tempered K1 + K2
-    tnet, tlik = flagship_network(dev, seed=11)
-    tnet.setup_mcmc(**ESS_RUN)
-    reset_counts()
-    t0 = time.perf_counter()
-    tres = tnet.train(ESS_EPOCHS, 2, tlik, n_chains=512, tempering=4,
-                      tempering_beta_min=0.5, chain_jitter=0.05,
-                      verbose=False)
-    torch.cuda.synchronize()
-    twall = time.perf_counter() - t0
-    tempered_launches = read_counts("tempered quality block (K1 tempered "
-                                    "+ K2)")
-    if (tempered_launches["K1"] != ESS_EPOCHS or tempered_launches["K3"]
-            or tempered_launches["K2"] < 1):
-        raise AssertionError(f"the tempered block did not run on tempered "
-                             f"K1 (one launch per epoch) + K2 alone: "
-                             f"{tempered_launches}")
-    assert tres.main_path == "K1" and tres.fused_hyper, tres.main_path
-    n_samples = (ESS_EPOCHS - ESS_RUN["burnin"]) // 2
-    assert tres.theta_samples.shape == (n_samples, 512, d), \
-        tres.theta_samples.shape
-    assert np.isfinite(tres.theta_samples).all()
-    assert np.isfinite(tres.eta_samples).all()
-    tq = quality("tempered K = 4 at beta_min 0.5, 512 cold chains", tnet,
-                 tres, twall, ESS_RUN["burnin"])
-    swap_err = np.abs(np.asarray(tq["swap_accept_rung"])
-                      - np.asarray(SWAP_RUNG_REF))
-    if (swap_err > SWAP_RUNG_TOL).any():
-        raise AssertionError(f"swap rates per rung {tq['swap_accept_rung']} "
-                             f"are not within {SWAP_RUNG_TOL} of the JAX "
-                             f"package's {SWAP_RUNG_REF}")
-    assert abs(tq["hyper_accept"] - 0.95) < 0.15, tq["hyper_accept"]
-    assert 0.0 < tq["main_accept"] < 1.0, tq["main_accept"]
-    del tnet, tres
+    # 0.5 (2,048 replicas, one adapter per rung) on tempered K1 + K2, then
+    # the same block at the other seeds and their band against the JAX
+    # package's seeds (after the counts were read)
+    tempered_launches = tempered_block(dev, d, reset_counts, read_counts)
     net64, res64, _, _ = runs[64]
     # posterior predictive mean at the training points (reference check
     # of the verify recipe: near the 0.1 noise floor)
@@ -4021,58 +4259,9 @@ def main(argv=None) -> int:
     # trajectory="uturn" (one shared length schedule, 512 chains) on K1's
     # U-turn-recording program + K2, under the default probe and then
     # "always", each held to the JAX package's statistics (UTURN_REF)
-    uturn_launches = {}
-    for probe in ("alternate", "always"):
-        unet, ulik = flagship_network(dev, seed=11)
-        unet.setup_mcmc(**ESS_RUN)
-        reset_counts()
-        t0 = time.perf_counter()
-        ures = unet.train(ESS_EPOCHS, 2, ulik, n_chains=512,
-                          chain_jitter=0.05, trajectory="uturn",
-                          uturn_probe=probe, verbose=False)
-        torch.cuda.synchronize()
-        uwall = time.perf_counter() - t0
-        counts = read_counts(f"U-turn quality block, probe {probe} (K1 "
-                             f"record_uturn + K2)")
-        uturn_launches[probe] = counts
-        if counts["K1"] != ESS_EPOCHS or counts["K3"] or counts["K2"] < 1:
-            raise AssertionError(f"the U-turn block did not run on K1 (one "
-                                 f"launch per epoch) + K2 alone: {counts}")
-        assert ures.main_path == "K1" and ures.fused_hyper, ures.main_path
-        assert ures.leapfrog.shape == (ESS_EPOCHS,), ures.leapfrog.shape
-        assert ures.theta_samples.shape == (n_samples, 512, d), \
-            ures.theta_samples.shape
-        assert np.isfinite(ures.theta_samples).all()
-        assert np.isfinite(ures.eta_samples).all()
-        # chain-epochs whose trajectory turned within its L (the rest were
-        # censored), in burn-in (what the adapter's reservoir saw) and after:
-        # the burn-in work is the ratchet of an all-censored fleet, so the
-        # count, not the work, shows that the path's recorded steps reach
-        # the adapter
-        burnin = ESS_RUN["burnin"]
-        uq = quality(f"U-turn, probe {probe}, 512 chains", unet, ures, uwall,
-                     burnin, probe=probe,
-                     leapfrog_work=float(ures.leapfrog.sum()),
-                     burnin_leapfrog_work=float(
-                         ures.leapfrog[:burnin].sum()),
-                     burnin_turned=int(ures.uturn_turned[:burnin].sum()),
-                     sampling_turned=int(ures.uturn_turned[burnin:].sum()))
-        ref = UTURN_REF[probe]
-        gates = {
-            "main acceptance": abs(uq["main_accept"] - ref["main_accept"])
-            <= UTURN_ACCEPT_TOL,
-            "hyper acceptance": abs(uq["hyper_accept"] - 0.95) < 0.15,
-            "final L": uq["final_leapfrog"] == ref["final_leapfrog"],
-            "total ESS": abs(uq["total_ess"] / ref["total_ess"] - 1.0)
-            <= UTURN_TOTAL_ESS_TOL,
-            "min-param ESS": abs(uq["min_param_ess"] / ref["min_param_ess"]
-                                 - 1.0) <= UTURN_MIN_ESS_TOL,
-            "turned in burn-in": uq["burnin_turned"] > 0}
-        missed = [name for name, ok in gates.items() if not ok]
-        if missed:
-            raise AssertionError(f"U-turn block, probe {probe}: {missed} "
-                                 f"off the JAX package's {ref}: {uq}")
-        del unet, ures
+    uturn_launches = {probe: uturn_block(dev, d, probe, reset_counts,
+                                         read_counts)
+                      for probe in ("alternate", "always")}
 
     # (h) wide_deep in U-turn mode on K3 + K2: hmc_step_batched records the
     # U-turn steps around K3's value and gradient; L is pinned at 20

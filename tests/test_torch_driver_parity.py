@@ -15,24 +15,29 @@ tempering.py:101). They reach the port through ``draw_epoch``, patched
 where the eager chunk runner calls it (parallel/chains.py), and the JAX
 package's initial fleet through the port's ``init_multichain_state``.
 
-Each run spans the adapters' random phase and at least two GP-UCB updates
-a group. Held equal: every chunk's length and each chain's (eps, L), so
-each group's choice; every epoch's MH decisions (main and hyper from each
-side's accept probability against the shared coin, swaps as recorded);
-each group's final (eps, L), and ``final_step_size`` and
-``final_leapfrog``, their means. The per-epoch acceptance slices after
-burn-in agree to atol 1e-3 and the recorded samples to rtol 1e-3 / atol
-1e-4, the tolerances of the three-epoch test.
+Three cases: G = 4 (2 chains a group); two rungs of 4 chains; and the
+quality block's ladder of four rungs at beta_min 0.5, where the odd-parity
+swap has a pair and the middle rungs, an adapter each, run. Each run spans
+the adapters' random phase and at least two GP-UCB updates a group. Held
+equal: every chunk's length and each chain's (eps, L), so each group's
+(each rung's) choice; every epoch's MH decisions (main and hyper from each
+side's accept probability against the shared coin, swaps as recorded, and
+per pair of rungs at each parity); each group's final (eps, L), and
+``final_step_size`` and ``final_leapfrog``, their means. The per-epoch
+acceptance slices after burn-in agree to atol 1e-3 and the recorded
+samples to rtol 1e-3 / atol 1e-4, the tolerances of the three-epoch test.
+tests/test_torch_uturn_driver_parity.py holds the U-turn driver the same
+way, with this file's helpers.
 
 The runs stop at epoch 28. Run on to 48 epochs (``JAX_PLATFORMS=cpu
 PYTHONPATH=. python3 tests/test_torch_driver_parity.py`` prints it), the
 first MH decision to differ is at epoch 32 in the G = 4 run (chain 7,
-(eps, L) = (0.0135, 30)) and at epoch 30 in the tempered one (hot chain
-6, (0.0155, 30)). That is the leapfrog near its stability edge, not a
-fault of either driver: by then the two packages' float32 roundings
-have grown to 4.08e-3 (0.781 in the hot chain) between the chain's
-starts, and from each start the port's plain
-leapfrog gives the same log-accept ratio in float32 and in float64
+(eps, L) = (0.0135, 30)) and at epoch 30 in the two-rung one (hot chain
+6, (0.0155, 30)); none differs in the four-rung one. That is the
+leapfrog near its stability edge, not a fault of either driver: by then
+the two packages' float32 roundings have grown to 4.08e-3 (0.781 in the
+hot chain) between the chain's starts, and from each start the port's
+plain leapfrog gives the same log-accept ratio in float32 and in float64
 (0.8477 / 0.8478 from the JAX start, -0.4858 / -0.4857 from the port's,
 against a coin of -0.3998).
 """
@@ -70,9 +75,11 @@ MCMC = dict(step_size_start=2e-3, step_size_min=5e-4, step_size_max=2e-2,
             leapfrog_max=30, leapfrog_increment=5, hyper_step_size=1e-3,
             hyper_leapfrog=10, burnin=BURNIN, averaging_steps=5,
             random_steps=2)
-# (n_chains cold, n_adapters, tempering): G = 4 with 2 chains a group, and
-# two rungs of 4 chains with one adapter a rung
-CASES = {"g4": (8, 4, 1), "tempered": (4, 1, 2)}
+# (n_chains cold, n_adapters, tempering): G = 4 with 2 chains a group; two
+# rungs of 4 chains with one adapter a rung; and the quality block's ladder,
+# four rungs of 4 chains, one adapter a rung, where the odd-parity swap has a
+# pair and the middle rungs run
+CASES = {"g4": (8, 4, 1), "tempered": (4, 1, 2), "tempered4": (4, 1, 4)}
 
 
 def _narrow_flagship():
@@ -129,7 +136,8 @@ def _recording(make_runner, calls, jax_side):
                 eps=np.asarray(eps, np.float32), leap=np.asarray(leap),
                 n=int(n), **{f: np.asarray(getattr(trace, f))
                              for f in ("theta", "eta", "main_accept",
-                                       "hyper_accept", "swap_accept")
+                                       "hyper_accept", "swap_accept",
+                                       "uturn")
                              if getattr(trace, f) is not None}))
             return carry, trace
         wrapped.runner = getattr(run, "runner", None)
@@ -141,16 +149,19 @@ def _stack(calls, field):
     return np.concatenate([c[field] for c in calls])
 
 
-def run_pair(case: str, epochs: int = EPOCHS) -> dict:
-    """Both drivers over ``epochs`` epochs of ``CASES[case]``, the port on
-    the JAX package's draws: each side's ``RunResult`` and recorded chunks,
-    the draws, and each JAX group's final (eps, L)."""
-    n_chains, n_adapters, tempering = CASES[case]
+def run_drivers(n_chains: int, n_adapters: int = 1, tempering: int = 1,
+                epochs: int = EPOCHS, mcmc: dict = MCMC, **extra) -> dict:
+    """Both drivers over ``epochs`` epochs of ``n_chains`` cold chains in
+    ``n_adapters`` groups (or ``tempering`` rungs at beta_min 0.5), the
+    port on the JAX package's draws, under ``mcmc`` and the further
+    ``sample_posterior`` keywords ``extra``:
+    each side's ``RunResult`` and recorded chunks, the draws, and each JAX
+    group's final (eps, L)."""
     j_model, j_lik, t_model, t_lik, x, y = _narrow_flagship()
     params, hypers = j_model.init(jax.random.key(0))
     kw = dict(epochs=epochs, sampling_step=STEP, n_chains=n_chains,
               n_adapters=n_adapters, chain_jitter=0.05, tempering=tempering,
-              tempering_beta_min=0.5, verbose=False)
+              tempering_beta_min=0.5, verbose=False, **extra)
     mp = pytest.MonkeyPatch()
     try:
         j_calls, j_init, j_adapters = [], [], []
@@ -165,7 +176,7 @@ def run_pair(case: str, epochs: int = EPOCHS) -> dict:
         mp.setattr(j_driver, "make_multichain_chunk_runner", _recording(
             j_driver.make_multichain_chunk_runner, j_calls, True))
         j_res = j_driver.sample_posterior(
-            j_model, j_lik, x, y, config=j_driver.MCMCConfig(**MCMC),
+            j_model, j_lik, x, y, config=j_driver.MCMCConfig(**mcmc),
             params=params, hypers=hypers, key=jax.random.key(1),
             keep_samples=True, **kw)
 
@@ -194,7 +205,7 @@ def run_pair(case: str, epochs: int = EPOCHS) -> dict:
         t_params, t_hypers, _ = convert.from_jax(params, hypers, {})
         t_res = t_driver.sample_posterior(
             t_model, t_lik, torch.tensor(x), torch.tensor(y),
-            config=t_driver.MCMCConfig(**MCMC), params=t_params,
+            config=t_driver.MCMCConfig(**mcmc), params=t_params,
             hypers=t_hypers, generator=torch.Generator().manual_seed(0),
             **kw)
         assert next(feed, None) is None, "the port drew fewer epochs"
@@ -204,10 +215,18 @@ def run_pair(case: str, epochs: int = EPOCHS) -> dict:
     # 1306-1309)
     j_groups = [(float(np.clip(a.current_e, 1e-12, None)), int(a.current_l))
                 for a in j_adapters]
-    return dict(case=case, j=j_res, t=t_res, j_calls=j_calls,
-                t_calls=t_calls, draws=draws, j_groups=j_groups,
-                n_adapters=max(n_adapters, tempering), model=t_model,
-                lik=t_lik, x=x, y=y, params=params, hypers=hypers)
+    return dict(j=j_res, t=t_res, j_calls=j_calls, t_calls=t_calls,
+                draws=draws, j_groups=j_groups,
+                n_adapters=max(n_adapters, tempering), tempering=tempering,
+                n_cold=n_chains, epochs=epochs, burnin=mcmc["burnin"],
+                uturn=extra.get("trajectory") == "uturn",
+                model=t_model, lik=t_lik, x=x, y=y, params=params,
+                hypers=hypers)
+
+
+def run_pair(case: str, epochs: int = EPOCHS) -> dict:
+    """``run_drivers`` at ``CASES[case]``."""
+    return dict(run_drivers(*CASES[case], epochs=epochs), case=case)
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -218,6 +237,9 @@ def runs(request):
 def test_port_ran_its_main_path(runs):
     assert runs["t"].main_path == "K1" and runs["t"].fused_hyper
     assert runs["t"].n_epochs == runs["j"].n_epochs == EPOCHS
+    if runs["tempering"] > 1:
+        # one adapter a rung, as in the quality block
+        assert len(runs["t"].group_step_size) == runs["tempering"]
 
 
 def test_each_group_chooses_the_same_step_and_leapfrog(runs):
@@ -247,7 +269,7 @@ def test_each_group_chooses_the_same_step_and_leapfrog(runs):
     assert (changes[1:].sum(axis=0) >= 2).all(), changes
 
 
-def test_every_mh_decision_is_the_same(runs):
+def check_mh_decisions(runs) -> None:
     """Main and hyper decisions from each side's accept probability
     against the shared coin, swap decisions as recorded."""
     draws = runs["draws"]
@@ -260,31 +282,76 @@ def test_every_mh_decision_is_the_same(runs):
         bad = np.argwhere(j_dec != t_dec)
         assert not bad.size, f"{block}: (epoch, chain) {bad[:5].tolist()}"
         assert 0 < t_dec.mean() < 1, block
-    if runs["case"] == "tempered":
+    if runs["tempering"] > 1:
         j_sw = _stack(runs["j_calls"], "swap_accept")
         np.testing.assert_array_equal(_stack(runs["t_calls"],
                                              "swap_accept"), j_sw)
         assert j_sw.any()
 
 
-def test_acceptance_slices_and_samples_match(runs):
+def check_slices_and_samples(runs) -> None:
+    """The per-epoch acceptance after burn-in to atol 1e-3, the recorded
+    samples to rtol 1e-3 / atol 1e-4, the final hyper step to rtol
+    1e-4."""
     j_res, t_res = runs["j"], runs["t"]
+    epochs, burnin = runs["epochs"], runs["burnin"]
     for field in ("main_accept", "hyper_accept"):
-        got, want = (getattr(r, field)[BURNIN:] for r in (t_res, j_res))
-        assert got.shape == want.shape == (EPOCHS - BURNIN,)
+        got, want = (getattr(r, field)[burnin:] for r in (t_res, j_res))
+        assert got.shape == want.shape == (epochs - burnin,)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3,
                                    err_msg=field)
-    if runs["case"] == "tempered":
+    if runs["tempering"] > 1:
         np.testing.assert_array_equal(t_res.swap_accept_rung,
                                       j_res.swap_accept_rung)
     assert t_res.theta_samples.shape == j_res.theta_samples.shape
-    assert t_res.theta_samples.shape[0] == (EPOCHS - BURNIN) // STEP
+    assert t_res.theta_samples.shape[0] == (epochs - burnin) // STEP
     np.testing.assert_allclose(t_res.theta_samples, j_res.theta_samples,
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(t_res.eta_samples, j_res.eta_samples,
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(t_res.final_hyper_step,
                                j_res.final_hyper_step, rtol=1e-4)
+
+
+def test_every_mh_decision_is_the_same(runs):
+    check_mh_decisions(runs)
+
+
+def test_every_swap_pair_decides_the_same(runs):
+    """Under tempering, each epoch's swap decision per pair of rungs: the
+    pairs (0, 1), (2, 3), ... at even epochs (counted from 0) and (1, 2),
+    (3, 4), ... at odd ones, the same on both sides, each pair's two rungs
+    exchanging together, a rung with no partner at that parity never; on
+    the four-rung ladder each of the three pairs exchanges and declines
+    at least once."""
+    k = runs["tempering"]
+    if k == 1:
+        assert runs["t"].swap_accept is runs["j"].swap_accept is None
+        return
+    sides = [_stack(runs[s], "swap_accept").reshape(
+        runs["epochs"], k, runs["n_cold"]) for s in ("j_calls", "t_calls")]
+    decided = {pair: [] for pair in range(k - 1)}
+    for e in range(runs["epochs"]):
+        paired = np.zeros(k, bool)
+        for lo in range(e % 2, k - 1, 2):
+            paired[lo:lo + 2] = True
+            got = [sw[e, lo] for sw in sides]
+            np.testing.assert_array_equal(got[1], got[0],
+                                          err_msg=f"epoch {e}, pair {lo}")
+            for sw in sides:
+                np.testing.assert_array_equal(sw[e, lo + 1], sw[e, lo])
+            decided[lo].append(got[0])
+        for sw in sides:
+            assert not sw[e, ~paired].any(), e
+    if k == 4:
+        assert sorted(decided) == [0, 1, 2]
+        for lo, dec in decided.items():
+            dec = np.concatenate(dec)
+            assert 0 < dec.mean() < 1, (lo, dec.mean())
+
+
+def test_acceptance_slices_and_samples_match(runs):
+    check_slices_and_samples(runs)
 
 
 def test_seed_band_and_the_jax_seed_lines():
@@ -314,30 +381,95 @@ def test_seed_band_and_the_jax_seed_lines():
         assert line["final_leapfrog"] == round(np.mean(steps))
 
 
-def first_flip(case: str, epochs: int = 48) -> None:
-    """Runs ``case`` past the cut and prints the first MH decision that
-    differs: its epoch, chain, (eps, L), coin and each side's log-accept
-    ratio, and that ratio recomputed by the port's plain leapfrog in
-    float32 and float64 from each package's start of that epoch (the
-    reason for the cut at ``EPOCHS``)."""
+def test_seed_band_takes_its_keys():
+    """``chip_smoke.seed_band`` over the statistics it is given (the U-turn
+    band adds the final eps to ``G4_BAND``, the default checked above):
+    the hand-computed band over those keys alone, and a statistic whose
+    sample sds are both 0 (z infinite, so gated as a miss)."""
+    import chip_smoke as cs
+
+    keys = ("total_ess", "main_accept")
+    port = [{k: v for k in keys} | {"other": v} for v in (1.0, 2.0, 3.0)]
+    ref = [{k: v for k in keys} for v in (4.0, 6.0)]
+    got = cs.seed_band(port, ref, keys)
+    assert tuple(got) == keys
+    for band in got.values():
+        np.testing.assert_allclose(
+            [band["port_mean"], band["port_sd"], band["jax_mean"],
+             band["jax_sd"], band["z"]],
+            [2.0, 1.0, 5.0, math.sqrt(2.0), 3.0 / math.sqrt(4.0 / 3.0)],
+            rtol=1e-12)
+    flat = cs.seed_band([{"x": 1.0}] * 3, [{"x": 2.0}] * 2, ("x",))["x"]
+    assert flat["port_sd"] == flat["jax_sd"] == 0.0
+    assert math.isinf(flat["z"]) and not flat["z"] <= cs.G4_BAND_Z
+
+
+@pytest.mark.parametrize("block", ["tempered", "uturn"])
+def test_the_tempered_and_uturn_jax_seed_lines(block):
+    """The JAX package's seed lines of the tempered and U-turn ("always")
+    blocks (``jax_reference_stats.py quality --block tempered`` and
+    ``--block uturn --probe always``): seeds 11-15 as the port's, every
+    statistic the band reads, the final (eps, L); the tempered lines four
+    rungs' swap rates and each rung's final (eps, L), whose means are the
+    fleet's as the JAX driver reports them."""
+    import chip_smoke as cs
+
+    lines, seeds = {"tempered": (cs.TEMPERED_JAX_SEEDS, cs.TEMPERED_SEEDS),
+                    "uturn": (cs.UTURN_JAX_SEEDS, cs.UTURN_SEEDS)}[block]
+    assert [line["seed"] for line in lines] == list(range(11, 16))
+    assert seeds == tuple(range(11, 16))
+    assert set(cs.G4_GATED) <= set(cs.G4_BAND)
+    for line in lines:
+        assert set(cs.G4_BAND) <= set(line)
+        assert 0 < line["main_accept"] < 1
+        assert line["final_step_size"] > 0
+        assert isinstance(line["final_leapfrog"], int)
+        if block == "uturn":
+            assert "group_step_size" not in line
+            continue
+        rates = line["swap_accept_rung"]
+        eps, steps = line["group_step_size"], line["group_leapfrog"]
+        assert len(rates) == len(eps) == len(steps) == 4
+        assert all(0 < r < 1 for r in rates)
+        assert line["final_step_size"] == pytest.approx(np.mean(eps))
+        assert line["final_leapfrog"] == round(np.mean(steps))
+
+
+def _per_epoch_chain(call: dict, field: str, per_epoch: bool) -> np.ndarray:
+    """A recorded chunk's ``eps`` or ``leap`` as an (epochs, C) array: a
+    scalar or per-chain argument repeated over the chunk's epochs, or a
+    ``per_epoch`` one (U-turn's L) repeated over the chains."""
+    v, (n, c) = np.asarray(call[field]), call["main_accept"].shape
+    if per_epoch and v.ndim == 1:
+        v = v[:, None]
+    return np.broadcast_to(v, (n, c))
+
+
+def first_flip(r: dict) -> None:
+    """Prints the first main MH decision that differs in the run ``r``
+    (from ``run_drivers``, run past the cut): its epoch, chain, (eps, L),
+    coin and each side's log-accept ratio, and that ratio recomputed by the
+    port's plain leapfrog in float32 and float64 from each package's start
+    of that epoch (the reason for the cut)."""
     from tensorbnn_tpu_torch.sampler.hmc import leapfrog_batched
     from tensorbnn_tpu_torch.sampler.potential import flatten_state, \
         make_potentials
 
-    r = run_pair(case, epochs)
+    name, epochs = r["case"], r["epochs"]
     u = np.stack([dr.main_log_u.numpy() for dr in r["draws"]])
     with np.errstate(divide="ignore"):
         lar = {k: np.log(_stack(r[k + "_calls"], "main_accept"))
                for k in "jt"}
     flips = np.argwhere((u < lar["j"]) != (u < lar["t"]))
     if not flips.size:
-        print(f"{case}: no main decision differs in {epochs} epochs")
+        print(f"{name}: no main decision differs in {epochs} epochs")
         return
     e, ch = flips[0]
-    eps, steps = (np.concatenate([np.tile(c[f], (c["n"], 1))
+    eps, steps = (np.concatenate([_per_epoch_chain(c, f, f == "leap"
+                                                   and r["uturn"])
                                   for c in r["j_calls"]])[e, ch]
                   for f in ("eps", "leap"))
-    print(f"{case}: first main decision to differ at epoch {e + 1}, chain "
+    print(f"{name}: first main decision to differ at epoch {e + 1}, chain "
           f"{ch}, (eps, L) = ({eps:.4g}, {int(steps)}): coin {u[e, ch]:.4f},"
           f" log-accept ratio JAX {lar['j'][e, ch]:.4f}, port "
           f"{lar['t'][e, ch]:.4f}")
@@ -357,7 +489,7 @@ def first_flip(case: str, epochs: int = 48) -> None:
                                   flat.unravel_theta, flat.unravel_eta)
             et_d = torch.tensor(et, dtype=dtype)
             # the chain's rung of the ladder (cold first, beta_min 0.5)
-            n_cold, _, n_rungs = CASES[case]
+            n_cold, n_rungs = r["n_cold"], r["tempering"]
             beta = torch.tensor([0.5 ** ((ch // n_cold) / max(n_rungs - 1,
                                                               1))],
                                 dtype=dtype)
@@ -376,4 +508,4 @@ def first_flip(case: str, epochs: int = 48) -> None:
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu PYTHONPATH=. python3 tests/test_torch_driver_parity.py
     for name in sorted(CASES):
-        first_flip(name)
+        first_flip(run_pair(name, 48))
