@@ -58,11 +58,17 @@ picks:
 ``python3 chip_profile.py <cell>`` profiles the cells above whose names
 begin with ``<cell>`` (``flagship``, ``wide_deep``, ``mesh``, ...),
 ``python3 chip_profile.py surrogate``
-the ``surrogate`` cell; with ``--full`` it then runs the bench's whole schedule through
-``Network.train`` (600 epochs, burn-in 200, every second epoch recorded)
-and prints its quality line (post-burn-in acceptance, the settled (eps,
-L), ESS of the predictive mean at the first input row per second of the
-run's wall) beside the TPU capture's statistics.
+the ``surrogate`` cell; with ``--full`` it then runs the bench's whole
+schedule through ``Network.train`` (600 epochs, burn-in 200, every second
+epoch recorded) from the JAX package's MAP warm start
+(``chip_smoke.SURR_WARM_START``) and prints its quality line (post-burn-in
+acceptance, the epochs run at each (eps, L) after burn-in, the adapter's
+updates, ESS of the predictive mean at the first input row per second of
+the run's wall, the learned sd, peak memory by phase) beside the TPU
+capture's statistics; ``--full --seeds 11,12,13`` runs the same at each of
+those Network seeds (the bench's is 3) without the cell
+(``surrogate_full``), and ``--out DIR`` writes each run's per-epoch figures (and each seed's last
+state) to ``DIR``.
 
 Then ``pretrain`` (alone: ``python3 chip_profile.py pretrain``):
 ``chip_smoke.pretrain_runners`` at the JAX bench's surrogate pretraining
@@ -266,9 +272,8 @@ def mesh_surrogate_cells(dev, gen, card):
             torch.cuda.empty_cache()
 
 
-def surrogate_cell(dev, gen, card, full=False):
-    """The ``surrogate`` cell (see the module docstring); with ``full`` the
-    bench's 600-epoch run after it."""
+def surrogate_cell(dev, gen, card):
+    """The ``surrogate`` cell (see the module docstring)."""
     import chip_smoke as cs
     from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
     from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
@@ -288,24 +293,217 @@ def surrogate_cell(dev, gen, card, full=False):
          1, 2, 1, gen, card)
     del run, carry
     torch.cuda.empty_cache()
-    if not full:
-        return
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
+
+
+class MemoryTracer:
+    """A ``sample_posterior`` tracer that reads the card's allocator around
+    each chunk: the peak of ``torch.cuda.max_memory_allocated`` during the
+    chunk (its runner and the rows it records) and the bytes still
+    allocated after it (the carry and the recorded rows so far), both above
+    ``held``, the bytes allocated before the run, and the peak of
+    ``max_memory_reserved`` (a graph's pool stays reserved between its
+    replays, which allocate nothing); the peak between chunks, and after
+    the last one (the driver gathering the recorded rows) once ``finish``
+    is called."""
+
+    def __init__(self, held: int):
+        self.held, self.chunks, self.between = held, [], 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def _peak(self) -> int:
+        return torch.cuda.max_memory_allocated() - self.held
+
+    def start_chunk(self):
+        self.between = max(self.between, self._peak())
+        torch.cuda.reset_peak_memory_stats()
+
+    def end_chunk(self, epochs, leapfrog, n_chains, max_leapfrog=None):
+        self.chunks.append((self._peak(),
+                            torch.cuda.memory_allocated() - self.held,
+                            torch.cuda.max_memory_reserved()))
+        torch.cuda.reset_peak_memory_stats()
+
+    def finish(self) -> dict:
+        peaks, held, reserved = (list(v) for v in zip(*self.chunks))
+        return {"chunks_peak_bytes": max(peaks),
+                "chunks_peak_at_chunk": int(np.argmax(peaks)),
+                "chunk_peaks_bytes": peaks,
+                "held_after_first_chunk_bytes": held[0],
+                "held_after_last_chunk_bytes": held[-1],
+                "chunks_reserved_peak_bytes": max(reserved),
+                "first_chunk_reserved_peak_bytes": reserved[0],
+                "last_chunk_reserved_peak_bytes": reserved[-1],
+                "between_chunks_peak_bytes": self.between,
+                "after_last_chunk_peak_bytes": self._peak()}
+
+
+def record_adapters(driver, made: list, patch=setattr):
+    """Patches ``driver.MCMCConfig.make_adapter`` (``driver``: the port's
+    ``sampler.driver`` module or the JAX package's, whose adapters have the
+    same fields) through ``patch(obj, name, value)`` so that each GP-UCB
+    adapter it makes goes to ``made`` and records its run: in ``trail``,
+    after every ``update``, its counter, strike count, step-size bounds,
+    resets, the points in its GP window and its answer; in ``log``, for
+    each GP/proposal cycle, the epoch whose adapter call ran it (1-based:
+    its (eps, L) runs from the next epoch), its phase (``random`` or
+    ``gp``), the gating probability p, the new (eps, L) and the strike
+    count. Returns the function that undoes the patch."""
+    real = driver.MCMCConfig.make_adapter
+
+    def make_adapter(self, seed=None):
+        a = real(self, seed)
+        a.trail, a.log = [], []
+        update, gp_update = a.update, a._gp_update
+
+        def logged_update(sjd):
+            out = update(sjd)
+            a.trail.append((a.i, a.strikes, a.el, a.eu, a.n_resets,
+                            len(a.all_data), float(out[0]), int(out[1])))
+            return out
+
+        def logged_gp_update():
+            phase = "gp" if a.i // a.m >= a.random_steps else "random"
+            gp_update()
+            # update() runs at epoch e (1-based) with the counter at e - 3
+            a.log.append({"epoch": int(a.i) + 3, "phase": phase,
+                          "p": float(a.p), "eps": float(a.current_e),
+                          "leapfrog": int(a.current_l),
+                          "strikes": int(a.strikes)})
+        a.update, a._gp_update = logged_update, logged_gp_update
+        made.append(a)
+        return a
+
+    patch(driver.MCMCConfig, "make_adapter", make_adapter)
+    return lambda: setattr(driver.MCMCConfig, "make_adapter", real)
+
+
+def segments(log, start, accept, burnin) -> list:
+    """The post-burn-in epochs run at each (eps, L), in order, from an
+    adapter's ``log`` and its start ``(eps, L)``: each stretch's first and
+    last epoch (1-based), (eps, L) and mean main acceptance (``accept``,
+    per epoch)."""
+    n = len(accept)
+    plan = np.empty((n, 2))
+    plan[:] = start
+    for entry in log:
+        plan[entry["epoch"]:] = (entry["eps"], entry["leapfrog"])
+    out = []
+    for e in range(burnin, n):
+        if out and tuple(plan[e]) == (out[-1]["eps"], out[-1]["leapfrog"]):
+            out[-1]["last"] = e + 1
+        else:
+            out.append({"first": e + 1, "last": e + 1, "eps": plan[e, 0],
+                        "leapfrog": int(plan[e, 1])})
+    for seg in out:
+        seg["epochs"] = seg["last"] - seg["first"] + 1
+        seg["main_accept"] = float(np.mean(
+            accept[seg["first"] - 1:seg["last"]]))
+    return out
+
+
+def surrogate_train(dev, x, y, warm, seed, epochs, burnin):
+    """The surrogate (``chip_smoke.surrogate_network`` from ``warm`` at
+    Network seed ``seed``) through ``Network.train`` for ``epochs`` epochs
+    of the bench's schedule (32 chains, ``numerics="exact"``,
+    ``data_chunk=125,000``, every second epoch after ``burnin`` recorded)
+    under a ``MemoryTracer`` and ``record_adapters``: ``(net, res, wall,
+    memory, adapter)``."""
+    import chip_smoke as cs
+    from tensorbnn_tpu_torch.sampler import driver
+
+    net, lik = cs.surrogate_network(dev, x, y, warm, burnin, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tracer = MemoryTracer(torch.cuda.memory_allocated())
+    made = []
+    undo = record_adapters(driver, made)
     t0 = time.perf_counter()
-    res = net.train(600, 2, lik, n_chains=cs.SURR_CHAINS, chain_jitter=0.0,
-                    data_chunk=cs.SURR_CHUNK, numerics="exact",
-                    display_skip=50)
+    try:
+        res = net.train(epochs, 2, lik, n_chains=cs.SURR_CHAINS,
+                        chain_jitter=0.0, data_chunk=cs.SURR_CHUNK,
+                        numerics="exact", display_skip=50, tracer=tracer)
+    finally:
+        undo()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not np.isfinite(res.theta_samples).all():
-        raise AssertionError("surrogate: non-finite samples")
-    cs.quality("surrogate 600 epochs", net, res, wall, 200, xq=x[:1],
-               card=card, main_path=res.main_path,
-               peak_memory_bytes=torch.cuda.max_memory_allocated() - held,
-               held_before_bytes=held,
-               learned_sd=float(np.mean(res.eta_samples[:, :, -1] ** 2)),
-               tpu_capture=cs.TPU_SURROGATE_REF)
+        raise AssertionError(f"surrogate seed {seed}: non-finite samples")
+    return net, res, wall, tracer.finish(), made[0]
+
+
+def surrogate_full(dev, card, seeds, epochs=600, burnin=200, out_dir=None):
+    """The bench's whole ``surrogate_quality_exact`` schedule (600 epochs,
+    burn-in 200, every second epoch recorded, 32 chains, ``numerics=
+    "exact"``, ``data_chunk=125,000``) through ``Network.train`` at each
+    Network seed of ``seeds``, every run from the JAX package's committed
+    MAP warm start (``chip_smoke.SURR_WARM_START``). First the port's own
+    pretraining at the bench's settings, for its peak memory and MSE. Then
+    a ``{"surrogate_seed": ...}`` line a seed: post-burn-in main and hyper
+    acceptance, the epochs run at each (eps, L) after burn-in with their
+    acceptance, the adapter's updates (epoch, phase, gating probability,
+    (eps, L), strikes), total and min-param ESS and their rates, the
+    learned sd, and peak memory split into the sampling chunks (each
+    chunk's), the recorded rows and the ESS diagnostics; with ``out_dir``,
+    each seed's per-epoch acceptance, SJD and leapfrog and the last
+    recorded state of chains 0-3 (theta and eta in one float32 row a
+    chain) are written there."""
+    import chip_smoke as cs
+
+    x, y = cs.surrogate_data()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    port_warm = cs.surrogate_pretrain(dev, x, y)
+    pretrain = {"peak_bytes": torch.cuda.max_memory_allocated() - held,
+                "port_mse": cs.host_loss(port_warm, x, y, False, tanh=True)}
+    del port_warm
+    warm = cs.surrogate_jax_warm_start()
+    pretrain["jax_warm_start_mse"] = cs.host_loss(warm, x, y, False,
+                                                  tanh=True)
+    print(json.dumps({"surrogate_pretraining": pretrain, "card": card}),
+          flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    start = (cs.SURR_MCMC["step_size_start"], cs.SURR_MCMC["leapfrog_start"])
+    for seed in seeds:
+        net, res, wall, memory, adapter = surrogate_train(
+            dev, x, y, warm, seed, epochs, burnin)
+        memory["recorded_rows_bytes"] = int(
+            res.theta_samples.nbytes + res.eta_samples.nbytes)
+        torch.cuda.synchronize()
+        ess_held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        figures = cs.quality_figures(f"surrogate {epochs} epochs", net, res,
+                                     wall, burnin, xq=x[:1])
+        torch.cuda.synchronize()
+        memory["ess_diagnostics_peak_bytes"] = (
+            torch.cuda.max_memory_allocated() - ess_held)
+        memory["pretraining_peak_bytes"] = pretrain["peak_bytes"]
+        line = dict(figures, seed=seed, card=card, burnin=burnin,
+                    main_path=res.main_path,
+                    chunk_runner=res.chunk_runner,
+                    learned_sd=float(np.mean(res.eta_samples[:, :, -1]
+                                             ** 2)),
+                    post_burnin=segments(adapter.log, start,
+                                         res.main_accept, burnin),
+                    updates=adapter.log, strikes=int(adapter.strikes),
+                    n_resets=int(adapter.n_resets), memory=memory,
+                    tpu_capture=cs.TPU_SURROGATE_REF)
+        print(json.dumps({"surrogate_seed": line}), flush=True)
+        if out_dir:
+            with open(os.path.join(out_dir, f"surrogate_seed{seed}.json"),
+                      "w") as f:
+                json.dump(dict(line, main_accept_per_epoch=res.main_accept
+                               .tolist(), hyper_accept_per_epoch=res
+                               .hyper_accept.tolist(), sjd_per_epoch=res
+                               .sjd.tolist(), leapfrog_per_epoch=res
+                               .leapfrog.tolist()), f)
+            np.save(os.path.join(out_dir,
+                                 f"surrogate_state_seed{seed}.npy"),
+                    np.concatenate([res.theta_samples[-1, :4],
+                                    res.eta_samples[-1, :4]], axis=1))
+        del net, res
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -330,7 +528,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     if argv[:1] == ["surrogate"]:
-        surrogate_cell(dev, gen, card, full=argv[1:] == ["--full"])
+        # surrogate [--full [--seeds a,b,...] [--out DIR]]
+        full = argv[1:2] == ["--full"]
+        opts = dict(zip(argv[2::2], argv[3::2]))
+        if (argv[1:] and not full) or len(argv[2:]) % 2 or (
+                set(opts) - {"--seeds", "--out"}):
+            print(f"chip_profile: unknown surrogate arguments {argv[1:]}",
+                  file=sys.stderr)
+            return 2
+        if "--seeds" not in opts:
+            surrogate_cell(dev, gen, card)
+        if full:
+            surrogate_full(dev, card, [int(s) for s in opts.get(
+                "--seeds", "3").split(",")], out_dir=opts.get("--out"))
         return 0
     if argv[:1] == ["pretrain"]:
         pretrain_cells(dev, card)

@@ -128,7 +128,7 @@ script exits non-zero:
    K3; the reference-style shim script and its ``predictor``, as a
    ``{"pretrain": ...}`` line;
 10. the 1M-point surrogate (the JAX bench's ``surrogate_quality_exact``,
-   32 chains, ``data_chunk=125,000``, ``numerics="exact"``, 40 epochs, from
+   32 chains, ``data_chunk=125,000``, ``numerics="exact"``, 24 epochs, from
    phase 9's MAP warm start) through ``Network.train`` on the plain path,
    with no kernel launched: its epochs' wall, the main block's ms an
    evaluation, an epoch's busy time and idle share, peak memory and
@@ -138,9 +138,18 @@ script exits non-zero:
    --smoke`` held to the JAX example's figures; the same model under
    default numerics (K3 over 125,000-row chunks + K2, stepped), K3 over
    row chunks and unchunked held against the plain path and each other,
-   with their ms, calls and workspace; the same at 128 chains (a fleet
+   with their ms, calls and workspace, and K3's cuBLAS twin timed over the
+   same row chunks; the same at 128 chains (a fleet
    whose unchunked K3 workspace, 131.6 GB, no card holds: the driver's
-   gate declines it without ``data_chunk``), 4 epochs, as a
+   gate declines it without ``data_chunk``), 4 epochs; then (g) the
+   same-state acceptance ladder: from the JAX package's committed warm
+   start and from a committed state at equilibrium, 8 chains at (eps, L)
+   = (3.2e-5, 15) and (4.87e-5, 15) for 10 epochs on the stepped runner,
+   failing where the mean main accept probability is more than 3 standard
+   errors from the JAX package's on the same state and rung
+   (``LADDER_JAX``) or the learned sd more than 10% from it (the chunk
+   runner alone; the equilibrium state's (4.87e-5, 15) rung, 0 against 0,
+   shows agreement only); as a
    ``{"surrogate": ...}`` line (``--surrogate-only`` runs phases 1, 2 and
    10 alone);
 11. the ``(chains, data)`` mesh on a virtual mesh whose entries are all
@@ -151,7 +160,7 @@ script exits non-zero:
    stats' R and K summed over the data peers (and the flagship's 11 rows
    refused there); the 1M-point
    surrogate on 1x4: K3 on four 250,000-row shards against the mesh-less
-   K3 and the plain path, and 10 epochs under ``numerics="exact"``; a
+   K3 and the plain path, and 6 epochs under ``numerics="exact"``; a
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
    mesh-less swap decisions; the predict cell on 2x2 against the unsharded
    ``predict``, on the eager route and on graphs (a graph an entry),
@@ -166,7 +175,8 @@ script exits non-zero:
    with per-epoch counts, ``classification`` and ``multiclass`` at 128):
    two chunks whose (eps, L) differ, bit-equal (carry, traces, the
    generator's state), then each runner's host ms an epoch over 200 steady
-   epochs, the card's busy ms, the idle share, the host's launches an
+   epochs (``classification``, whose eager epoch is slow, over 5), the
+   card's busy ms, the idle share, the host's launches an
    epoch, each runner's peak memory and the graph runner's captures with
    their ms; and the stepped runner (a head, a step and a tail graph of
    the epoch, the step replayed L times), which phases 6-11 take wherever
@@ -454,9 +464,9 @@ EXAMPLE_RMSE_FACTOR, EXAMPLE_ACCURACY_DROP = 1.5, 0.05
 # and MAP warm start, 8-64-64-1 tanh Gaussian dense layers,
 # GaussianLikelihood(sd=0.1) with a learned sd, 32 chains without jitter,
 # data_chunk=125,000, numerics="exact", the exact-numerics grid; only the
-# epochs are cut (600 -> 40, burn-in 200 -> 20) to fit this script's time
+# epochs are cut (600 -> 24, burn-in 200 -> 20) to fit this script's time
 SURR_CHAINS, SURR_CHUNK = 32, 125_000
-SURR_EPOCHS, SURR_BURNIN, SURR_SAMPLING = 40, 20, 2
+SURR_EPOCHS, SURR_BURNIN, SURR_SAMPLING = 24, 20, 2
 SURR_MCMC = dict(step_size_start=5e-7, step_size_min=1e-8,
                  step_size_max=5e-5, step_size_options=40, leapfrog_start=10,
                  leapfrog_min=5, leapfrog_max=15, leapfrog_increment=5,
@@ -487,6 +497,65 @@ SURR_SMOKE_ACCEPT_TOL, SURR_SMOKE_SD_RTOL = 0.05, 0.10
 # match, not a speed
 TPU_SURROGATE_REF = {"main_accept": (0.70, 0.76), "step_size": 3.2e-5,
                      "leapfrog": 15}
+# the JAX package's MAP warm start of the surrogate at the bench's
+# pretraining settings (run_benchmarks.py:430-436: one cycle of 4 epochs,
+# batch 8,192, alpha 0.1, validation on the first 4,096 rows), trained on
+# the CPU by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py surrogate --warm-start
+# and kept as one float32 vector: each dense layer's W (out, in) and then
+# its b, in layer order (4,801 numbers)
+SURR_WARM_START = "tests/data/surrogate_jax_warm_start.npy"
+# a state at equilibrium: the last recorded theta and eta of chains 0-3 of
+# `chip_profile.py surrogate --full --seeds 12` on the card (epoch 600 of a
+# run from SURR_WARM_START; NVIDIA H100 80GB HBM3, 700 W), one float32 row
+# a chain, theta then eta
+SURR_EQUILIBRIUM = "tests/data/surrogate_equilibrium.npy"
+# phase 10 (g): the same-state acceptance ladder. From each state ("warm":
+# SURR_WARM_START, every chain at it; "equilibrium": SURR_EQUILIBRIUM's 4
+# chains, twice over on the card) the main block runs at each fixed (eps,
+# L) of LADDER_STEPS for LADDER_EPOCHS epochs under numerics="exact" and
+# data_chunk=125,000, the hyper block as in the first epochs of a run with
+# burn-in LADDER_BURNIN (`ladder_mcmc`). The port runs LADDER_CHAINS chains
+# on the stepped runner and fails where its mean main accept probability is
+# more than LADDER_Z standard errors (over chains, both sides) from the
+# JAX package's, or its learned sd more than LADDER_SD_RTOL from it. The
+# card side calls the chunk runner alone, where the JAX side runs its
+# driver (`sample_posterior`): the port's driver is held to the JAX
+# package's by tests/test_torch_surrogate_driver_parity.py on the CPU.
+# The rungs are not equal gates: from the equilibrium state at (4.87e-5,
+# 15) both sides accept nothing (0 against 0, z = 0), so that rung shows
+# agreement but cannot separate a precision leak; the warm state at
+# (3.2e-5, 15), where the JAX package accepts 0.9997 +- 0.0003, carries
+# most of the ladder's power
+LADDER_STEPS = ((3.2e-5, 15), (4.87e-5, 15))
+LADDER_EPOCHS, LADDER_BURNIN, LADDER_CHAINS = 10, 200, 8
+LADDER_Z, LADDER_SD_RTOL = 3.0, 0.10
+# the JAX package's figures at each state and rung (4 chains on the CPU), as
+# printed by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py surrogate --ladder
+# (the n_chains, epochs and cpu_seconds keys left out): statistics of the
+# sampler, not of any chip
+LADDER_JAX = (
+    dict(state="warm", eps=3.2e-05, leapfrog=15,
+         main_accept=0.9997328832745552,
+         main_accept_se=0.00026711672544479925, main_accept_chain=[1.0,
+         0.9989315330982208, 1.0, 1.0], learned_sd=0.12909072164139718,
+         hyper_accept=0.9885208010673523),
+    dict(state="warm", eps=4.87e-05, leapfrog=15,
+         main_accept=0.6753062149509788,
+         main_accept_se=0.06295657776154807, main_accept_chain=[0.5,
+         0.701224859803915, 0.7, 0.8], learned_sd=0.1328939729690991,
+         hyper_accept=0.9903184771537781),
+    dict(state="equilibrium", eps=3.2e-05, leapfrog=15,
+         main_accept=0.35709599617618826,
+         main_accept_se=0.08904569850663245,
+         main_accept_chain=[0.16912454332331606, 0.2721783178858459,
+         0.5812078844755888, 0.40587323902000205],
+         learned_sd=0.10563142052139737, hyper_accept=0.9226871728897095),
+    dict(state="equilibrium", eps=4.87e-05, leapfrog=15, main_accept=0.0,
+         main_accept_se=0.0, main_accept_chain=[0.0, 0.0, 0.0, 0.0],
+         learned_sd=0.10566012197257649, hyper_accept=0.9240147471427917),
+)
 # phase 11: the (chains, data) mesh on a virtual mesh of this card. (a) the
 # flagship on 4x1 against the mesh-less run: the same MH decisions and
 # samples within this fraction of their largest entry (a chain shard's 16
@@ -504,10 +573,12 @@ MESH_FLAGSHIP_ATOL = 1e-6
 MESH_DATA_ATOL = 1e-5
 MESH_MOVE_OVER_TOL = 10.0
 MESH_STATS_RTOL = 1e-6
-# (c) the exact-numerics surrogate on 1x4 against the same 10 epochs
-# without the mesh: mean main and hyper acceptance within this distance
-# (the two sum the likelihood in other orders, so the chains part by ulps)
+# (c) the exact-numerics surrogate on 1x4 against the same
+# MESH_EXACT_EPOCHS epochs (burn-in MESH_EXACT_BURNIN) without the mesh:
+# mean main and hyper acceptance within this distance (the two sum the
+# likelihood in other orders, so the chains part by ulps)
 MESH_ACCEPT_TOL = 0.05
+MESH_EXACT_EPOCHS, MESH_EXACT_BURNIN = 6, 2
 # (e) the predict cell on 2x2 against the unsharded predict: each block's
 # batched products have other shapes, which may sum in another order
 MESH_PREDICT_TOL = 1e-6
@@ -928,14 +999,14 @@ def seed_lines(label, run, seeds, first, extra=lambda res: {}) -> list:
     at each later seed, each on K1 + K2 with finite samples, its line
     printed with ``extra(res)``. The runs come first, so that no wall
     shares the host; then their diagnostics (numpy's, ~10 s a seed at this
-    size) three at a time, printed in seed order."""
+    size, ~7 GB of host memory) five at a time, printed in seed order."""
     runs = []
     for seed in seeds[1:]:
         net, res, wall = run(seed)
         assert res.main_path == "K1" and res.fused_hyper, res.main_path
         assert np.isfinite(res.theta_samples).all()
         runs.append((net, res, wall, seed))
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         lines = [first, *pool.map(
             lambda r: quality_figures(label, *r[:3], ESS_RUN["burnin"],
                                       seed=r[3], **extra(r[1])), runs)]
@@ -2298,19 +2369,85 @@ def surrogate_pretrain(dev, x, y, cycles=1, epochs=SURROGATE_EPOCHS):
         hidden_activation="tanh", device=dev)
 
 
-def surrogate_network(dev, x, y, warm, burnin, precision=None):
+def repo_file(path: str) -> str:
+    """``path`` (relative to the checkout's root) as an absolute path."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+
+
+def surrogate_dims() -> list:
+    """The surrogate's layer widths, input to output."""
+    return [SURROGATE_IN, SURROGATE_WIDTH, SURROGATE_WIDTH, 1]
+
+
+def flat_warm_start(weights, biases) -> np.ndarray:
+    """Pretrained ``(W (out, in), b)`` per dense layer as one float32
+    vector in ``SURR_WARM_START``'s order."""
+    return np.concatenate([np.ravel(np.asarray(a, np.float32))
+                           for wb in zip(weights, biases) for a in wb])
+
+
+def surrogate_jax_warm_start():
+    """The committed JAX warm start (``SURR_WARM_START``) as ``(weights,
+    biases, activations)`` in ``train_basic_regression``'s layout (W (out,
+    in), b (out, 1), no activations: the hidden layers are tanh)."""
+    flat = np.load(repo_file(SURR_WARM_START))
+    dims, weights, biases, at = surrogate_dims(), [], [], 0
+    for a, o in zip(dims[:-1], dims[1:]):
+        weights.append(flat[at:at + o * a].reshape(o, a))
+        biases.append(flat[at + o * a:at + o * a + o].reshape(o, 1))
+        at += o * a + o
+    if at != flat.size:
+        raise ValueError(f"{SURR_WARM_START}: {flat.size} numbers, the "
+                         f"surrogate's layers take {at}")
+    return weights, biases, []
+
+
+def surrogate_equilibrium() -> tuple:
+    """``SURR_EQUILIBRIUM`` as ``(theta (4, D), eta (4, H))``."""
+    rows = np.load(repo_file(SURR_EQUILIBRIUM))
+    d = sum(a * b + b for a, b in zip(surrogate_dims()[:-1],
+                                      surrogate_dims()[1:]))
+    return rows[:, :d], rows[:, d:]
+
+
+def ladder_mcmc(eps: float, steps: int) -> dict:
+    """``setup_mcmc``'s keywords for a ladder rung: the surrogate's, the
+    step grid and the leapfrog options one point, burn-in
+    ``LADDER_BURNIN``."""
+    return dict(SURR_MCMC, step_size_start=eps, step_size_min=eps,
+                step_size_max=eps, leapfrog_start=steps, leapfrog_min=steps,
+                leapfrog_max=steps, burnin=LADDER_BURNIN)
+
+
+def ladder_figures(accept, eta) -> dict:
+    """A ladder run's figures from its per-epoch, per-chain main accept
+    probabilities ``(E, C)`` and etas ``(E, C, H)``: the mean accept
+    probability, its standard error over chains (each chain's mean over
+    the epochs), each chain's mean, and the learned sd (``eta[..., -1] **
+    2``) over every chain and epoch."""
+    per_chain = np.asarray(accept, np.float64).mean(axis=0)
+    return {"main_accept": float(per_chain.mean()),
+            "main_accept_se": float(per_chain.std(ddof=1)
+                                    / math.sqrt(per_chain.size)),
+            "main_accept_chain": per_chain.tolist(),
+            "learned_sd": float(np.mean(np.asarray(eta, np.float64)[..., -1]
+                                        ** 2))}
+
+
+def surrogate_network(dev, x, y, warm, burnin, precision=None, seed=3):
     """The bench's ``_surrogate_net`` (run_benchmarks.py:445-455) on
     ``dev``: 8-64-64-1 tanh Gaussian dense layers warm-started from
-    ``warm``, seed 3, the first 256 rows as validation, ``SURR_MCMC`` with
-    ``burnin``; with the learned-sd ``GaussianLikelihood(sd=0.1)``."""
+    ``warm``, Network seed ``seed`` (the bench's 3), the first 256 rows as
+    validation, ``SURR_MCMC`` with ``burnin``; with the learned-sd
+    ``GaussianLikelihood(sd=0.1)``."""
     from tensorbnn_tpu_torch import GaussianDenseLayer, GaussianLikelihood, \
         Network, Tanh
     from tensorbnn_tpu_torch.training.pretrain import dense_warm_start
 
     w, b, _ = warm
     net = Network(torch.float32, SURROGATE_IN, x, y, x[:256], y[:256],
-                  seed=3, device=dev)
-    dims = [SURROGATE_IN, SURROGATE_WIDTH, SURROGATE_WIDTH, 1]
+                  seed=seed, device=dev)
+    dims = surrogate_dims()
     for i in range(3):
         net.add(GaussianDenseLayer(dims[i], dims[i + 1],
                                    matmul_precision=precision),
@@ -2357,13 +2494,16 @@ def route_errors(got, want) -> dict:
                                    .abs().max()) / gmax}
 
 
-def k3_route(net, lik, flat, thetas, etas, data_chunk, reset_counts) -> dict:
+def k3_route(net, lik, flat, thetas, etas, data_chunk, reset_counts,
+             library=False) -> dict:
     """The main block's K3 route at the surrogate's 1M rows, built as the
     driver builds it (over ``data_chunk``-row chunks, or unchunked with
     None), at ``thetas``, ``etas``: its calls an evaluation, ms an
     evaluation (CUDA events), a call's workspace bytes, one evaluation's
     peak memory above what was held before, and its ``(value, grad)``
-    under ``out``."""
+    under ``out``; with ``library``, also the ms of K3's cuBLAS twin
+    (``potential_plain``: baddbmm and bmm, TF32 off) over the same row
+    chunks (the likelihood's value and gradient a chunk, not summed)."""
     from tensorbnn_tpu_torch.ops import fused_mlp
     vg = fused_mlp.try_build_fused_main_vg(
         net.model, lik, flat.unravel_theta, flat.unravel_eta, net.train_x,
@@ -2376,10 +2516,22 @@ def k3_route(net, lik, flat, thetas, etas, data_chunk, reset_counts) -> dict:
     reset_counts()
     got = vg(*args)
     torch.cuda.synchronize()
-    return {"launches_per_eval": fused_mlp.fused_potential.LAUNCHES,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
-            "workspace_bytes": vg.workspace_bytes(thetas.shape[0]),
-            "ms": cuda_ms(lambda: vg(*args), reps=3), "out": got}
+    out = {"launches_per_eval": fused_mlp.fused_potential.LAUNCHES,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "workspace_bytes": vg.workspace_bytes(thetas.shape[0]),
+           "ms": cuda_ms(lambda: vg(*args), reps=3), "out": got}
+    if library:
+        ops = fused_mlp._model_program(net.model, lik)[0]
+        n = net.train_x.shape[0]
+        chunk = data_chunk or n
+        sd_c = etas[:, -1] ** 2
+
+        def twin():
+            return [fused_mlp.potential_plain(
+                ops, thetas, sd_c, net.train_x[i:i + chunk],
+                net.train_y[i:i + chunk]) for i in range(0, n, chunk)]
+        out["library_ms"] = cuda_ms(twin, reps=3)
+    return out
 
 
 def wide_fleet_cell(dev, card, x, y, warm, flat, reset_counts,
@@ -2474,9 +2626,11 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     and K3 at the run's last state over row chunks (the driver's route)
     and unchunked (the parent's), each against the plain chunked path and
     against each other (value, gradient, calls, ms and peak memory an
-    evaluation, workspace bytes); (f) the same at 128 chains
-    (``wide_fleet_cell``). Prints a ``{"surrogate": ...}`` line and
-    returns its dict."""
+    evaluation, workspace bytes; K3's cuBLAS twin over the same row
+    chunks); (f) the same at 128 chains (``wide_fleet_cell``); (g) the
+    same-state acceptance ladder against the JAX package's
+    (``ladder_cell``). Prints a ``{"surrogate": ...}`` line and returns its
+    dict."""
     import dataclasses
 
     import chip_profile
@@ -2704,7 +2858,7 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     routes = {}
     for label, chunk in (("chunked", SURR_CHUNK), ("unchunked", None)):
         routes[label] = k3_route(net_d, lik_d, flat, th_d, et_d, chunk,
-                                 reset_counts)
+                                 reset_counts, library=chunk is not None)
     k3 = {label: r.pop("out") for label, r in routes.items()}
     for label, r in routes.items():
         r.update(route_errors(k3[label], want))
@@ -2713,6 +2867,7 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     default["k3"] = routes
     # the parent's keys: the driver's route, now chunked
     default.update(k3_ms=routes["chunked"]["ms"],
+                   k3_library_ms=routes["chunked"]["library_ms"],
                    k3_workspace_bytes=routes["chunked"]["workspace_bytes"])
     del want, k3
     print(f"surrogate, default numerics: {json.dumps(default)} ({card})",
@@ -2735,8 +2890,89 @@ def surrogate_phase(dev, card, x, y, warm, reset_counts, read_counts):
     # under default numerics, K3 over row chunks on the stepped runner
     out["default_128"] = wide_fleet_cell(dev, card, x, y, warm, flat,
                                          reset_counts, read_counts)
+
+    # (g) the same-state acceptance ladder against the JAX package
+    out["ladder"] = ladder_cell(dev, card, x, y)
     print(json.dumps({"surrogate": out}), flush=True)
+    if not out["ladder"]["passed"]:
+        raise AssertionError(f"ladder off the JAX package's: "
+                             f"{out['ladder']}")
     return out
+
+
+def ladder_cell(dev, card, x, y) -> dict:
+    """Phase 10 (g): the same-state acceptance ladder (``LADDER_STEPS``)
+    on the card against the JAX package's figures (``LADDER_JAX``): for
+    each of its lines, the surrogate from the JAX package's warm start
+    (``SURR_WARM_START``) at ``LADDER_CHAINS`` chains, all at the warm
+    start or ``SURR_EQUILIBRIUM``'s 4 chains twice over, through the chunk
+    runner ``sample_posterior`` builds for ``numerics="exact"`` and
+    ``data_chunk=125,000`` (the stepped runner on the card) for
+    ``LADDER_EPOCHS`` epochs at the line's (eps, L), the hyper block's
+    dual averaging as in a run's first epochs (``ladder_mcmc``). Each
+    rung's ``ladder_figures``, hyper acceptance and z against the JAX
+    package's mean accept probability (the difference over the root of
+    both standard errors squared); fails where a z exceeds ``LADDER_Z`` or
+    a learned sd is more than ``LADDER_SD_RTOL`` from the JAX package's.
+    The ladder exercises the chunk runner only (the driver is held on the
+    CPU), and its rungs differ in power (see ``LADDER_STEPS``). Returns
+    ``{"rungs": [...], "passed": ...}``."""
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    net, lik = surrogate_network(dev, x, y, surrogate_jax_warm_start(),
+                                 LADDER_BURNIN)
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    run = surrogate_runner(net, lik, flat, exact_numerics_model(net.model),
+                           SURR_CHUNK, True, n_chains=LADDER_CHAINS)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rungs = []
+    for ref in LADDER_JAX:
+        eps, steps = ref["eps"], ref["leapfrog"]
+        carry = init_multichain_state(flat.theta, flat.eta,
+                                      SURR_MCMC["hyper_step_size"],
+                                      LADDER_CHAINS)
+        if ref["state"] == "equilibrium":
+            theta, eta = surrogate_equilibrium()
+            reps = LADDER_CHAINS // theta.shape[0]
+            carry = carry._replace(
+                theta=torch.tensor(np.tile(theta, (reps, 1)), device=dev),
+                eta=torch.tensor(np.tile(eta, (reps, 1)), device=dev))
+        t0 = time.perf_counter()
+        carry, trace = run(carry, eps, steps, LADDER_EPOCHS, gen)
+        torch.cuda.synchronize()
+        got = dict(ladder_figures(trace.main_accept.cpu().numpy(),
+                                  trace.eta.cpu().numpy()),
+                   state=ref["state"], eps=eps, leapfrog=steps,
+                   n_chains=LADDER_CHAINS, epochs=LADDER_EPOCHS,
+                   runner=run.runner,
+                   hyper_accept=float(trace.hyper_accept.mean()),
+                   wall_s=time.perf_counter() - t0,
+                   finite=bool(torch.isfinite(carry.theta).all()))
+        se = math.hypot(got["main_accept_se"], ref["main_accept_se"])
+        diff = abs(got["main_accept"] - ref["main_accept"])
+        got["z"] = diff / se if se > 0 else 0.0 if diff == 0 else math.inf
+        got["sd_rel"] = (abs(got["learned_sd"] - ref["learned_sd"])
+                         / ref["learned_sd"])
+        got["jax"] = {k: ref[k] for k in ("main_accept", "main_accept_se",
+                                          "learned_sd", "hyper_accept")}
+        got["passed"] = (got["finite"] and got["z"] <= LADDER_Z
+                         and got["sd_rel"] <= LADDER_SD_RTOL)
+        print(f"(g) ladder, {ref['state']} state, (eps, L) = ({eps:g}, "
+              f"{steps}), {LADDER_CHAINS} chains x {LADDER_EPOCHS} epochs "
+              f"on the {run.runner} runner: main accept "
+              f"{got['main_accept']:.4f} +- {got['main_accept_se']:.4f} "
+              f"(JAX {ref['main_accept']:.4f} +- "
+              f"{ref['main_accept_se']:.4f}, z {got['z']:.2f}, gate "
+              f"{LADDER_Z}), learned sd {got['learned_sd']:.5f} (JAX "
+              f"{ref['learned_sd']:.5f}, gate {LADDER_SD_RTOL:.0%}), hyper "
+              f"accept {got['hyper_accept']:.4f} ({card})", flush=True)
+        rungs.append(got)
+    del net, run, carry, trace
+    torch.cuda.empty_cache()
+    return {"rungs": rungs, "passed": all(r["passed"] for r in rungs)}
 
 
 def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
@@ -2756,7 +2992,8 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     against the mesh-less K3 evaluation and the plain path in float64
     (the float32 plain path's own distance from it reported beside), its
     ms and peak memory; under ``numerics="exact"`` with
-    ``data_chunk=125,000`` (two chunks a shard) 10 epochs, the ms an
+    ``data_chunk=125,000`` (two chunks a shard) ``MESH_EXACT_EPOCHS``
+    epochs, the ms an
     evaluation and the acceptance against the same epochs without the
     mesh; (d) ``multiclass`` tempered (64 chains x 4 rungs, beta_min
     0.5) on 1x2, 3 epochs on the plain path against the mesh-less run (the
@@ -2981,16 +3218,18 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
                    or errs[k]["grad_over_max"] > SURR_GRAD_TOL
                    for k in ("vs_meshless_k3", "vs_float64"))):
         raise AssertionError(f"surrogate K3 on 1x4: {default}")
-    # 10 epochs under the exact preset (the plain path: no kernel), burn-in
-    # 5 so that epochs 6, 8 and 10 are recorded, on 1x4 and without the
-    # mesh from the same seed (the likelihood summed in another order, so
-    # the acceptance is compared, not the bits)
+    # MESH_EXACT_EPOCHS epochs under the exact preset (the plain path: no
+    # kernel), burn-in MESH_EXACT_BURNIN so that epochs 4 and 6 are
+    # recorded, on 1x4 and without the mesh from the same seed (the
+    # likelihood summed in another order, so the acceptance is compared,
+    # not the bits)
     exact_runs = {}
     for label, m in (("meshless", None), ("1x4", mesh(1, 4))):
-        net_e, lik_e = surrogate_network(dev, x, y, warm, 5)
+        net_e, lik_e = surrogate_network(dev, x, y, warm, MESH_EXACT_BURNIN)
         reset_counts()
         t0 = time.perf_counter()
-        res_e = net_e.train(10, 2, lik_e, n_chains=SURR_CHAINS,
+        res_e = net_e.train(MESH_EXACT_EPOCHS, 2, lik_e,
+                            n_chains=SURR_CHAINS,
                             chain_jitter=0.0, data_chunk=SURR_CHUNK,
                             numerics="exact", mesh=m, verbose=False)
         torch.cuda.synchronize()
@@ -3006,7 +3245,7 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     th_e, et_e = last_state(res_e, dev)
     exact = {"main_path": res_e.main_path, "fused_hyper": res_e.fused_hyper,
              "launches": counts_e, "train_wall_s": wall_e,
-             "epoch_wall_s": wall_e / 10,
+             "epoch_wall_s": wall_e / MESH_EXACT_EPOCHS,
              "eval_ms": cuda_ms(lambda: pots.main_vg(th_e, et_e), reps=3),
              "meshless_wall_s": exact_runs["meshless"][1],
              "main_accept": float(res_e.main_accept.mean()),
@@ -3119,11 +3358,11 @@ def graph_cells(dev):
              hyper=(30, 1e-3), chunk=50, prof=50, uturn=True,
              a=(3e-3, rng.integers(20, 201, 50)),
              b=(2e-3, rng.integers(20, 201, 50))),
-        # its eager epoch takes 0.18-0.29 s (the plain hyper block): one
-        # chunk of steady epochs
+        # its eager epoch takes 0.18-0.36 s (the plain hyper block): short
+        # chunks, one of them steady
         dict(name="classification 128",
              build=lambda: classification_network(dev), chains=CLS_CHAINS,
-             hyper=(cls["hyper_steps"], 1e-4), chunk=20, prof=5, steady=20,
+             hyper=(cls["hyper_steps"], 1e-4), chunk=5, prof=5, steady=5,
              a=(cls["eps"], cls["steps"]), b=CLS_GROUPS[1]),
         dict(name="multiclass 128", build=lambda: multiclass_network(dev),
              chains=CLS_CHAINS, hyper=(multi["hyper_steps"], 1e-4),
@@ -3141,8 +3380,8 @@ def stepped_cells(dev, warm=None):
     1M-point surrogate at 32 chains under exact numerics (the plain path,
     the Kahan leapfrog, ``data_chunk``, a diagonal metric) and under
     default numerics (K3 over 125,000-row chunks, K2), from the MAP
-    warm start ``warm`` (pretrained here when None), with chunks of 2 and
-    a short steady window. Each spec's ``make(net, lik, flat, eager,
+    warm start ``warm`` (pretrained here when None), in chunks of one
+    epoch, one steady and one profiled. Each spec's ``make(net, lik, flat, eager,
     mesh)`` builds its runner, and ``scale(d)`` gives its step scale."""
     from tensorbnn_tpu_torch.sampler.driver import exact_numerics_model
 
@@ -3180,18 +3419,18 @@ def stepped_cells(dev, warm=None):
                                 mesh=mesh)
         return make
 
-    surr = dict(build=surrogate_net, chains=SURR_CHAINS, chunk=2, prof=1,
-                steady=2, a=(5e-7, 10), b=(4e-7, 15), runner="stepped")
+    surr = dict(build=surrogate_net, chains=SURR_CHAINS, chunk=1, prof=1,
+                steady=1, a=(5e-7, 10), b=(4e-7, 15), runner="stepped")
     return [
         dict(name="wide_deep 64", build=lambda: wide_network(dev),
-             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
+             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=20,
              a=(1e-5, 20), b=(1e-5, 25), runner="stepped",
              max_launches=20 + STEPPED_LAUNCHES_OVER_L),
         dict(name="wide_deep 64 G = 4", build=lambda: wide_network(dev),
-             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=50,
+             chains=64, hyper=(5, 1e-4), chunk=10, prof=10, steady=20,
              a=(w_eps, w_l), b=flip(w_eps, w_l), runner="stepped"),
         dict(name="tutorial 64", build=lambda: tutorial_network(dev),
-             chains=64, hyper=(30, 1e-4), chunk=5, prof=2, steady=5,
+             chains=64, hyper=(30, 1e-4), chunk=2, prof=1, steady=2,
              a=(1e-3, 50), b=(1e-3, 40), runner="stepped"),
         dict(surr, name="surrogate 32 exact", make=surrogate(True),
              scale=scale),
@@ -3373,13 +3612,13 @@ def graph_phase(dev, card, warm=None) -> dict:
 def data_mesh_cells(dev, warm=None):
     """Phase 13's data-mesh cells (``MESH_DATA_CELLS``): ``wide_deep`` at
     64 chains (K3 on each peer's rows, K2's coupled block) as phase 12
-    runs it but over 20 steady epochs; ``multiclass`` tempered at 64
-    chains x 4 rungs (beta_min 0.5; the plain main block, K2), the
-    bench's (eps, L) and (5e-3, 30), chunks of 5, 10 steady epochs; the
-    1M-point surrogate at 32 chains under exact and default numerics (K3
-    on 250,000 rows a peer), from the MAP warm start ``warm`` (pretrained
-    here when None), at (eps, L) = (5e-7, 10) and (4e-7, 15) in chunks
-    of one epoch, one steady and one profiled: four epochs a runner."""
+    runs it; ``multiclass`` tempered at 64 chains x 4 rungs (beta_min
+    0.5; the plain main block, K2), the bench's (eps, L) and (5e-3, 30),
+    chunks of 2, 4 steady epochs; the 1M-point surrogate at 32 chains
+    under exact and default numerics (K3 on 250,000 rows a peer), from
+    the MAP warm start ``warm`` (pretrained here when None), at (eps, L)
+    = (5e-7, 10) and (4e-7, 15) as phase 12 runs it, in chunks of one
+    epoch, one steady and one profiled: four epochs a runner."""
     from tensorbnn_tpu_torch.sampler.tempering import make_ladder
 
     multi = CLS_CELLS["multiclass"]
@@ -3388,12 +3627,9 @@ def data_mesh_cells(dev, warm=None):
     cells["multiclass tempered 64 x 4"] = dict(
         name="multiclass tempered 64 x 4",
         build=lambda: multiclass_network(dev), chains=256,
-        hyper=(multi["hyper_steps"], 1e-4), chunk=5, prof=5, steady=10,
+        hyper=(multi["hyper_steps"], 1e-4), chunk=2, prof=2, steady=4,
         tempering=(4, np.repeat(make_ladder(4, 0.5), 64)),
         a=(multi["eps"], multi["steps"]), b=(5e-3, 30), runner="stepped")
-    cells["wide_deep 64"] = dict(cells["wide_deep 64"], steady=20)
-    for name in ("surrogate 32 exact", "surrogate 32 default"):
-        cells[name] = dict(cells[name], chunk=1, prof=1, steady=1)
     return [dict(cells[name], mesh=shape)
             for name, shape in MESH_DATA_CELLS.items()]
 
@@ -4594,6 +4830,7 @@ def main(argv=None) -> int:
     phase("13 the mesh graph runner against the eager mesh runner")
     print(json.dumps({"mesh_graph": mesh_graph_phase(dev, card, warm)}))
 
+    print(f"chip_smoke: {time.perf_counter() - _START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

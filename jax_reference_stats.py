@@ -38,6 +38,19 @@ ESS, post-burn-in main and hyper acceptance, the fleet means of the final
 block (512 cold chains, beta_min 0.5) and ``--block uturn`` the U-turn
 block (``--probe always|alternate``); ``--seed N`` runs one seed in this
 process.
+
+``JAX_PLATFORMS=cpu python3 jax_reference_stats.py surrogate --warm-start``
+trains the JAX package's MAP warm start of the 1M-point surrogate at the
+bench's settings and writes ``tests/data/surrogate_jax_warm_start.npy``;
+``... surrogate --ladder`` prints the figures of ``chip_smoke.py``'s phase
+10 (g) (``LADDER_JAX``): the JAX package's ``sample_posterior`` over the
+1M rows at 4 chains from the warm start and from
+``tests/data/surrogate_equilibrium.npy``, at each fixed (eps, L) of
+``chip_smoke.LADDER_STEPS`` for 10 epochs, one process a run, all at once
+(``--state S --eps E`` runs one here); ``... surrogate --parity`` runs the
+port on the CPU against the JAX package over the 1M rows from the
+equilibrium state on the JAX package's draws and prints each side's MH
+decisions.
 """
 
 import json
@@ -212,9 +225,212 @@ def quality(args) -> int:
     return rc
 
 
+def surrogate_warm_start() -> dict:
+    """Trains the JAX package's MAP warm start of the surrogate at the
+    bench's settings (run_benchmarks.py:430-436) on the bench's 1M rows and
+    writes it to ``chip_smoke.SURR_WARM_START``: its size and the MSE of
+    its predictions over the rows."""
+    import chip_smoke as cs
+    from tensorbnn_tpu.training.pretrain import train_basic_regression
+
+    x, y = cs.surrogate_data()
+    t0 = time.perf_counter()
+    w, b, _ = train_basic_regression(
+        2, cs.SURROGATE_IN, 1, cs.SURROGATE_WIDTH, cycles=1,
+        epochs=cs.SURROGATE_EPOCHS, alpha=0.1, train_in=x, train_out=y,
+        val_in=x[:4096], val_out=y[:4096], batch_size=cs.SURROGATE_BATCH,
+        callbacks=False, hidden_activation="tanh")
+    flat = cs.flat_warm_start(w, b)
+    path = cs.repo_file(cs.SURR_WARM_START)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, flat)
+    return {"warm_start": cs.SURR_WARM_START, "numbers": int(flat.size),
+            "mse": cs.host_loss(cs.surrogate_jax_warm_start(), x, y, False,
+                                tanh=True),
+            "cpu_seconds": time.perf_counter() - t0}
+
+
+def surrogate_jax_network(x, y):
+    """The bench's ``_surrogate_net`` (run_benchmarks.py:442-453) from the
+    committed warm start instead of its cache: 8-64-64-1 tanh Gaussian
+    dense layers, Network seed 3, the first 256 rows as validation."""
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from tensorbnn_tpu import GaussianDenseLayer, Tanh
+    from tensorbnn_tpu.network import Network
+    from tensorbnn_tpu.training.pretrain import dense_warm_start
+
+    w, b, _ = cs.surrogate_jax_warm_start()
+    dims = cs.surrogate_dims()
+    net = Network(jnp.float32, dims[0], x, y, x[:256], y[:256], seed=3)
+    for i in range(3):
+        net.add(GaussianDenseLayer(dims[i], dims[i + 1]),
+                parameters=dense_warm_start(w, b, i))
+        if i < 2:
+            net.add(Tanh())
+    return net
+
+
+def ladder_run(state: str, eps: float, steps: int) -> dict:
+    """One rung of ``chip_smoke.py``'s phase 10 (g) on the JAX package:
+    ``sample_posterior`` over the surrogate's 1M rows at 4 chains,
+    ``data_chunk=125,000``, ``numerics="exact"``, (eps, L) fixed
+    (``chip_smoke.ladder_mcmc``), ``LADDER_EPOCHS`` epochs, from ``state``
+    ("warm": every chain at the warm start; "equilibrium": the committed
+    state's 4 chains); ``chip_smoke.ladder_figures`` of its per-chain
+    traces."""
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    import tensorbnn_tpu.sampler.driver as j_driver
+    from tensorbnn_tpu import GaussianLikelihood
+
+    x, y = cs.surrogate_data()
+    net = surrogate_jax_network(x, y)
+    net.setup_mcmc(**cs.ladder_mcmc(eps, steps))
+    traces = []
+    saved = (j_driver.make_multichain_chunk_runner,
+             j_driver.init_multichain_state)
+
+    def recording(*args, **kwargs):
+        run = saved[0](*args, **kwargs)
+
+        def wrapped(*a, **k):
+            carry, trace = run(*a, **k)
+            traces.append(trace)
+            return carry, trace
+        return wrapped
+
+    def fleet(*args, **kwargs):
+        carry = saved[1](*args, **kwargs)
+        if state == "equilibrium":
+            theta, eta = cs.surrogate_equilibrium()
+            carry = carry._replace(theta=jnp.asarray(theta),
+                                   eta=jnp.asarray(eta))
+        return carry
+
+    j_driver.make_multichain_chunk_runner = recording
+    j_driver.init_multichain_state = fleet
+    t0 = time.perf_counter()
+    try:
+        net.train(cs.LADDER_EPOCHS, 2, GaussianLikelihood(sd=0.1),
+                  n_chains=4, chain_jitter=0.0, data_chunk=cs.SURR_CHUNK,
+                  numerics="exact", verbose=False)
+    finally:
+        (j_driver.make_multichain_chunk_runner,
+         j_driver.init_multichain_state) = saved
+    accept = np.concatenate([np.asarray(t.main_accept) for t in traces])
+    eta = np.concatenate([np.asarray(t.eta) for t in traces])
+    hyper = np.concatenate([np.asarray(t.hyper_accept) for t in traces])
+    return dict({"state": state, "eps": eps, "leapfrog": steps,
+                 "n_chains": 4, "epochs": int(accept.shape[0])},
+                **cs.ladder_figures(accept, eta),
+                hyper_accept=float(hyper.mean()),
+                cpu_seconds=time.perf_counter() - t0)
+
+
+def ladder(args) -> int:
+    """``surrogate --ladder``: ``ladder_run`` for each state (the warm
+    start, and the equilibrium state once it is committed) and each (eps,
+    L) of ``chip_smoke.LADDER_STEPS``, one process a run, all at once;
+    ``--state S --eps E`` runs one in this process."""
+    import chip_smoke as cs
+
+    opts = dict(zip(args[::2], args[1::2]))
+    if "--state" in opts:
+        eps = float(opts["--eps"])
+        steps = dict(cs.LADDER_STEPS)[eps]
+        print(json.dumps(ladder_run(opts["--state"], eps, steps)),
+              flush=True)
+        return 0
+    states = ["warm"] + (["equilibrium"] if os.path.exists(
+        cs.repo_file(cs.SURR_EQUILIBRIUM)) else [])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "surrogate", "--ladder",
+         "--state", st, "--eps", repr(eps)], stdout=subprocess.PIPE,
+        text=True) for st in states for eps, _ in cs.LADDER_STEPS]
+    rc = 0
+    for p in procs:
+        out, _ = p.communicate()
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        rc = rc or p.returncode
+    return rc
+
+
+def parity(epochs: int = 3, n_chains: int = 2) -> int:
+    """``surrogate --parity``: the port's ``sample_posterior`` on the CPU
+    against the JAX package's over the surrogate's 1M rows from the
+    equilibrium state (its first ``n_chains`` chains), at each (eps, L) of
+    ``chip_smoke.LADDER_STEPS`` for ``epochs`` epochs under
+    ``numerics="exact"``, the port on the JAX package's draws
+    (tests/test_torch_driver_parity.py's ``run_drivers``): a line a rung
+    with each block's MH decisions on both sides, whether they are equal,
+    each side's log accept probabilities and the states' largest
+    difference."""
+    import torch
+
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_driver_parity import _stack, run_drivers
+    from test_torch_surrogate_driver_parity import surrogate_models
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    x, y = cs.surrogate_data()
+    w, b, _ = cs.surrogate_jax_warm_start()
+    theta, eta = cs.surrogate_equilibrium()
+    for eps, steps in cs.LADDER_STEPS:
+        t0 = time.perf_counter()
+        r = run_drivers(n_chains, epochs=epochs, mcmc=cs.ladder_mcmc(
+            eps, steps), problem=lambda: surrogate_models(x, y, w, b),
+            chain_jitter=0.0, sampling_step=2,
+            fleet=(theta[:n_chains], eta[:n_chains]),
+            data_chunk=cs.SURR_CHUNK, numerics="exact")
+        out = {"state": "equilibrium", "eps": eps, "leapfrog": steps,
+               "n_chains": n_chains, "epochs": epochs,
+               "main_path": r["t"].main_path}
+        for block, log_u in (("main", "main_log_u"),
+                             ("hyper", "hyper_log_u")):
+            u = np.stack([getattr(d, log_u).numpy() for d in r["draws"]])
+            acc = {k: _stack(r[k + "_calls"], block + "_accept")
+                   for k in "jt"}
+            with np.errstate(divide="ignore"):
+                dec = {k: (u < np.log(a)).astype(int).tolist()
+                       for k, a in acc.items()}
+            out[block] = {"decisions_equal": dec["j"] == dec["t"],
+                          "jax_decisions": dec["j"],
+                          "port_decisions": dec["t"],
+                          "jax_log_accept": np.log(acc["j"]).tolist(),
+                          "port_log_accept": np.log(acc["t"]).tolist()}
+        out["max_theta_difference"] = float(np.abs(
+            _stack(r["j_calls"], "theta")
+            - _stack(r["t_calls"], "theta")).max())
+        out["cpu_seconds"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def surrogate(args) -> int:
+    """``surrogate --warm-start``, ``--ladder`` or ``--parity``."""
+    if args == ["--warm-start"]:
+        print(json.dumps(surrogate_warm_start()), flush=True)
+        return 0
+    if args[:1] == ["--ladder"]:
+        return ladder(args[1:])
+    if args == ["--parity"]:
+        return parity()
+    print(f"jax_reference_stats: unknown surrogate arguments {args}",
+          file=sys.stderr)
+    return 2
+
+
 def main() -> int:
     if sys.argv[1:] == ["examples"]:
         return examples()
+    if sys.argv[1:2] == ["surrogate"]:
+        return surrogate(sys.argv[2:])
     if sys.argv[1:2] == ["quality"]:
         return quality(sys.argv[2:])
     from benchmarks import run_benchmarks as rb

@@ -83,6 +83,9 @@ CASES = {"g4": (8, 4, 1), "tempered": (4, 1, 2), "tempered4": (4, 1, 4)}
 
 
 def _narrow_flagship():
+    """Both packages' narrow flagship, its likelihood and data, and the JAX
+    package's initial ``(params, hypers)`` (``run_drivers``'
+    ``problem``)."""
     j_layers, t_layers = [], []
     widths = [(1, WIDTH), (WIDTH, WIDTH), (WIDTH, WIDTH), (WIDTH, 1)]
     for i, (a, b) in enumerate(widths):
@@ -94,8 +97,11 @@ def _narrow_flagship():
     x = np.linspace(-2, 2, 11).astype(np.float32)[:, None]
     y = (np.sin(x[:, 0] * math.pi * 2) * x[:, 0]
          - np.cos(x[:, 0] * math.pi)).astype(np.float32)
-    return (JSequential(j_layers), J.FixedGaussianLikelihood(sd=0.1),
-            TSequential(t_layers), T.FixedGaussianLikelihood(sd=0.1), x, y)
+    j_model = JSequential(j_layers)
+    params, hypers = j_model.init(jax.random.key(0))
+    return (j_model, J.FixedGaussianLikelihood(sd=0.1),
+            TSequential(t_layers), T.FixedGaussianLikelihood(sd=0.1), x, y,
+            params, hypers)
 
 
 def _jax_epoch_draws(keys, d, h, tempered):
@@ -121,20 +127,24 @@ def _jax_epoch_draws(keys, d, h, tempered):
 
 
 def _recording(make_runner, calls, jax_side):
-    """``make_runner`` whose runners record each chunk's (eps, L, length)
-    and per-chain trace as numpy."""
+    """``make_runner`` whose runners record each chunk's (eps, L, length,
+    the diagonal metric's step scale or None) and per-chain trace as
+    numpy."""
     def make(*args, **kwargs):
         run = make_runner(*args, **kwargs)
 
         def wrapped(*a, **k):
-            if jax_side:    # (carry, x, y, eps, leap, n)
+            if jax_side:    # (carry, x, y, eps, leap[, scale], n)
                 eps, leap, n = a[3], a[4], a[-1]
+                scale = a[5] if len(a) == 7 else None
             else:           # (carry, eps, leap, n, generator)
                 eps, leap, n = a[1], a[2], a[3]
+                scale = k.get("step_scale")
             carry, trace = run(*a, **k)
             calls.append(dict(
                 eps=np.asarray(eps, np.float32), leap=np.asarray(leap),
-                n=int(n), **{f: np.asarray(getattr(trace, f))
+                n=int(n), scale=None if scale is None else np.asarray(scale),
+                **{f: np.asarray(getattr(trace, f))
                              for f in ("theta", "eta", "main_accept",
                                        "hyper_accept", "swap_accept",
                                        "uturn")
@@ -149,30 +159,54 @@ def _stack(calls, field):
     return np.concatenate([c[field] for c in calls])
 
 
+def _record_scales(mp, driver, made: list) -> None:
+    """``driver.estimate_step_scale`` patched to keep each estimate."""
+    real = driver.estimate_step_scale
+    mp.setattr(driver, "estimate_step_scale", lambda *a, **k: made.append(
+        np.asarray(real(*a, **k))) or made[-1])
+
+
 def run_drivers(n_chains: int, n_adapters: int = 1, tempering: int = 1,
-                epochs: int = EPOCHS, mcmc: dict = MCMC, **extra) -> dict:
+                epochs: int = EPOCHS, mcmc: dict = MCMC, problem=None,
+                chain_jitter: float = 0.05, sampling_step: int = STEP,
+                fleet=None, **extra) -> dict:
     """Both drivers over ``epochs`` epochs of ``n_chains`` cold chains in
     ``n_adapters`` groups (or ``tempering`` rungs at beta_min 0.5), the
     port on the JAX package's draws, under ``mcmc`` and the further
-    ``sample_posterior`` keywords ``extra``:
-    each side's ``RunResult`` and recorded chunks, the draws, and each JAX
-    group's final (eps, L)."""
-    j_model, j_lik, t_model, t_lik, x, y = _narrow_flagship()
-    params, hypers = j_model.init(jax.random.key(0))
-    kw = dict(epochs=epochs, sampling_step=STEP, n_chains=n_chains,
-              n_adapters=n_adapters, chain_jitter=0.05, tempering=tempering,
-              tempering_beta_min=0.5, verbose=False, **extra)
+    ``sample_posterior`` keywords ``extra``. ``problem`` (by default the
+    narrow flagship, ``_narrow_flagship``) gives both packages' model and
+    likelihood, the data and the JAX package's initial ``(params,
+    hypers)``; ``fleet``, a ``(theta (C, D), eta (C, H))`` pair, replaces
+    the initial fleet's states. Returns each side's ``RunResult``, recorded
+    chunks, GP-UCB adapters (``trail`` and ``log``: see
+    ``chip_profile.record_adapters``) and
+    metric estimates, the draws, and each JAX group's final (eps, L)."""
+    j_model, j_lik, t_model, t_lik, x, y, params, hypers = (
+        problem or _narrow_flagship)()
+    kw = dict(epochs=epochs, sampling_step=sampling_step, n_chains=n_chains,
+              n_adapters=n_adapters, chain_jitter=chain_jitter,
+              tempering=tempering, tempering_beta_min=0.5, verbose=False,
+              **extra)
+    from chip_profile import record_adapters
+
     mp = pytest.MonkeyPatch()
     try:
-        j_calls, j_init, j_adapters = [], [], []
+        j_calls, j_init, j_adapters, t_adapters = [], [], [], []
+        j_scales, t_scales = [], []
         real_init = j_driver.init_multichain_state
-        real_adapter = j_driver.MCMCConfig.make_adapter
-        mp.setattr(j_driver.MCMCConfig, "make_adapter",
-                   lambda self, seed=None: j_adapters.append(
-                       real_adapter(self, seed)) or j_adapters[-1])
-        mp.setattr(j_driver, "init_multichain_state",
-                   lambda *a, **k: j_init.append(real_init(*a, **k))
-                   or j_init[-1])
+        record_adapters(j_driver, j_adapters, mp.setattr)
+        record_adapters(t_driver, t_adapters, mp.setattr)
+        _record_scales(mp, j_driver, j_scales)
+        _record_scales(mp, t_driver, t_scales)
+
+        def j_fleet(*a, **k):
+            carry = real_init(*a, **k)
+            if fleet is not None:
+                carry = carry._replace(theta=jnp.asarray(fleet[0]),
+                                       eta=jnp.asarray(fleet[1]))
+            j_init.append(carry)
+            return carry
+        mp.setattr(j_driver, "init_multichain_state", j_fleet)
         mp.setattr(j_driver, "make_multichain_chunk_runner", _recording(
             j_driver.make_multichain_chunk_runner, j_calls, True))
         j_res = j_driver.sample_posterior(
@@ -216,9 +250,13 @@ def run_drivers(n_chains: int, n_adapters: int = 1, tempering: int = 1,
     j_groups = [(float(np.clip(a.current_e, 1e-12, None)), int(a.current_l))
                 for a in j_adapters]
     return dict(j=j_res, t=t_res, j_calls=j_calls, t_calls=t_calls,
-                draws=draws, j_groups=j_groups,
+                draws=draws, j_groups=j_groups, j_adapters=j_adapters,
+                t_adapters=t_adapters, j_scales=j_scales, t_scales=t_scales,
                 n_adapters=max(n_adapters, tempering), tempering=tempering,
                 n_cold=n_chains, epochs=epochs, burnin=mcmc["burnin"],
+                sampling_step=sampling_step,
+                compensated=(extra.get("compensated", False)
+                             or extra.get("numerics") == "exact"),
                 uturn=extra.get("trajectory") == "uturn",
                 model=t_model, lik=t_lik, x=x, y=y, params=params,
                 hypers=hypers)
@@ -304,7 +342,8 @@ def check_slices_and_samples(runs) -> None:
         np.testing.assert_array_equal(t_res.swap_accept_rung,
                                       j_res.swap_accept_rung)
     assert t_res.theta_samples.shape == j_res.theta_samples.shape
-    assert t_res.theta_samples.shape[0] == (epochs - burnin) // STEP
+    step = runs["sampling_step"]
+    assert t_res.theta_samples.shape[0] == epochs // step - burnin // step
     np.testing.assert_allclose(t_res.theta_samples, j_res.theta_samples,
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(t_res.eta_samples, j_res.eta_samples,
@@ -474,6 +513,9 @@ def first_flip(r: dict) -> None:
           f" log-accept ratio JAX {lar['j'][e, ch]:.4f}, port "
           f"{lar['t'][e, ch]:.4f}")
     mom = r["draws"][e].main_momenta[ch:ch + 1]
+    # the diagonal metric's step scale of the epoch's chunk, if any
+    ends = np.cumsum([c["n"] for c in r["j_calls"]])
+    scale = r["j_calls"][int(np.searchsorted(ends, e, side="right"))]["scale"]
     for k in "jt":
         th = _stack(r[k + "_calls"], "theta")[e - 1, ch:ch + 1]
         et = _stack(r[k + "_calls"], "eta")[e - 1, ch:ch + 1]
@@ -481,8 +523,8 @@ def first_flip(r: dict) -> None:
                                   "theta")[e - 1, ch:ch + 1]).max()
         got = []
         for dtype in (torch.float32, torch.float64):
-            flat = flatten_state(*convert.from_jax(r["params"], r["hypers"],
-                                                   {}, dtype=dtype))
+            flat = flatten_state(*convert.from_jax(
+                r["params"], r["hypers"], r["lik"].init_hypers(), dtype=dtype))
             pot = make_potentials(r["model"], r["lik"],
                                   torch.tensor(r["x"], dtype=dtype),
                                   torch.tensor(r["y"], dtype=dtype),
@@ -496,8 +538,10 @@ def first_flip(r: dict) -> None:
             vg = lambda q: pot.main_vg_t(q, et_d, beta)  # noqa: E731
             q0, m = torch.tensor(th, dtype=dtype), mom.to(dtype)
             lp0, _ = vg(q0)
-            _, v, lp1, _ = leapfrog_batched(vg, q0, m, float(eps),
-                                            int(steps))
+            step = (float(eps) if scale is None else float(eps)
+                    * torch.tensor(scale, dtype=dtype).reshape(1, -1))
+            _, v, lp1, _ = leapfrog_batched(vg, q0, m, step, int(steps),
+                                            compensated=r["compensated"])
             got.append(float((lp1 - lp0) + 0.5 * (m * m).sum()
                              - 0.5 * (v * v).sum()))
         print(f"  from the {'JAX' if k == 'j' else 'port'} start (max "
