@@ -70,6 +70,15 @@ those Network seeds (the bench's is 3) without the cell
 (``surrogate_full``), and ``--out DIR`` writes each run's per-epoch figures (and each seed's last
 state) to ``DIR``.
 
+``python3 chip_profile.py classification --full --seeds 11,12`` runs the
+moons example's full MCMC (4,000 epochs, one chain) through
+``Network.train`` at each of those Network seeds from the JAX package's
+warm start (``moons_full``: a ``{"moons_seed": ...}`` line a seed; ``--out
+DIR`` writes each seed's per-epoch figures and last state to ``DIR``), and
+``python3 chip_profile.py classification --band DIR [DIR ...]`` (no card
+needed) puts the seed files of those folders beside the JAX package's
+seeds (``moons_band``).
+
 Then ``pretrain`` (alone: ``python3 chip_profile.py pretrain``):
 ``chip_smoke.pretrain_runners`` at the JAX bench's surrogate pretraining
 (1M x 8 points, 2 x 64 tanh, batch 8,192, 4 epochs) and at the
@@ -506,8 +515,125 @@ def surrogate_full(dev, card, seeds, epochs=600, burnin=200, out_dir=None):
         torch.cuda.empty_cache()
 
 
+def moons_full(dev, card, seeds, out_dir=None):
+    """The moons example's full MCMC run (examples/classification.py:89-
+    105: ``chip_smoke.MOONS_MCMC``, 4,000 epochs, one chain, every 10th
+    epoch recorded into a folder of 50 networks a file, the accuracy
+    metric) through ``Network.train`` at each Network seed of ``seeds``,
+    every run from the JAX package's committed warm start
+    (``chip_smoke.MOONS_WARM_START``). A
+    ``{"moons_seed": ...}`` line a seed: the posterior ensemble's
+    validation accuracy through ``Predictor`` over the run's folder,
+    ``chip_smoke.quality_figures`` (post-burn-in main and hyper
+    acceptance, the final (eps, L), ESS of the predictive probability at
+    the first validation row and the worst parameter's pooled ESS, per
+    second of the run's wall), the run's main path, chunk runner, kernel
+    launches and ``graphs.COUNTS``; with ``out_dir``, each seed's
+    per-epoch acceptance and leapfrog and its last recorded theta and eta
+    (one float32 row) are written there."""
+    import chip_smoke as cs
+    from tensorbnn_tpu_torch import Predictor
+    from tensorbnn_tpu_torch.metrics import Accuracy
+    from tensorbnn_tpu_torch.ops import fused_hyper, fused_mlp
+    from tensorbnn_tpu_torch.parallel import graphs
+
+    epochs, burnin = cs.MOONS_EPOCHS, cs.MOONS_MCMC["burnin"]
+    warm = cs.moons_jax_warm_start()
+    _, _, xv, yv = cs.moons_data()
+    counted = {"K1": fused_mlp.fused_trajectory,
+               "K2": fused_hyper.fused_hyper_trajectory,
+               "K3": fused_mlp.fused_potential}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    for seed in seeds:
+        net, lik = cs.moons_network(dev, seed, warm)
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.LAUNCHES = 0
+        graphs.COUNTS.reset()
+        with tempfile.TemporaryDirectory() as tmp:
+            folder = os.path.join(tmp, "run")
+            t0 = time.perf_counter()
+            res = net.train(epochs, cs.MOONS_STEP, lik,
+                            metric_list=[Accuracy()], adjust_hypers=True,
+                            folder_name=folder,
+                            networks_per_file=cs.MOONS_PER_FILE,
+                            display_skip=max(epochs // 10, 1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.LAUNCHES for k, fn in counted.items()}
+            pred = Predictor(folder, likelihood=lik, device=dev)
+            probs = pred.predict(xv, n=1).mean(axis=0)[:, 0]
+            networks = pred.n_networks
+        if not np.isfinite(res.theta_samples).all():
+            raise AssertionError(f"moons seed {seed}: non-finite samples")
+        figures = cs.quality_figures(f"moons {epochs} epochs", net, res,
+                                     wall, burnin, xq=xv[:1])
+        line = dict(figures, seed=seed, card=card, burnin=burnin,
+                    samples=int(res.theta_samples.shape[0]),
+                    networks=int(networks),
+                    val_accuracy=float(np.mean((probs > 0.5)
+                                               == (yv > 0.5))),
+                    leapfrog_work=float(np.sum(res.leapfrog)),
+                    main_path=res.main_path, fused_hyper=res.fused_hyper,
+                    chunk_runner=res.chunk_runner, launches=launches,
+                    graph_counts=graphs.COUNTS.as_dict())
+        print(json.dumps({"moons_seed": line}), flush=True)
+        if out_dir:
+            with open(os.path.join(out_dir, f"moons_seed{seed}.json"),
+                      "w") as f:
+                json.dump(dict(line, main_accept_per_epoch=res.main_accept
+                               .tolist(), hyper_accept_per_epoch=res
+                               .hyper_accept.tolist(), leapfrog_per_epoch=res
+                               .leapfrog.tolist()), f)
+            np.save(os.path.join(out_dir, f"moons_state_seed{seed}.npy"),
+                    np.concatenate([res.theta_samples[-1, 0],
+                                    res.eta_samples[-1, 0]])[None])
+        del net, res
+        torch.cuda.empty_cache()
+
+
+def moons_band(dirs) -> dict:
+    """The card's full moons seeds (each ``moons_seed*.json`` that
+    ``moons_full`` wrote to one of ``dirs``) against the JAX package's
+    (``chip_smoke.MOONS_JAX_SEEDS``): ``chip_smoke.seed_band`` of
+    ``MOONS_BAND`` and of the hyper acceptance, each side's final (eps, L)
+    and walls, printed as a ``{"moons_band": ...}`` line; ``failed`` names
+    each ``MOONS_BAND`` statistic whose z exceeds ``G4_BAND_Z``."""
+    import glob
+
+    import chip_smoke as cs
+
+    lines = []
+    for d in dirs:
+        for path in glob.glob(os.path.join(d, "moons_seed*.json")):
+            with open(path) as f:
+                lines.append(json.load(f))
+    lines.sort(key=lambda line: line["seed"])
+    ref = cs.MOONS_JAX_SEEDS
+    band = cs.seed_band(lines, ref, cs.MOONS_BAND + ("hyper_accept",))
+    out = {"port_seeds": [line["seed"] for line in lines],
+           "jax_seeds": [line["seed"] for line in ref],
+           "cards": sorted({line["card"] for line in lines}),
+           "z_limit": cs.G4_BAND_Z,
+           "failed": [k for k in cs.MOONS_BAND
+                      if not band[k]["z"] <= cs.G4_BAND_Z],
+           **band,
+           "port_final": cs.finals(lines, ("final_step_size",
+                                           "final_leapfrog")),
+           "jax_final": cs.finals(ref, ("final_step_size",
+                                        "final_leapfrog")),
+           "port_wall_seconds": [line["wall_seconds"] for line in lines],
+           "port_main_path": sorted({line["main_path"] for line in lines})}
+    print(json.dumps({"moons_band": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:2] == ["classification", "--band"] and len(argv) > 2:
+        # the card's seeds against the JAX package's, on the host
+        return 1 if moons_band(argv[2:])["failed"] else 0
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device is available", file=sys.stderr)
         return 2
@@ -541,6 +667,18 @@ def main(argv=None) -> int:
         if full:
             surrogate_full(dev, card, [int(s) for s in opts.get(
                 "--seeds", "3").split(",")], out_dir=opts.get("--out"))
+        return 0
+    if argv[:2] == ["classification", "--full"]:
+        # classification --full [--seeds a,b,...] [--out DIR]
+        opts = dict(zip(argv[2::2], argv[3::2]))
+        if len(argv[2:]) % 2 or set(opts) - {"--seeds", "--out"}:
+            print(f"chip_profile: unknown classification arguments "
+                  f"{argv[1:]}", file=sys.stderr)
+            return 2
+        import chip_smoke as cs
+        moons_full(dev, card, [int(s) for s in opts.get(
+            "--seeds", ",".join(map(str, cs.MOONS_SEEDS))).split(",")],
+            out_dir=opts.get("--out"))
         return 0
     if argv[:1] == ["pretrain"]:
         pretrain_cells(dev, card)

@@ -20,9 +20,11 @@ script exits non-zero:
    near-zero projections; K1 variant (d), from 0.3 N(0, 1) weights: the
    JAX bench's ``classification`` stack at 128 chains (shared and
    per-chain (eps, L)) and tempered at 128 x 4 rungs, ``multiclass`` at
-   128 chains, the learned-sd and Cauchy-compat flagships and a Prelu +
-   LeakyRelu stack at 64; every path of K1's layer table (an elu, a relu
-   after it, a sigmoid and an exp) at 64 chains, L in {1, 2, 3, 40};
+   128 chains, the moons example's stack at one chain over its longest
+   trajectory (L = 2,000), the learned-sd and Cauchy-compat flagships and
+   a Prelu + LeakyRelu stack at 64; every path of K1's layer table (an
+   elu, a relu after it, a sigmoid and an exp) at 64 chains, L in {1, 2,
+   3, 40};
 4. K2 (the fused hyper-block trajectory) against its twin at the hyper
    block of each main path, from the stats of that model's own state: the
    flagship at 64 and 512 chains, 100 steps (uncoupled); the learned-sd
@@ -70,7 +72,17 @@ script exits non-zero:
    the plain path, held to
    the JAX package's acceptance and (classification) a training accuracy
    above 0.9, each printed as a ``{"cell": ...}`` line with its steady
-   steps/sec; the tutorial-shaped model on K3 (6 epochs); the U-turn
+   steps/sec; then the moons stack's same-state acceptance ladder (the
+   moons example's 2-16-16-1 SquarePrelu + Bernoulli stack at 16 chains
+   from the JAX package's warm start and from a committed equilibrium
+   state, three fixed (eps, L) a state, 10 epochs each on K1 (d) and the
+   plain hyper block through the graph runner), failing where the mean
+   main accept probability is more than 3 standard errors from the JAX
+   package's on the same state and rung (``MOONS_LADDER_JAX``), a mean
+   hyper acceptance more than 0.05 from it, or K1 did not run each epoch
+   alone, as a ``{"moons_ladder": ...}`` line (``--moons-only`` runs
+   phases 1, 2 and the ladder alone); the tutorial-shaped model on K3 (6
+   epochs); the U-turn
    quality block
    (``trajectory="uturn"``, 512 chains at ``ess_run``'s settings) under
    the "alternate" and then the "always" probe on K1's U-turn-recording
@@ -128,7 +140,7 @@ script exits non-zero:
    K3; the reference-style shim script and its ``predictor``, as a
    ``{"pretrain": ...}`` line;
 10. the 1M-point surrogate (the JAX bench's ``surrogate_quality_exact``,
-   32 chains, ``data_chunk=125,000``, ``numerics="exact"``, 24 epochs, from
+   32 chains, ``data_chunk=125,000``, ``numerics="exact"``, 12 epochs, from
    phase 9's MAP warm start) through ``Network.train`` on the plain path,
    with no kernel launched: its epochs' wall, the main block's ms an
    evaluation, an epoch's busy time and idle share, peak memory and
@@ -160,7 +172,7 @@ script exits non-zero:
    stats' R and K summed over the data peers (and the flagship's 11 rows
    refused there); the 1M-point
    surrogate on 1x4: K3 on four 250,000-row shards against the mesh-less
-   K3 and the plain path, and 6 epochs under ``numerics="exact"``; a
+   K3 and the plain path, and 4 epochs under ``numerics="exact"``; a
    tempered ``multiclass`` block on 1x2 (the plain main block) against the
    mesh-less swap decisions; the predict cell on 2x2 against the unsharded
    ``predict``, on the eager route and on graphs (a graph an entry),
@@ -174,7 +186,7 @@ script exits non-zero:
    block at 512, the tempered block at 512 x 4, the U-turn block at 512
    with per-epoch counts, ``classification`` and ``multiclass`` at 128):
    two chunks whose (eps, L) differ, bit-equal (carry, traces, the
-   generator's state), then each runner's host ms an epoch over 200 steady
+   generator's state), then each runner's host ms an epoch over 100 steady
    epochs (``classification``, whose eager epoch is slow, over 5), the
    card's busy ms, the idle share, the host's launches an
    epoch, each runner's peak memory and the graph runner's captures with
@@ -413,6 +425,94 @@ CLS_ACCEPT_TOL, CLS_HYPER_TOL = 0.05, 0.15
 CLS_MIN_ACCURACY = 0.9
 # per-chain (eps, L) of K1 (d)'s comparisons at the classification shape
 CLS_GROUPS = ((5e-4, 50), (1e-3, 40), (2e-3, 20), (5e-3, 10))
+# the moons example's full configuration (examples/classification.py:
+# 53-96, the reference's ClassificationExample): 2-16-16-1 with
+# SquarePrelu at alpha 0.55 and a sigmoid head under the Bernoulli
+# likelihood over two_moons(200, seed=0), validated on two_moons(100,
+# seed=1), one chain, every 10th epoch recorded
+MOONS_WIDTH = 16
+MOONS_MCMC = dict(step_size_start=5e-4, step_size_min=1e-5,
+                  step_size_max=5e-3, step_size_options=100,
+                  leapfrog_start=500, leapfrog_min=50, leapfrog_max=2000,
+                  leapfrog_increment=10, hyper_step_size=0.001,
+                  hyper_leapfrog=100, burnin=1000, averaging_steps=10)
+MOONS_EPOCHS, MOONS_STEP, MOONS_PER_FILE = 4000, 10, 50
+# K1 (d) at the full run's shape in phases 3 and 8: one chain at the
+# example's first step size and its longest trajectory
+MOONS_K1_LABEL = "K1 (d) moons C=1 (eps, L)=(0.0005, 2000)"
+# the Network seeds of the full runs on both sides (the example's is 42)
+MOONS_SEEDS = tuple(range(11, 21))
+# the statistics of the full runs compared over seeds (`chip_profile.py
+# classification --band`), each gated at z <= G4_BAND_Z
+MOONS_BAND = ("val_accuracy", "main_accept", "total_ess", "min_param_ess")
+# the JAX package's full moons runs from MOONS_WARM_START at MOONS_SEEDS on
+# its XLA path on the CPU, one entry a seed, as printed by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py classification
+# (the n_chains, epochs and cpu_seconds keys left out): statistics of the
+# sampler, not of any chip
+MOONS_JAX_SEEDS = (
+    dict(seed=11, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.39821362495422363, hyper_accept=0.9541516900062561,
+         final_step_size=0.0009172727272727274, final_leapfrog=2000,
+         total_ess=287.97731140028054, min_param_ess=9.511118860549928,
+         median_param_ess=26.27570935394781),
+    dict(seed=12, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.4009252190589905, hyper_accept=0.9120457172393799,
+         final_step_size=0.003941515151515152, final_leapfrog=2000,
+         total_ess=162.7519133086936, min_param_ess=8.73937201502521,
+         median_param_ess=22.368927593730184),
+    dict(seed=13, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.37790194153785706, hyper_accept=0.4389374256134033,
+         final_step_size=0.0010684848484848488, final_leapfrog=2000,
+         total_ess=300.0, min_param_ess=7.41980764474837,
+         median_param_ess=10.574840190592628),
+    dict(seed=14, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.3325577676296234, hyper_accept=0.9411110877990723,
+         final_step_size=1e-05, final_leapfrog=1620, total_ess=300.0,
+         min_param_ess=8.865211030084282, median_param_ess=29.241574757015073),
+    dict(seed=15, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.0946865975856781, hyper_accept=0.9435282945632935,
+         final_step_size=0.0009676767676767679, final_leapfrog=2000,
+         total_ess=300.0, min_param_ess=8.786098550548942,
+         median_param_ess=21.543564937629625),
+    dict(seed=16, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.06668706983327866, hyper_accept=0.960991382598877,
+         final_step_size=0.0025302020202020207, final_leapfrog=1030,
+         total_ess=300.0, min_param_ess=9.928640731667944,
+         median_param_ess=18.752818434964766),
+    dict(seed=17, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.06761437654495239, hyper_accept=0.9418336749076843,
+         final_step_size=0.0025302020202020207, final_leapfrog=1030,
+         total_ess=300.0, min_param_ess=8.888186345472308,
+         median_param_ess=25.2290712967106),
+    dict(seed=18, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.2422250509262085, hyper_accept=0.9285777807235718,
+         final_step_size=1e-05, final_leapfrog=50, total_ess=300.0,
+         min_param_ess=10.969621003539979, median_param_ess=26.05197622592587),
+    dict(seed=19, samples=300, networks=300, val_accuracy=0.99,
+         main_accept=0.04214572161436081, hyper_accept=0.938606858253479,
+         final_step_size=0.0024797979797979803, final_leapfrog=1020,
+         total_ess=300.0, min_param_ess=8.449905826817227,
+         median_param_ess=28.199843774979612),
+    dict(seed=20, samples=300, networks=300, val_accuracy=0.98,
+         main_accept=0.3249059319496155, hyper_accept=0.91438889503479,
+         final_step_size=0.005, final_leapfrog=50, total_ess=300.0,
+         min_param_ess=7.737109916031604, median_param_ess=11.135204535970392),
+)
+# the JAX package's warm start of the moons stack at the example's full
+# pretraining (train_basic_classification, 2 cycles x 80 epochs, alpha 0.1,
+# train_slopes=True), trained on the CPU by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py classification \
+#       --warm-start
+# and kept as the Network's flat theta (each dense layer's b, then its
+# (in, out) W; each SquarePrelu's slopes as squareprelu_warm_start makes
+# them), float32
+MOONS_WARM_START = "tests/data/moons_jax_warm_start.npy"
+# a state at equilibrium: the last recorded theta and eta of seeds 11-14 of
+# `chip_profile.py classification --full` on the card (epoch 4,000 of a run
+# from MOONS_WARM_START; NVIDIA H100 80GB HBM3, 700 W), one float32 row a
+# seed, theta then eta
+MOONS_EQUILIBRIUM = "tests/data/moons_equilibrium.npy"
 # rows of the tutorial-shaped model: 80% of MNIST's 11,982 training 3s and 8s
 TUTORIAL_ROWS = 9585
 # phase 7: the flagship at the verify recipe over 64 chains, recorded every
@@ -464,9 +564,9 @@ EXAMPLE_RMSE_FACTOR, EXAMPLE_ACCURACY_DROP = 1.5, 0.05
 # and MAP warm start, 8-64-64-1 tanh Gaussian dense layers,
 # GaussianLikelihood(sd=0.1) with a learned sd, 32 chains without jitter,
 # data_chunk=125,000, numerics="exact", the exact-numerics grid; only the
-# epochs are cut (600 -> 24, burn-in 200 -> 20) to fit this script's time
+# epochs are cut (600 -> 12, burn-in 200 -> 8) to fit this script's time
 SURR_CHAINS, SURR_CHUNK = 32, 125_000
-SURR_EPOCHS, SURR_BURNIN, SURR_SAMPLING = 24, 20, 2
+SURR_EPOCHS, SURR_BURNIN, SURR_SAMPLING = 12, 8, 2
 SURR_MCMC = dict(step_size_start=5e-7, step_size_min=1e-8,
                  step_size_max=5e-5, step_size_options=40, leapfrog_start=10,
                  leapfrog_min=5, leapfrog_max=15, leapfrog_increment=5,
@@ -556,6 +656,83 @@ LADDER_JAX = (
          main_accept_se=0.0, main_accept_chain=[0.0, 0.0, 0.0, 0.0],
          learned_sd=0.10566012197257649, hyper_accept=0.9240147471427917),
 )
+# phase 6 (e), last: the moons stack's same-state acceptance ladder. From
+# each state ("warm": MOONS_WARM_START, every chain at it; "equilibrium":
+# MOONS_EQUILIBRIUM's 4 rows, each 4 times) the full-width moons stack runs
+# MOONS_LADDER_CHAINS chains at each fixed (eps, L) of that state's
+# MOONS_LADDER_STEPS for MOONS_LADDER_EPOCHS epochs on K1 (d) and the plain
+# hyper block (100 steps from 1e-3, its dual averaging as in the first
+# epochs of the full run: `moons_ladder_mcmc`), through the graph runner.
+# It fails where the mean main accept probability is more than
+# MOONS_LADDER_Z standard errors (over chains, both sides) from the JAX
+# package's on the same state and rung, or the mean hyper acceptance more
+# than MOONS_HYPER_TOL from it. Each state's rungs span the top of the
+# example's step grid down to where the JAX package accepts 0.2-0.8: the
+# posterior at equilibrium is far narrower than at the warm start, where
+# (5e-3, 100), which the warm start accepts at 0.975, accepts nothing
+MOONS_LADDER_STEPS = {"warm": ((5e-3, 100), (1e-2, 100), (2e-2, 50)),
+                      "equilibrium": ((3e-4, 100), (1e-3, 100),
+                                      (2e-3, 100))}
+MOONS_LADDER_EPOCHS, MOONS_LADDER_CHAINS = 10, 16
+MOONS_LADDER_Z, MOONS_HYPER_TOL = 3.0, 0.05
+# the JAX package's figures at each state and rung (MOONS_LADDER_CHAINS chains
+# on the CPU), as printed by
+#   JAX_PLATFORMS=cpu python3 jax_reference_stats.py classification --ladder
+# (the n_chains, epochs and cpu_seconds keys left out): statistics of the
+# sampler, not of any chip
+MOONS_LADDER_JAX = (
+    dict(state='warm', eps=0.005, leapfrog=100, main_accept=0.9751654554158449,
+         main_accept_se=0.0030416739017633905,
+         main_accept_chain=[0.995827031135559, 0.966376394033432,
+         0.9555021524429321, 0.978502756357193, 0.9746471226215363,
+         0.9918704628944397, 0.9734610617160797, 0.9819475471973419,
+         0.9826388120651245, 0.9870263159275054, 0.9740806698799134,
+         0.9577146589756012, 0.9871228516101838, 0.9694081723690033,
+         0.959488695859909, 0.9670325815677643],
+         hyper_accept=0.513572096824646),
+    dict(state='warm', eps=0.01, leapfrog=100, main_accept=0.8027366029222156,
+         main_accept_se=0.04532065330495298,
+         main_accept_chain=[0.9208679020404815, 0.8775564670562744,
+         0.7813147503795335, 0.8732721073552966, 0.6376205861571421,
+         0.9114259839057922, 0.8491260290145874, 0.8579911947250366,
+         0.1736117184360251, 0.8571830570697785, 0.8786990642547607,
+         0.8620548278093338, 0.8936759293079376, 0.7765651643276215,
+         0.8085905075073242, 0.8842303574085235],
+         hyper_accept=0.4772094786167145),
+    dict(state='warm', eps=0.02, leapfrog=50, main_accept=0.4938313123350296,
+         main_accept_se=0.04019062650058094,
+         main_accept_chain=[0.8380506753921508, 0.44425399475730953,
+         0.4851819097995758, 0.47141578793525696, 0.53418670296669,
+         0.41767046935856345, 0.27438350140294515, 0.7090768694877625,
+         0.2133205589838326, 0.42801597126641544, 0.40904385363683105,
+         0.4069859567288631, 0.6911714792251586, 0.4137182507443214,
+         0.5303255259608705, 0.6344994897139259],
+         hyper_accept=0.5105018615722656),
+    dict(state='equilibrium', eps=0.0003, leapfrog=100,
+         main_accept=0.9495951696600432, main_accept_se=0.02389274226877794,
+         main_accept_chain=[0.999327826499939, 0.9993088960647583,
+         0.9998962640762329, 0.7398718558251858, 0.9884616672992707,
+         0.9992522597312927, 0.9868886470794678, 0.7438876814942489,
+         0.9992410898208618, 0.9985421538352967, 0.9962539553642273,
+         0.9466664612293243, 0.9993544340133667, 0.9999222040176392,
+         0.9996967613697052, 0.7969505568398745],
+         hyper_accept=0.43870535492897034),
+    dict(state='equilibrium', eps=0.001, leapfrog=100,
+         main_accept=0.6586378042511607, main_accept_se=0.09951096539514284,
+         main_accept_chain=[0.8577217578887939, 0.9497941613197327,
+         0.7584444878622889, 0.0011450447142124175, 0.7741089154034853,
+         0.9960048019886016, 0.7193891327828169, 0.0, 0.9722859978675842,
+         0.98500936627388, 0.5578888778989495, 3.01072446973194e-08,
+         0.9342168509960175, 0.9757546305656433, 0.9674826860427856,
+         0.08895812630653381], hyper_accept=0.44433221220970154),
+    dict(state='equilibrium', eps=0.002, leapfrog=100,
+         main_accept=0.226575619314143, main_accept_se=0.06065412148087222,
+         main_accept_chain=[0.4695008537605858, 0.4599957799335243,
+         0.0024138990254684244, 0.0, 0.29203150540326517, 0.7090729501098394,
+         0.1, 0.0, 0.3432535719256219, 0.4507952188083436,
+         5.353245846606569e-10, 0.0, 0.13533923838658057, 0.5714171776548028,
+         0.09138971348293126, 0.0], hyper_accept=0.4499245285987854),
+)
 # phase 11: the (chains, data) mesh on a virtual mesh of this card. (a) the
 # flagship on 4x1 against the mesh-less run: the same MH decisions and
 # samples within this fraction of their largest entry (a chain shard's 16
@@ -578,12 +755,12 @@ MESH_STATS_RTOL = 1e-6
 # mean main and hyper acceptance within this distance (the two sum the
 # likelihood in other orders, so the chains part by ulps)
 MESH_ACCEPT_TOL = 0.05
-MESH_EXACT_EPOCHS, MESH_EXACT_BURNIN = 6, 2
+MESH_EXACT_EPOCHS, MESH_EXACT_BURNIN = 4, 2
 # (e) the predict cell on 2x2 against the unsharded predict: each block's
 # batched products have other shapes, which may sum in another order
 MESH_PREDICT_TOL = 1e-6
 # phase 12: the steady epochs each runner is timed over in each K1 cell
-GRAPH_STEADY = 200
+GRAPH_STEADY = 100
 # phase 12's stepped cells: wide_deep's per-chain (eps, L) in four groups
 # of 16 chains; the host launches an epoch the stepped runner may issue
 # at wide_deep over L (head and tail replays and the trace's row copies);
@@ -723,6 +900,96 @@ def multiclass_network(device, seed=0):
     net.add(GaussianDenseLayer(2, 8)).add(Tanh())
     net.add(GaussianDenseLayer(8, 3)).add(Softmax())
     return net, CategoricalLikelihood()
+
+
+def moons_data():
+    """The moons example's rows: ``(x_train, y_train, x_val, y_val)``,
+    two_moons(200, seed=0) and two_moons(100, seed=1)."""
+    from tensorbnn_tpu_torch.examples.classification import two_moons
+    return (*two_moons(200, seed=0), *two_moons(100, seed=1))
+
+
+def moons_template() -> tuple:
+    """The moons stack's params as zeros, one dict a layer (the sigmoid's
+    empty), in the Network's layer order."""
+    dims, layers = [2, MOONS_WIDTH, MOONS_WIDTH, 1], []
+    for i in range(3):
+        layers.append({"b": np.zeros(dims[i + 1], np.float32),
+                       "w": np.zeros((dims[i], dims[i + 1]), np.float32)})
+        layers.append({"slopes": np.zeros(MOONS_WIDTH, np.float32)}
+                      if i < 2 else {})
+    return tuple(layers)
+
+
+def moons_parameters(flat) -> list:
+    """A flat moons theta (``MOONS_WARM_START``'s order) as the
+    ``parameters=`` of each layer ``Network.add`` takes (None for the
+    sigmoid)."""
+    from tensorbnn_tpu_torch.sampler.potential import _make_unravel
+
+    unravel = _make_unravel(moons_template())
+    if np.size(flat) != unravel.size:
+        raise ValueError(f"a moons theta holds {unravel.size} numbers, "
+                         f"not {np.size(flat)}")
+    return [{k: np.asarray(v, np.float32) for k, v in p.items()} or None
+            for p in unravel(np.asarray(flat, np.float32))]
+
+
+def flat_moons(parameters) -> np.ndarray:
+    """``moons_parameters``' inverse: the layers' override dicts (None for
+    the sigmoid) as one float32 theta."""
+    from tensorbnn_tpu_torch.sampler.potential import tree_leaves
+    return np.concatenate([np.ravel(np.asarray(a, np.float32))
+                           for a in tree_leaves([p or {} for p in
+                                                 parameters])])
+
+
+def moons_jax_warm_start() -> list:
+    """The committed JAX warm start (``MOONS_WARM_START``) as each layer's
+    ``parameters=``."""
+    return moons_parameters(np.load(repo_file(MOONS_WARM_START)))
+
+
+def moons_equilibrium() -> tuple:
+    """``MOONS_EQUILIBRIUM`` as ``(theta (4, D), eta (4, H))``."""
+    rows = np.load(repo_file(MOONS_EQUILIBRIUM))
+    d = flat_moons(moons_template()).size
+    return rows[:, :d], rows[:, d:]
+
+
+def moons_probs(parameters, x) -> np.ndarray:
+    """The moons stack's sigmoid output at the rows ``x`` (float64 on the
+    host) for one set of ``moons_parameters``."""
+    h = np.asarray(x, np.float64)
+    for i in range(3):
+        h = h @ parameters[2 * i]["w"] + parameters[2 * i]["b"]
+        if i < 2:
+            h = np.where(h < 0, parameters[2 * i + 1]["slopes"].astype(
+                np.float64) ** 2 * h, h)
+    return 0.5 * (1.0 + np.tanh(0.5 * h[:, 0]))
+
+
+def moons_network(device, seed=42, parameters=None):
+    """The moons example's Network (examples/classification.py:70-82) on
+    ``device`` at Network seed ``seed`` (the example's 42), each layer
+    warm-started from ``parameters`` (``moons_parameters``; None: the
+    Network's init), with ``MOONS_MCMC``, and its Bernoulli likelihood."""
+    from tensorbnn_tpu_torch import BernoulliLikelihood, GaussianDenseLayer, \
+        Network, Sigmoid, SquarePrelu
+
+    x, y, xv, yv = moons_data()
+    parameters = parameters or [None] * 5
+    net = Network(torch.float32, 2, x, y, xv, yv, seed=seed, device=device)
+    dims = [2, MOONS_WIDTH, MOONS_WIDTH, 1]
+    for i in range(3):
+        net.add(GaussianDenseLayer(dims[i], dims[i + 1]),
+                parameters=parameters[2 * i])
+        if i < 2:
+            net.add(SquarePrelu(MOONS_WIDTH, alpha=0.55),
+                    parameters=parameters[2 * i + 1])
+    net.add(Sigmoid())
+    net.setup_mcmc(**MOONS_MCMC)
+    return net, BernoulliLikelihood()
 
 
 def tutorial_data():
@@ -980,14 +1247,16 @@ def uturn_extra(res, probe) -> dict:
 def seed_band(port, ref, keys=G4_BAND) -> dict:
     """For each statistic in ``keys`` over the port's seed lines ``port``
     and the JAX package's ``ref``: each side's mean and sample sd, and
-    ``z = |mean_p - mean_j| / sqrt(sd_p^2 / n_p + sd_j^2 / n_j)``."""
+    ``z = |mean_p - mean_j| / sqrt(sd_p^2 / n_p + sd_j^2 / n_j)`` (0 where
+    every seed on both sides gives the same value)."""
     band = {}
     for key in keys:
         p = np.asarray([line[key] for line in port], np.float64)
         j = np.asarray([line[key] for line in ref], np.float64)
         sp, sj = p.std(ddof=1), j.std(ddof=1)
         se = math.sqrt(sp ** 2 / p.size + sj ** 2 / j.size)
-        z = abs(p.mean() - j.mean()) / se if se > 0 else math.inf
+        diff = abs(p.mean() - j.mean())
+        z = diff / se if se > 0 else 0.0 if diff == 0 else math.inf
         band[key] = {"port_mean": p.mean(), "port_sd": sp,
                      "jax_mean": j.mean(), "jax_sd": sj, "z": z}
     return band
@@ -1302,6 +1571,29 @@ def product_flops(ops, n):
     dense = [(op[1], op[2]) for op in ops if op[0] == "dense"]
     fwd = sum(2 * n * a * b + n * b for a, b in dense)
     return 2 * fwd + sum(2 * n * a * b for a, b in dense[1:])
+
+
+def k1_shape_bound(prog, args, l_c):
+    """K1 (d)'s bound at a shape: each chain's L + 1 evaluations of the
+    dense products plus ~10 FLOP per theta row and evaluation (priors,
+    slopes, leapfrog); inputs theta, mom, eta, x, y, eps, L read once,
+    outputs q, v, lp0, lp1 written once."""
+    theta, eta, _, x, _ = args
+    c, d = theta.shape
+    n, d_in = x.shape
+    evals = float((l_c.to(torch.float64) + 1).sum())
+    return bound(evals * (product_flops(prog.ops, n) + 10 * d),
+                 4 * (4 * c * d + c * eta.shape[1] + n * (d_in + 1)
+                      + 4 * c))
+
+
+def k3_shape_bound(ops, thetas, xs):
+    """K3's bound at a shape: the products (activations and tails under
+    1%); theta read and grad written, x and y read once, ll written."""
+    c, d = thetas.shape
+    n, d_in = xs.shape
+    return bound(c * product_flops(ops, n),
+                 4 * (2 * c * d + n * (d_in + 1) + 2 * c))
 
 
 def torch_func_potential(model, unravel_theta, x, y):
@@ -2419,19 +2711,30 @@ def ladder_mcmc(eps: float, steps: int) -> dict:
                 leapfrog_max=steps, burnin=LADDER_BURNIN)
 
 
-def ladder_figures(accept, eta) -> dict:
+def moons_ladder_mcmc(eps: float, steps: int) -> dict:
+    """``setup_mcmc``'s keywords for a rung of the moons ladder:
+    ``MOONS_MCMC`` with the step grid and the leapfrog options one
+    point."""
+    return dict(MOONS_MCMC, step_size_start=eps, step_size_min=eps,
+                step_size_max=eps, leapfrog_start=steps, leapfrog_min=steps,
+                leapfrog_max=steps)
+
+
+def ladder_figures(accept, eta=None) -> dict:
     """A ladder run's figures from its per-epoch, per-chain main accept
     probabilities ``(E, C)`` and etas ``(E, C, H)``: the mean accept
     probability, its standard error over chains (each chain's mean over
-    the epochs), each chain's mean, and the learned sd (``eta[..., -1] **
-    2``) over every chain and epoch."""
+    the epochs), each chain's mean, and, given ``eta``, the learned sd
+    (``eta[..., -1] ** 2``) over every chain and epoch."""
     per_chain = np.asarray(accept, np.float64).mean(axis=0)
-    return {"main_accept": float(per_chain.mean()),
-            "main_accept_se": float(per_chain.std(ddof=1)
-                                    / math.sqrt(per_chain.size)),
-            "main_accept_chain": per_chain.tolist(),
-            "learned_sd": float(np.mean(np.asarray(eta, np.float64)[..., -1]
-                                        ** 2))}
+    out = {"main_accept": float(per_chain.mean()),
+           "main_accept_se": float(per_chain.std(ddof=1)
+                                   / math.sqrt(per_chain.size)),
+           "main_accept_chain": per_chain.tolist()}
+    if eta is not None:
+        out["learned_sd"] = float(np.mean(np.asarray(eta, np.float64)[..., -1]
+                                          ** 2))
+    return out
 
 
 def surrogate_network(dev, x, y, warm, burnin, precision=None, seed=3):
@@ -2975,6 +3278,92 @@ def ladder_cell(dev, card, x, y) -> dict:
     return {"rungs": rungs, "passed": all(r["passed"] for r in rungs)}
 
 
+def moons_ladder_cell(dev, card, reset_counts, read_counts) -> dict:
+    """Phase 6 (e), last: the moons stack's same-state acceptance ladder
+    (``MOONS_LADDER_STEPS``) on the card against the JAX package's figures
+    (``MOONS_LADDER_JAX``): for each of its lines, the full-width moons
+    stack from the JAX package's warm start (``MOONS_WARM_START``) at
+    ``MOONS_LADDER_CHAINS`` chains, all at the warm start or
+    ``MOONS_EQUILIBRIUM``'s 4 rows each 4 times, through the chunk runner
+    ``sample_posterior`` builds (``chunk_runner``: K1 (d), the plain hyper
+    block, the graph runner) for ``MOONS_LADDER_EPOCHS`` epochs at the
+    line's (eps, L), the hyper block's dual averaging as in the full run's
+    first epochs (its burn-in only ends the averaging, past these epochs
+    at either run's). Each rung's ``ladder_figures``, hyper acceptance and z
+    against the JAX package's mean accept probability (the difference over
+    the root of both standard errors squared); fails where a z exceeds
+    ``MOONS_LADDER_Z``, a mean hyper acceptance is more than
+    ``MOONS_HYPER_TOL`` from the JAX package's, or the rungs did not launch
+    K1 once an epoch and nothing else. The driver over the same
+    likelihoods is held on the CPU by
+    tests/test_torch_classification_driver_parity.py. Returns ``{"rungs":
+    [...], "launches": ..., "passed": ...}``."""
+    from tensorbnn_tpu_torch.parallel.chains import init_multichain_state
+    from tensorbnn_tpu_torch.sampler.potential import flatten_state
+
+    net, lik = moons_network(dev, parameters=moons_jax_warm_start())
+    params, hypers = net.init_state()
+    flat = flatten_state(params, hypers, lik.init_hypers(device=dev))
+    c = MOONS_LADDER_CHAINS
+    run = chunk_runner(net, lik, flat, net.config.hyper_leapfrog,
+                       net.config.hyper_step_size, n_chains=c)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rungs = []
+    reset_counts()
+    t_ladder = time.perf_counter()
+    for ref in MOONS_LADDER_JAX:
+        eps, steps = ref["eps"], ref["leapfrog"]
+        carry = init_multichain_state(flat.theta, flat.eta,
+                                      net.config.hyper_step_size, c)
+        if ref["state"] == "equilibrium":
+            theta_eq, eta_eq = moons_equilibrium()
+            reps = c // theta_eq.shape[0]
+            carry = carry._replace(
+                theta=torch.tensor(np.tile(theta_eq, (reps, 1)), device=dev),
+                eta=torch.tensor(np.tile(eta_eq, (reps, 1)), device=dev))
+        t0 = time.perf_counter()
+        carry, trace = run(carry, eps, steps, MOONS_LADDER_EPOCHS, gen)
+        torch.cuda.synchronize()
+        got = dict(ladder_figures(trace.main_accept.cpu().numpy()),
+                   state=ref["state"], eps=eps, leapfrog=steps, n_chains=c,
+                   epochs=MOONS_LADDER_EPOCHS, runner=run.runner,
+                   hyper_accept=float(trace.hyper_accept.mean()),
+                   wall_s=time.perf_counter() - t0,
+                   finite=bool(torch.isfinite(carry.theta).all()))
+        se = math.hypot(got["main_accept_se"], ref["main_accept_se"])
+        diff = abs(got["main_accept"] - ref["main_accept"])
+        got["z"] = diff / se if se > 0 else 0.0 if diff == 0 else math.inf
+        got["hyper_diff"] = abs(got["hyper_accept"] - ref["hyper_accept"])
+        got["jax"] = {k: ref[k] for k in ("main_accept", "main_accept_se",
+                                          "hyper_accept")}
+        got["passed"] = (got["finite"] and got["z"] <= MOONS_LADDER_Z
+                         and got["hyper_diff"] <= MOONS_HYPER_TOL)
+        print(f"(e) moons ladder, {ref['state']} state, (eps, L) = "
+              f"({eps:g}, {steps}), {c} chains x {MOONS_LADDER_EPOCHS} "
+              f"epochs on the {run.runner} runner: main accept "
+              f"{got['main_accept']:.4f} +- {got['main_accept_se']:.4f} "
+              f"(JAX {ref['main_accept']:.4f} +- "
+              f"{ref['main_accept_se']:.4f}, z {got['z']:.2f}, gate "
+              f"{MOONS_LADDER_Z}), hyper accept {got['hyper_accept']:.4f} "
+              f"(JAX {ref['hyper_accept']:.4f}, gate {MOONS_HYPER_TOL}) "
+              f"({card})", flush=True)
+        rungs.append(got)
+    wall = time.perf_counter() - t_ladder
+    launches = read_counts("moons ladder (K1 (d))")
+    want = len(MOONS_LADDER_JAX) * MOONS_LADDER_EPOCHS
+    routed = (launches["K1"] == want and not launches["K2"]
+              and not launches["K3"])
+    out = {"rungs": rungs, "launches": launches, "wall_s": wall,
+           "passed": routed and all(r["passed"] for r in rungs)}
+    print(json.dumps({"moons_ladder": out}), flush=True)
+    if not out["passed"]:
+        raise AssertionError(f"the moons ladder missed a gate (K1 launches "
+                             f"{launches}, {want} expected): {rungs}")
+    del net, run, carry, trace
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
     """Phase 11: the ``(chains, data)`` mesh on a virtual mesh whose entries
     are all this card (``make_mesh(..., devices=[dev] * n)``), which runs
@@ -3219,10 +3608,9 @@ def mesh_phase(dev, card, x, y, warm, reset_counts, read_counts) -> dict:
                    for k in ("vs_meshless_k3", "vs_float64"))):
         raise AssertionError(f"surrogate K3 on 1x4: {default}")
     # MESH_EXACT_EPOCHS epochs under the exact preset (the plain path: no
-    # kernel), burn-in MESH_EXACT_BURNIN so that epochs 4 and 6 are
-    # recorded, on 1x4 and without the mesh from the same seed (the
-    # likelihood summed in another order, so the acceptance is compared,
-    # not the bits)
+    # kernel), burn-in MESH_EXACT_BURNIN so that epoch 4 is recorded, on
+    # 1x4 and without the mesh from the same seed (the likelihood summed in
+    # another order, so the acceptance is compared, not the bits)
     exact_runs = {}
     for label, m in (("meshless", None), ("1x4", mesh(1, 4))):
         net_e, lik_e = surrogate_network(dev, x, y, warm, MESH_EXACT_BURNIN)
@@ -3656,10 +4044,10 @@ def mesh_graph_phase(dev, card, warm=None) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # --surrogate-only / --mesh-only / --graph-only / --mesh-graph-only /
-    # --pretrain-only / --predict-only / --quality-only: phases 1, 2 and
-    # 10 / 11 / 12 / 13 / 9 / 7 (e) and 11 (e) / 6's three seed bands (G =
-    # 4, tempered, U-turn "always") alone (a quick check of that phase; no
-    # kernels line)
+    # --pretrain-only / --predict-only / --quality-only / --moons-only:
+    # phases 1, 2 and 10 / 11 / 12 / 13 / 9 / 7 (e) and 11 (e) / 6's three
+    # seed bands (G = 4, tempered, U-turn "always") / 6 (e)'s moons ladder
+    # alone (a quick check of that phase; no kernels line)
     surrogate_only = argv == ["--surrogate-only"]
     mesh_only = argv == ["--mesh-only"]
     graph_only = argv == ["--graph-only"]
@@ -3667,9 +4055,10 @@ def main(argv=None) -> int:
     pretrain_only = argv == ["--pretrain-only"]
     predict_only = argv == ["--predict-only"]
     quality_only = argv == ["--quality-only"]
+    moons_only = argv == ["--moons-only"]
     if argv and not (surrogate_only or mesh_only or graph_only
                      or mesh_graph_only or pretrain_only or predict_only
-                     or quality_only):
+                     or quality_only or moons_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     phase("1 card")
@@ -3737,6 +4126,15 @@ def main(argv=None) -> int:
                 dev, tmp, net.train_x, net.train_y, lik)}))
         phase("11 (e) the predict cell on 2x2 on both routes")
         print(json.dumps({"predict_2x2": predict_mesh_phase(dev)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if moons_only:
+        phase("6 (e) the moons stack's same-state acceptance ladder")
+        moons_ladder_cell(dev, card, reset_counts, read_counts)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -3923,6 +4321,8 @@ def main(argv=None) -> int:
          torch.tensor(c_l, dtype=torch.int32, device=dev)),
         ("K1 (d) multiclass C=128 (eps, L)=(0.01, 20)",
          *multiclass_network(dev), CLS_CHAINS, 1e-2, 20),
+        (MOONS_K1_LABEL, *moons_network(dev), 1,
+         MOONS_MCMC["step_size_start"], MOONS_MCMC["leapfrog_max"]),
         ("K1 (d) learned-sd flagship C=64 (eps, L)=(0.001, 100)",
          *flagship_network(dev, learned_sd=True), 64, 1e-3, 100),
         ("K1 (d) Cauchy-compat flagship C=64 (eps, L)=(0.001, 100)",
@@ -4464,6 +4864,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"{cell}: {missed} off the gates: {cq}")
         del cnet, cres, crun, ccarry, short_c
 
+    # (e) then the moons stack's same-state acceptance ladder on K1 (d) and
+    # the plain hyper block, held to the JAX package's figures
+    moons_ladder = moons_ladder_cell(dev, card, reset_counts, read_counts)
+
     # (f) the tutorial-shaped model on K3: 64 chains, (eps, L) = (1e-3, 20),
     # 6 epochs, burn-in 3, the tutorial's 30 hyper steps from 1e-5
     # (examples/digits_classification.py:114-120); its hyper block is plain
@@ -4714,19 +5118,25 @@ def main(argv=None) -> int:
     t_evals = float((k1t_shapes[2048][2].to(torch.float64) + 1).sum())
     k1t_bound = bound(t_evals * (product_flops(program.ops, 11) + 7 * d),
                       4 * (4 * 2048 * d + 2048 * h + 11 * 2 + 5 * 2048))
-    # K1 (d) at the classification cell's shape, C = 128, (5e-4, 50): the
-    # dense products plus ~10 FLOP per theta row and evaluation (priors,
-    # slopes, leapfrog); inputs theta, mom, eta, x, y, eps, L, outputs q, v,
-    # lp0, lp1
+    # K1 (d) at each of its shapes (k1_shape_bound); the kernels line
+    # reports it at the classification cell's, C = 128, (5e-4, 50)
     k1d_label = "K1 (d) classification C=128 (eps, L)=(0.0005, 50)"
     k1d_ms, k1d_plain, _ = times[k1d_label]
-    k1d_prog = k1d_shapes[k1d_label][0]
-    cd_ = k1d_prog.dims[2]
-    k1d_bound = bound(CLS_CHAINS * 51 * (product_flops(k1d_prog.ops, 64)
-                                         + 10 * cd_),
-                      4 * (4 * CLS_CHAINS * cd_
-                           + CLS_CHAINS * k1d_prog.eta_dim + 64 * 11
-                           + 4 * CLS_CHAINS))
+    k1d_bounds = {label: k1_shape_bound(prog, args, l_c)
+                  for label, (prog, args, _, l_c) in k1d_shapes.items()}
+    k1d_bound = k1d_bounds[k1d_label]
+    for label, (b_ms, b_by) in k1d_bounds.items():
+        print(f"{label}: bound {b_ms:.5f} ms ({b_by}), kernel "
+              f"{times[label][0]:.4f} ms")
+    # K3 at its digits and flagship shapes (k3_shape_bound)
+    k3_bounds = {label: k3_shape_bound(k3_shapes[label][1],
+                                       k3_shapes[label][2],
+                                       k3_shapes[label][4])
+                 for label in ("K3 categorical digits 64-20-10 C=64 N=1437",
+                               "K3 flagship C=64 N=11")}
+    for label, (b_ms, b_by) in k3_bounds.items():
+        print(f"{label}: bound {b_ms:.5f} ms ({b_by}), kernel "
+              f"{times[label][0]:.4f} ms")
     # K3 at the tutorial shape: the products (slopes and tails under 1%);
     # theta read and grad written, x and y read once, ll written
     tut_ms, tut_plain, _ = times[tut_label]
@@ -4785,7 +5195,9 @@ def main(argv=None) -> int:
          "bound_ms": k1d_bound[0], "bound_by": k1d_bound[1],
          "library_ms": None, "us_per_eval": 1e3 * k1d_ms / 51,
          "shapes_ms": {k: v[0] for k, v in times.items()
-                       if k.startswith("K1 (d)")}},
+                       if k.startswith("K1 (d)")},
+         "shapes_bound_ms": {k: v[0] for k, v in k1d_bounds.items()},
+         "moons_ladder_launches": moons_ladder["launches"]["K1"]},
         # ms at the tutorial shape, launches in its 6-epoch run
         {"name": "K3 fused_potential (Bernoulli tail)", "route": "cuda",
          "source": "tensorbnn_tpu_torch/csrc/fused_potential.cu",
@@ -4796,6 +5208,9 @@ def main(argv=None) -> int:
          "digits_categorical_ms": times[
              "K3 categorical digits 64-20-10 C=64 N=1437"][0],
          "flagship_ms": times["K3 flagship C=64 N=11"][0],
+         "digits_categorical_bound_ms": k3_bounds[
+             "K3 categorical digits 64-20-10 C=64 N=1437"][0],
+         "flagship_bound_ms": k3_bounds["K3 flagship C=64 N=11"][0],
          "plan": k3_shapes[tut_label][0].args[0].plan(64).layers,
          "he_init_grad_err": he_err},
     ]

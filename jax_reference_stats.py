@@ -51,6 +51,19 @@ bench's settings and writes ``tests/data/surrogate_jax_warm_start.npy``;
 port on the CPU against the JAX package over the 1M rows from the
 equilibrium state on the JAX package's draws and prints each side's MH
 decisions.
+
+``JAX_PLATFORMS=cpu python3 jax_reference_stats.py classification
+--warm-start`` trains the JAX package's warm start of the moons example's
+stack at its full pretraining and writes
+``tests/data/moons_jax_warm_start.npy``; ``... classification`` prints the
+figures of the example's full MCMC run (4,000 epochs, one chain) from that
+start at ``chip_smoke.MOONS_SEEDS`` (``MOONS_JAX_SEEDS``), one process a
+seed, all at once (``--seeds a,b,...`` some of them, ``--seed N`` one in
+this process); ``... classification --ladder`` prints the figures of
+``chip_smoke.py``'s moons ladder (``MOONS_LADDER_JAX``): 16 chains for 10
+epochs at each fixed (eps, L) of ``chip_smoke.MOONS_LADDER_STEPS`` from the
+warm start and from ``tests/data/moons_equilibrium.npy``, one process a
+run (``--state S --eps E --leapfrog L`` runs one here).
 """
 
 import json
@@ -202,6 +215,21 @@ def quality_figures(seed: int, block: str = "g4",
     return out
 
 
+def _in_processes(argvs) -> int:
+    """Runs this script with each argument list of ``argvs``, all at once,
+    and prints their standard output in order."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *argv], stdout=subprocess.PIPE, text=True)
+             for argv in argvs]
+    rc = 0
+    for p in procs:
+        out, _ = p.communicate()
+        sys.stdout.write(out)
+        sys.stdout.flush()
+        rc = rc or p.returncode
+    return rc
+
+
 def quality(args) -> int:
     """Runs ``quality_figures`` for each seed, one process a seed, all at
     once, and prints their lines in seed order."""
@@ -212,17 +240,8 @@ def quality(args) -> int:
         print(json.dumps(quality_figures(int(opts["--seed"]), block, probe)),
               flush=True)
         return 0
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "quality", "--block",
-         block, "--probe", probe, "--seed", str(s)],
-        stdout=subprocess.PIPE, text=True) for s in QUALITY_SEEDS]
-    rc = 0
-    for p in procs:
-        out, _ = p.communicate()
-        sys.stdout.write(out)
-        sys.stdout.flush()
-        rc = rc or p.returncode
-    return rc
+    return _in_processes(["quality", "--block", block, "--probe", probe,
+                          "--seed", str(s)] for s in QUALITY_SEEDS)
 
 
 def surrogate_warm_start() -> dict:
@@ -272,23 +291,16 @@ def surrogate_jax_network(x, y):
     return net
 
 
-def ladder_run(state: str, eps: float, steps: int) -> dict:
-    """One rung of ``chip_smoke.py``'s phase 10 (g) on the JAX package:
-    ``sample_posterior`` over the surrogate's 1M rows at 4 chains,
-    ``data_chunk=125,000``, ``numerics="exact"``, (eps, L) fixed
-    (``chip_smoke.ladder_mcmc``), ``LADDER_EPOCHS`` epochs, from ``state``
-    ("warm": every chain at the warm start; "equilibrium": the committed
-    state's 4 chains); ``chip_smoke.ladder_figures`` of its per-chain
-    traces."""
+def fixed_rung_traces(net, epochs: int, sampling_step: int, fleet=None,
+                      **train) -> list:
+    """The chunk traces of ``net.train(epochs, sampling_step, ...)`` on
+    the JAX package (``train``: its further keywords), every chain
+    starting from the Network's state, or from ``fleet = (theta (C, D),
+    eta (C, H))``."""
     import jax.numpy as jnp
 
-    import chip_smoke as cs
     import tensorbnn_tpu.sampler.driver as j_driver
-    from tensorbnn_tpu import GaussianLikelihood
 
-    x, y = cs.surrogate_data()
-    net = surrogate_jax_network(x, y)
-    net.setup_mcmc(**cs.ladder_mcmc(eps, steps))
     traces = []
     saved = (j_driver.make_multichain_chunk_runner,
              j_driver.init_multichain_state)
@@ -302,24 +314,43 @@ def ladder_run(state: str, eps: float, steps: int) -> dict:
             return carry, trace
         return wrapped
 
-    def fleet(*args, **kwargs):
+    def init(*args, **kwargs):
         carry = saved[1](*args, **kwargs)
-        if state == "equilibrium":
-            theta, eta = cs.surrogate_equilibrium()
-            carry = carry._replace(theta=jnp.asarray(theta),
-                                   eta=jnp.asarray(eta))
+        if fleet is not None:
+            carry = carry._replace(theta=jnp.asarray(fleet[0]),
+                                   eta=jnp.asarray(fleet[1]))
         return carry
 
     j_driver.make_multichain_chunk_runner = recording
-    j_driver.init_multichain_state = fleet
-    t0 = time.perf_counter()
+    j_driver.init_multichain_state = init
     try:
-        net.train(cs.LADDER_EPOCHS, 2, GaussianLikelihood(sd=0.1),
-                  n_chains=4, chain_jitter=0.0, data_chunk=cs.SURR_CHUNK,
-                  numerics="exact", verbose=False)
+        net.train(epochs, sampling_step, verbose=False, **train)
     finally:
         (j_driver.make_multichain_chunk_runner,
          j_driver.init_multichain_state) = saved
+    return traces
+
+
+def ladder_run(state: str, eps: float, steps: int) -> dict:
+    """One rung of ``chip_smoke.py``'s phase 10 (g) on the JAX package:
+    ``sample_posterior`` over the surrogate's 1M rows at 4 chains,
+    ``data_chunk=125,000``, ``numerics="exact"``, (eps, L) fixed
+    (``chip_smoke.ladder_mcmc``), ``LADDER_EPOCHS`` epochs, from ``state``
+    ("warm": every chain at the warm start; "equilibrium": the committed
+    state's 4 chains); ``chip_smoke.ladder_figures`` of its per-chain
+    traces."""
+    import chip_smoke as cs
+    from tensorbnn_tpu import GaussianLikelihood
+
+    x, y = cs.surrogate_data()
+    net = surrogate_jax_network(x, y)
+    net.setup_mcmc(**cs.ladder_mcmc(eps, steps))
+    t0 = time.perf_counter()
+    traces = fixed_rung_traces(
+        net, cs.LADDER_EPOCHS, 2, cs.surrogate_equilibrium()
+        if state == "equilibrium" else None,
+        likelihood=GaussianLikelihood(sd=0.1), n_chains=4,
+        chain_jitter=0.0, data_chunk=cs.SURR_CHUNK, numerics="exact")
     accept = np.concatenate([np.asarray(t.main_accept) for t in traces])
     eta = np.concatenate([np.asarray(t.eta) for t in traces])
     hyper = np.concatenate([np.asarray(t.hyper_accept) for t in traces])
@@ -346,17 +377,9 @@ def ladder(args) -> int:
         return 0
     states = ["warm"] + (["equilibrium"] if os.path.exists(
         cs.repo_file(cs.SURR_EQUILIBRIUM)) else [])
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "surrogate", "--ladder",
-         "--state", st, "--eps", repr(eps)], stdout=subprocess.PIPE,
-        text=True) for st in states for eps, _ in cs.LADDER_STEPS]
-    rc = 0
-    for p in procs:
-        out, _ = p.communicate()
-        sys.stdout.write(out)
-        sys.stdout.flush()
-        rc = rc or p.returncode
-    return rc
+    return _in_processes(["surrogate", "--ladder", "--state", st, "--eps",
+                          repr(eps)] for st in states
+                         for eps, _ in cs.LADDER_STEPS)
 
 
 def parity(epochs: int = 3, n_chains: int = 2) -> int:
@@ -426,6 +449,191 @@ def surrogate(args) -> int:
     return 2
 
 
+def moons_jax_network(seed: int, parameters):
+    """The moons example's Network (examples/classification.py:70-82) in
+    the JAX package at Network seed ``seed``, each layer warm-started from
+    ``parameters`` (``chip_smoke.moons_parameters``), with its Bernoulli
+    likelihood."""
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from tensorbnn_tpu import BernoulliLikelihood, GaussianDenseLayer, \
+        Sigmoid, SquarePrelu
+    from tensorbnn_tpu.network import Network
+
+    x, y, xv, yv = cs.moons_data()
+    net = Network(jnp.float32, 2, x, y, xv, yv, seed=seed)
+    dims = [2, cs.MOONS_WIDTH, cs.MOONS_WIDTH, 1]
+    for i in range(3):
+        net.add(GaussianDenseLayer(dims[i], dims[i + 1]),
+                parameters=parameters[2 * i])
+        if i < 2:
+            net.add(SquarePrelu(cs.MOONS_WIDTH, alpha=0.55),
+                    parameters=parameters[2 * i + 1])
+    net.add(Sigmoid())
+    return net, BernoulliLikelihood()
+
+
+def moons_warm_start() -> dict:
+    """Trains the JAX package's warm start of the moons stack at the
+    example's full pretraining (examples/classification.py:57-66: 2 cycles
+    x 80 epochs, alpha 0.1, ``train_slopes=True``) and writes it to
+    ``chip_smoke.MOONS_WARM_START``: its size and its training and
+    validation accuracy."""
+    import chip_smoke as cs
+    from tensorbnn_tpu.training.pretrain import dense_warm_start, \
+        squareprelu_warm_start, train_basic_classification
+
+    x, y, xv, yv = cs.moons_data()
+    t0 = time.perf_counter()
+    w, b, a = train_basic_classification(
+        2, 2, 1, cs.MOONS_WIDTH, 2, 80, alpha=0.1, train_in=x, train_out=y,
+        val_in=xv, val_out=yv, train_slopes=True)
+    flat = cs.flat_moons([dense_warm_start(w, b, 0),
+                          squareprelu_warm_start(a, 0),
+                          dense_warm_start(w, b, 1),
+                          squareprelu_warm_start(a, 1),
+                          dense_warm_start(w, b, 2), None])
+    path = cs.repo_file(cs.MOONS_WARM_START)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, flat)
+    warm = cs.moons_jax_warm_start()
+    return {"warm_start": cs.MOONS_WARM_START, "numbers": int(flat.size),
+            "train_accuracy": float(np.mean(
+                (cs.moons_probs(warm, x) > 0.5) == (y > 0.5))),
+            "val_accuracy": float(np.mean(
+                (cs.moons_probs(warm, xv) > 0.5) == (yv > 0.5))),
+            "cpu_seconds": time.perf_counter() - t0}
+
+
+def moons_seed(seed: int) -> dict:
+    """The moons example's full MCMC run (examples/classification.py:89-
+    105: ``chip_smoke.MOONS_MCMC``, 4,000 epochs, one chain, every 10th
+    epoch recorded into a folder of 50 networks a file, the accuracy
+    metric) from the committed JAX warm start at Network seed ``seed``:
+    the posterior ensemble's validation accuracy through ``Predictor``
+    over the run's folder; post-burn-in main and hyper
+    acceptance; the final (eps, L); ESS of the predictive probability at
+    the first validation row and the worst parameter's pooled ESS (as
+    ``chip_smoke.quality_figures`` takes them); the run's seconds. The
+    example's progress lines go to standard error."""
+    import contextlib
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from tensorbnn_tpu.metrics import Accuracy
+    from tensorbnn_tpu.predictor import Predictor
+    from tensorbnn_tpu.sampler.potential import flatten_state
+    from tensorbnn_tpu.utils.autocorr import effective_sample_size_batch
+
+    net, lik = moons_jax_network(seed, cs.moons_jax_warm_start())
+    net.setup_mcmc(**cs.MOONS_MCMC)
+    _, _, xv, yv = cs.moons_data()
+    epochs, burnin = cs.MOONS_EPOCHS, cs.MOONS_MCMC["burnin"]
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = net.train(epochs, cs.MOONS_STEP, lik,
+                            metric_list=[Accuracy()], adjust_hypers=True,
+                            folder_name=folder,
+                            networks_per_file=cs.MOONS_PER_FILE,
+                            display_skip=max(epochs // 10, 1))
+        wall = time.perf_counter() - t0
+        pred = Predictor(folder, likelihood=lik)
+        probs = pred.predict(xv, n=1).mean(axis=0)[:, 0]
+        networks = pred.n_networks
+    params, hypers = net.init_state()
+    unravel = flatten_state(params, hypers, {}).unravel_theta
+    s, c, d = res.theta_samples.shape
+    series = jax.jit(jax.vmap(lambda th: net.model.apply(
+        unravel(th), jnp.asarray(xv[:1]))[0, 0]))(
+            jnp.asarray(res.theta_samples.reshape(s * c, d)))
+    total = effective_sample_size_batch(
+        np.asarray(series).reshape(s, c).T)
+    param_ess = res.multichain_ess(max_params=256)
+    return {"seed": seed, "epochs": epochs, "n_chains": c,
+            "samples": s, "networks": int(networks),
+            "val_accuracy": float(np.mean((probs > 0.5) == (yv > 0.5))),
+            "main_accept": float(res.main_accept[burnin:].mean()),
+            "hyper_accept": float(res.hyper_accept[burnin:].mean()),
+            "final_step_size": float(res.final_step_size),
+            "final_leapfrog": int(res.final_leapfrog),
+            "total_ess": float(total), "min_param_ess": float(param_ess),
+            "median_param_ess": float(param_ess.median),
+            "cpu_seconds": wall}
+
+
+def moons_ladder_run(state: str, eps: float, steps: int) -> dict:
+    """One rung of ``chip_smoke.py``'s moons ladder (phase 6 (e)) on the
+    JAX package: ``sample_posterior`` (through ``Network.train``) over the
+    moons stack at ``chip_smoke.MOONS_LADDER_CHAINS`` chains, (eps, L)
+    fixed (``chip_smoke.moons_ladder_mcmc``), ``MOONS_LADDER_EPOCHS``
+    epochs, from ``state`` ("warm": every chain at the committed warm
+    start; "equilibrium": the committed state's 4 rows, each 4 times);
+    ``chip_smoke.ladder_figures`` of its per-chain traces and the mean
+    hyper acceptance."""
+    import chip_smoke as cs
+
+    net, lik = moons_jax_network(42, cs.moons_jax_warm_start())
+    net.setup_mcmc(**cs.moons_ladder_mcmc(eps, steps))
+    c = cs.MOONS_LADDER_CHAINS
+    fleet = None
+    if state == "equilibrium":
+        fleet = tuple(np.tile(a, (c // a.shape[0], 1))
+                      for a in cs.moons_equilibrium())
+    t0 = time.perf_counter()
+    traces = fixed_rung_traces(net, cs.MOONS_LADDER_EPOCHS, 1, fleet,
+                               likelihood=lik, n_chains=c,
+                               chain_jitter=0.0)
+    accept = np.concatenate([np.asarray(t.main_accept) for t in traces])
+    hyper = np.concatenate([np.asarray(t.hyper_accept) for t in traces])
+    return dict({"state": state, "eps": eps, "leapfrog": steps,
+                 "n_chains": c, "epochs": int(accept.shape[0])},
+                **cs.ladder_figures(accept),
+                hyper_accept=float(hyper.mean()),
+                cpu_seconds=time.perf_counter() - t0)
+
+
+def classification(args) -> int:
+    """``classification --warm-start``; ``--ladder`` (every state and its
+    rungs, one process each, all at once; ``--state S --eps E --leapfrog
+    L`` runs one here); ``--seeds a,b,...`` (one process a seed, all at once;
+    default ``chip_smoke.MOONS_SEEDS``) or ``--seed N`` (one here)."""
+    import chip_smoke as cs
+
+    if args == ["--warm-start"]:
+        print(json.dumps(moons_warm_start()), flush=True)
+        return 0
+    if args[:1] == ["--ladder"]:
+        opts = dict(zip(args[1::2], args[2::2]))
+        if "--state" in opts:
+            print(json.dumps(moons_ladder_run(
+                opts["--state"], float(opts["--eps"]),
+                int(opts["--leapfrog"]))), flush=True)
+            return 0
+        states = ["warm"] + (["equilibrium"] if os.path.exists(
+            cs.repo_file(cs.MOONS_EQUILIBRIUM)) else [])
+        return _in_processes(
+            ["classification", "--ladder", "--state", st, "--eps",
+             repr(eps), "--leapfrog", str(steps)]
+            for st in states for eps, steps in cs.MOONS_LADDER_STEPS[st])
+    opts = dict(zip(args[::2], args[1::2]))
+    if set(opts) - {"--seed", "--seeds"} or len(args) % 2:
+        print(f"jax_reference_stats: unknown classification arguments "
+              f"{args}", file=sys.stderr)
+        return 2
+    if "--seed" in opts:
+        print(json.dumps(moons_seed(int(opts["--seed"]))), flush=True)
+        return 0
+    seeds = opts.get("--seeds", ",".join(map(str, cs.MOONS_SEEDS)))
+    return _in_processes(["classification", "--seed", s]
+                         for s in seeds.split(","))
+
+
 def main() -> int:
     if sys.argv[1:] == ["examples"]:
         return examples()
@@ -433,6 +641,8 @@ def main() -> int:
         return surrogate(sys.argv[2:])
     if sys.argv[1:2] == ["quality"]:
         return quality(sys.argv[2:])
+    if sys.argv[1:2] == ["classification"]:
+        return classification(sys.argv[2:])
     from benchmarks import run_benchmarks as rb
     from tensorbnn_tpu import BernoulliLikelihood, CategoricalLikelihood, \
         GaussianDenseLayer, Sigmoid, Softmax, SquarePrelu, Tanh
